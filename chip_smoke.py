@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``semantic_merge_tpu_torch``).
+
+Run from the root of a checkout, on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. probe: CUDA must be available; prints the card's name and power limit.
+2. build: compiles every kernel of the port with nvcc (sm_90a).
+3. repo + semdiff: builds a git repository of the bench's ``synth_repo``
+   shape at its rung5 size (10,000 files x 4 decls) whose side branch
+   renames functions in every even file and renames AND retypes the
+   first function of 256 other files, writes a matcher checkpoint from
+   the port's seeded (untrained) initializer, and runs
+   ``semdiff base side --json-out --change-signature --signature-matcher``
+   through the port's CLI under a torch.profiler trace (for the device's
+   idle share). Launch counts and shapes are set to 0 just before and
+   read just after; every kernel of the path must have launched.
+4. kernels: calls each kernel's wrapper on the card at every shape the
+   semdiff launched it with (and at the matcher's cap, a multi-block and
+   wider-head shapes), holds the result against its plain PyTorch
+   version (normalised output and rebased row sums, atol/rtol 2e-3:
+   bf16 inputs, f32 sums in another order), and times, at each path
+   shape, the wrapper, the plain version and one library call
+   (``scaled_dot_product_attention``, a yardstick only) with CUDA events,
+   and the kernel alone on the device with torch.profiler.
+5. reference: the same diff of a small input on the card and on the CPU
+   (plain versions) must give identical op logs, and the card's
+   embeddings must match the CPU's.
+
+Prints the kernels' JSON line, the card line, and last the device JSON.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = pathlib.Path(__file__).resolve().parent
+WORK = REPO / "_smoke"  # scratch git repository and checkpoint (gitignored)
+
+N_FILES, DECLS, N_RETYPED = 10_000, 4, 256
+TOL = 2e-3
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM data sheet
+_SIG_TYPES = ("string", "number", "boolean", "bigint", "symbol", "object",
+              "unknown", "never", "void", "undefined", "null")
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def phase(name: str, t0: float) -> float:
+    now = time.perf_counter()
+    print(f"phase {name}: {now - t0:.3f} s", flush=True)
+    return now
+
+
+# --- phase 3: kernels against their plain versions ---------------------------
+
+def _attention_inputs(torch, b, lq, lk, h, dh, *, dead_rows, seed):
+    """bf16 q/k/v and a ragged key mask; the last ``dead_rows`` batch
+    rows have every key masked, like the matcher's bucket padding."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, lq, h, dh, device="cuda", generator=g).to(torch.bfloat16)
+    k = torch.randn(b, lk, h, dh, device="cuda", generator=g).to(torch.bfloat16)
+    v = torch.randn(b, lk, h, dh, device="cuda", generator=g).to(torch.bfloat16)
+    lengths = torch.randint(1, lk + 1, (b,), device="cuda", generator=g)
+    mask = torch.arange(lk, device="cuda")[None, :] < lengths[:, None]
+    if dead_rows:
+        mask[-dead_rows:] = False
+    return q, k, v, mask.contiguous()
+
+
+def _flash_error(torch, flash, inputs) -> float:
+    pv_k, m_k, l_k = flash.flash_chunk_attention(*inputs)
+    pv_p, m_p, l_p = flash.flash_chunk_attention_plain(*inputs)
+    torch.cuda.synchronize()
+    out_k = pv_k / l_k.transpose(1, 2)[..., None]
+    out_p = pv_p / l_p.transpose(1, 2)[..., None]
+    l_rebased = l_k * torch.exp(m_k - m_p)
+    for name, got, want in (("pv/l", out_k, out_p), ("l", l_rebased, l_p)):
+        if not torch.isfinite(got).all():
+            fail(f"flash_chunk {name}: non-finite values")
+        if not torch.allclose(got, want, atol=TOL, rtol=TOL):
+            fail(f"flash_chunk {name}: max abs err "
+                 f"{(got - want).abs().max().item():.3e} exceeds atol/rtol {TOL}")
+    return (out_k - out_p).abs().max().item()
+
+
+def _time_ms(torch, fn, input_sets, iters=40) -> float:
+    """Mean ms per call with CUDA events, rotating over input sets whose
+    total exceeds the 50 MB L2 so each call reads its inputs from HBM.
+    Host work inside ``fn`` counts where the host cannot keep ahead."""
+    for inputs in input_sets:
+        fn(*inputs)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*input_sets[i % len(input_sets)])
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def _device_events(prof):
+    """(name, start µs, end µs) of every device activity in a trace."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _busy_us(spans) -> float:
+    """Length of the union of (start, end) spans."""
+    busy, edge = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > edge:
+            busy += end - max(start, edge)
+            edge = end
+    return busy
+
+
+def _kernel_device_ms(torch, fn, input_sets, kernel: str, iters=40):
+    """Mean device time per launch of the kernels named ``kernel`` while
+    ``fn`` runs, from a torch.profiler trace; None if the trace holds no
+    such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for inputs in input_sets:
+        fn(*inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*input_sets[i % len(input_sets)])
+        torch.cuda.synchronize()
+    spans = [(s, e) for name, s, e in _device_events(prof) if kernel in name]
+    if not spans:
+        return None
+    return sum(e - s for s, e in spans) / len(spans) / 1e3
+
+
+def _bound_ms(b, lq, lk, h, dh):
+    nbytes = (b * lq * h * dh * 2 + 2 * b * lk * h * dh * 2 + b * lk  # q, k, v bf16 + mask
+              + b * lq * h * dh * 4 + 2 * b * h * lq * 4)  # pv, m, l f32 written once
+    flops = 4 * b * h * lq * lk * dh                # QK^T and PV over every key
+    return nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+
+
+def check_kernels(torch, path_shapes: dict) -> dict:
+    """Holds the kernel against its plain version at every shape the
+    semdiff launched it with (``path_shapes``: shape → launches) and at
+    wider ones, and times it at the path's shapes. The row's times and
+    bound are per launch, weighted by the path's launches at each shape."""
+    import torch.nn.functional as F
+
+    from semantic_merge_tpu_torch import kernels
+    from semantic_merge_tpu_torch.parallel import flash
+
+    shapes = [(f"semdiff path x{n}", *shape, shape[0] // 8)
+              for shape, n in sorted(path_shapes.items())]
+    shapes += [  # (label, B, Lq, Lk, H, Dh, dead rows)
+        ("matcher cap", 512, 64, 64, 8, 32, 64),
+        ("multi-block", 4, 1024, 1000, 8, 32, 1),
+        ("Dh=64", 8, 128, 96, 4, 64, 1),
+        ("Dh=128", 4, 256, 200, 2, 128, 1),
+    ]
+    errs = []
+    for i, (label, b, lq, lk, h, dh, dead) in enumerate(shapes):
+        err = _flash_error(torch, flash, _attention_inputs(
+            torch, b, lq, lk, h, dh, dead_rows=dead, seed=i))
+        errs.append(err)
+        print(f"flash_chunk {label} B={b} Lq={lq} Lk={lk} H={h} Dh={dh}: "
+              f"max abs err {err:.3e} (atol/rtol {TOL})", flush=True)
+
+    def sdpa(q, k, v, mask):  # yardstick only: normalised output, (B, H, L, Dh)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None, None, :])
+
+    per_shape = []
+    for (b, lq, lk, h, dh), n in sorted(path_shapes.items()):
+        sets = [_attention_inputs(torch, b, lq, lk, h, dh, dead_rows=b // 8, seed=100 + s)
+                for s in range(4)]
+        bytes_ms, ops_ms = _bound_ms(b, lq, lk, h, dh)
+        per_shape.append({
+            "B": b, "Lq": lq, "Lk": lk, "H": h, "Dh": dh, "launches": n,
+            "ms": _time_ms(torch, flash.flash_chunk_attention, sets),
+            "device_ms": _kernel_device_ms(torch, flash.flash_chunk_attention, sets,
+                                           "flash_chunk_kernel"),
+            "plain_ms": _time_ms(torch, flash.flash_chunk_attention_plain, sets),
+            "library_ms": _time_ms(torch, sdpa, sets),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        })
+        print(f"flash_chunk timing {json.dumps(per_shape[-1])}", flush=True)
+
+    total = sum(s["launches"] for s in per_shape)
+
+    def mean(key):
+        if any(s[key] is None for s in per_shape):
+            return None
+        return sum(s[key] * s["launches"] for s in per_shape) / total
+
+    kernels_built = sorted(kernels.LAUNCHES)
+    if kernels_built != ["flash_chunk"]:
+        fail(f"unexpected kernel set {kernels_built}")
+    bytes_ms, ops_ms = mean("bytes_ms"), mean("ops_ms")
+    return {
+        "name": "flash_chunk",
+        "route": "cuda",
+        "source": "semantic_merge_tpu_torch/kernels/flash_chunk.cu",
+        "replaces": "semantic_merge_tpu/parallel/flash.py:45",
+        "launches": None,
+        "max_abs_err": max(errs),
+        "ms": mean("ms"),
+        "device_ms": mean("device_ms"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": mean("library_ms"),
+        "shapes": per_shape,
+    }
+
+
+# --- phase 4: the semantic diff end to end -----------------------------------
+
+def _unique_params(idx: int, n_digits: int) -> str:
+    digits = []
+    for _ in range(n_digits):
+        digits.append(_SIG_TYPES[idx % len(_SIG_TYPES)])
+        idx //= len(_SIG_TYPES)
+    return ", ".join(f"p{k}: {t}" for k, t in enumerate(digits))
+
+
+def synth_trees(n_files: int, decls: int, n_retyped: int):
+    """(base, side) path→content maps in the shape of the bench's
+    ``synth_repo``: unique signatures per decl; the side renames the
+    first function of every even file, adds one to every 51st odd file
+    (every 17th in the bench; sparser here so that the residual adds stay
+    under the matcher's cap of 512 candidates), and renames AND retypes
+    (return type number→string) the first function of the first
+    ``n_retyped`` other odd files."""
+    n_digits = 1
+    while len(_SIG_TYPES) ** n_digits < n_files * decls:
+        n_digits += 1
+    base, side = {}, {}
+    retyped = 0
+    for i in range(n_files):
+        path = f"src/mod{i:05d}.ts"
+        content = "\n".join(
+            f"export function fn{i}_{d}({_unique_params(i * decls + d, n_digits)})"
+            f": number {{ return {d}; }}" for d in range(decls)) + "\n"
+        base[path] = content
+        if i % 2 == 0:
+            side[path] = content.replace(f"function fn{i}_0(", f"function renamed{i}_0(")
+        elif i % 51 == 0:
+            side[path] = content + f"export function added{i}(x: string): string {{ return x; }}\n"
+        elif retyped < n_retyped:
+            head, rest = content.split("\n", 1)
+            head = head.replace(f"function fn{i}_0(", f"function reshaped{i}_0(")
+            side[path] = head.replace("): number {", "): string {") + "\n" + rest
+            retyped += 1
+        else:
+            side[path] = content
+    if retyped != n_retyped:
+        raise ValueError(f"only {retyped} files to retype")
+    return base, side
+
+
+def make_repo(root: pathlib.Path, base: dict, side: dict) -> None:
+    env = dict(os.environ, GIT_AUTHOR_DATE="2024-01-01T00:00:00Z",
+               GIT_COMMITTER_DATE="2024-01-02T00:00:00Z",
+               GIT_AUTHOR_NAME="smoke", GIT_AUTHOR_EMAIL="smoke@example.com",
+               GIT_COMMITTER_NAME="smoke", GIT_COMMITTER_EMAIL="smoke@example.com")
+
+    def git(*args):
+        subprocess.run(["git", *args], cwd=root, env=env, check=True,
+                       stdout=subprocess.DEVNULL)
+
+    def write(tree):
+        for path, text in tree.items():
+            (root / path).write_text(text)
+
+    (root / "src").mkdir(parents=True)
+    git("init", "-q", "-b", "base")
+    write(base)
+    git("add", "-A")
+    git("commit", "-q", "-m", "base")
+    git("checkout", "-q", "-b", "side")
+    write(side)
+    git("add", "-A")
+    git("commit", "-q", "-m", "side")
+
+
+def run_semdiff(torch, repo: pathlib.Path, ckpt: pathlib.Path):
+    """Runs the semdiff under a torch.profiler device trace; returns its
+    result, the launch counts and shapes, the op log, the host wall and
+    the device's busy time (union of its activities) in seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_merge_tpu_torch import cli, kernels
+
+    (repo / ".semmerge.toml").write_text(
+        f'[engine]\nmatcher_ckpt_dir = "{ckpt}"\n')
+    args = cli.build_parser().parse_args(
+        ["semdiff", "base", "side", "--json-out", "--change-signature",
+         "--signature-matcher"])
+    cwd = os.getcwd()
+    os.chdir(repo)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = cli.semdiff(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            shapes = {k: dict(v) for k, v in kernels.LAUNCH_SHAPES.items()}
+        text = cli.render(result.ops, json_out=True)
+    finally:
+        os.chdir(cwd)
+    busy = _busy_us([(s, e) for _, s, e in _device_events(prof)]) / 1e6
+    return result, launches, shapes, json.loads(text), wall, busy
+
+
+def check_reference(torch, ckpt: pathlib.Path) -> float:
+    """Small input: the card's op log must equal the CPU's, and the
+    card's embeddings must match the CPU's (plain attention) within 2e-2."""
+    import numpy as np
+
+    from semantic_merge_tpu_torch.backends.ts_torch import TorchTSBackend
+    from semantic_merge_tpu_torch.frontend.snapshot import Snapshot
+    from semantic_merge_tpu_torch.models.signature import EmbeddingSignatureMatcher
+
+    base = ("export function computeTotal(a: number, b: number): number {\n"
+            "  const sum = a + b;\n  return sum * 2;\n}\n"
+            "export function loadWidgets(path: string): string {\n  return path;\n}\n")
+    side = ("export function computeSum(a: string, b: number): number {\n"
+            "  const sum = a + b;\n  return sum * 2;\n}\n"
+            "export function loadWidgets(path: string): string {\n  return path;\n}\n"
+            "export function unrelatedRegistry(keys: boolean): boolean {\n"
+            "  return !keys;\n}\n")
+    logs, embeddings = {}, {}
+    for device in ("cuda", "cpu"):
+        matcher = EmbeddingSignatureMatcher(ckpt_dir=str(ckpt), device=device)
+        ops = TorchTSBackend(device=device).diff(
+            Snapshot(files=[{"path": "a.ts", "content": base}]),
+            Snapshot(files=[{"path": "a.ts", "content": side}]),
+            change_signature=True, signature_matcher=matcher)
+        logs[device] = [op.to_dict() for op in ops]
+        embeddings[device] = matcher.embed_texts([base, side, "let x = 1;"])
+    if logs["cuda"] != logs["cpu"]:
+        fail("small-input op log on the card differs from the CPU's")
+    err = float(np.abs(embeddings["cuda"] - embeddings["cpu"]).max())
+    if not np.isfinite(embeddings["cuda"]).all() or err > 2e-2:
+        fail(f"card embeddings differ from the CPU's by {err:.3e} (atol 2e-2)")
+    return err
+
+
+def main() -> int:
+    if not (REPO / "semantic_merge_tpu_torch" / "kernels" / "flash_chunk.cu").is_file():
+        fail(f"the port's sources are not beside this script in {REPO}")
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    t = time.perf_counter()
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          stdout=subprocess.PIPE, text=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}", flush=True)
+    t = phase("probe", t)
+
+    from semantic_merge_tpu_torch import kernels
+    from semantic_merge_tpu_torch.models.encoder import Encoder, EncoderConfig
+    from semantic_merge_tpu_torch.models.matcher import save_matcher_checkpoint
+
+    for name in sorted(kernels.LAUNCHES):
+        for line in kernels.build(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+    t = phase("build", t)
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    try:
+        repo, ckpt = WORK / "repo", WORK / "ckpt"
+        make_repo(repo, *synth_trees(N_FILES, DECLS, N_RETYPED))
+        encoder = Encoder(EncoderConfig(), generator=torch.Generator().manual_seed(0))
+        save_matcher_checkpoint(ckpt, encoder.state_dict())
+        print(f"repo: {N_FILES} files x {DECLS} decls, {N_RETYPED} renamed+retyped; "
+              "matcher checkpoint: the port's seeded init (seed 0), UNTRAINED "
+              "random weights", flush=True)
+        t = phase("repo", t)
+
+        result, launches, shapes, ops, wall, busy = run_semdiff(torch, repo, ckpt)
+        t = phase("semdiff", t)
+        counts = {}
+        for op in ops:
+            counts[op["type"]] = counts.get(op["type"], 0) + 1
+        print("semdiff phases (s): " + json.dumps(
+            {k: round(v, 4) for k, v in result.phases.items()}))
+        print(f"semdiff wall {wall:.3f} s (under a torch.profiler trace); "
+              f"device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}; "
+              f"ops by type {json.dumps(counts, sort_keys=True)}; "
+              f"changeSignature {counts.get('changeSignature', 0)}; launches {launches}; "
+              f"launch shapes (B, Lq, Lk, H, Dh) {shapes}")
+        missing = [name for name, n in launches.items() if n == 0]
+        if missing:
+            fail(f"kernels never launched on the semdiff path: {missing}")
+        if result.matcher is None or result.matcher.encoder is None:
+            fail("the signature matcher did not run")
+        devices = {p.device.type for p in result.matcher.encoder.parameters()}
+        if devices != {"cuda"}:
+            fail(f"encoder parameters on {devices}, expected cuda")
+        expect_renames = (N_FILES + 1) // 2
+        if counts.get("renameSymbol") != expect_renames:
+            fail(f"{counts.get('renameSymbol')} renameSymbol ops, expected {expect_renames}")
+        if counts.get("deleteDecl", 0) + counts.get("changeSignature", 0) != N_RETYPED:
+            fail(f"deleteDecl + changeSignature != {N_RETYPED}")
+
+        row = check_kernels(torch, shapes["flash_chunk"])
+        t = phase("kernels", t)
+
+        emb_err = check_reference(torch, ckpt)
+        print(f"reference: small-input op log identical on card and CPU; "
+              f"embedding max abs err {emb_err:.3e} (atol 2e-2)")
+        t = phase("reference", t)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+    row["launches"] = launches["flash_chunk"]
+    print(json.dumps({"kernels": [row]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""Hand-written CUDA kernels: build, load and count launches.
+
+Each kernel is one ``.cu`` file in this directory with a plain C entry
+point. It is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
+library the first time a process needs it, and loaded with ``ctypes``;
+pointers and the stream are passed as integers. Libraries land in
+``_build/`` beside the sources, named by a hash of the source and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing here runs at import time, and nothing needs a GPU until a
+kernel is built.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made; a
+wrapper adds one where it launches its kernel and nowhere else, and
+notes the launch's shape in ``LAUNCH_SHAPES``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Dict, Tuple
+
+KERNEL_DIR = pathlib.Path(__file__).resolve().parent
+BUILD_DIR = KERNEL_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: Kernel name → the number of launches its wrapper made.
+LAUNCHES: Dict[str, int] = {"flash_chunk": 0}
+
+#: Kernel name → {launch shape → launches}, recorded beside the count.
+LAUNCH_SHAPES: Dict[str, Dict[Tuple[int, ...], int]] = {"flash_chunk": {}}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a kernel source."""
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        LAUNCH_SHAPES[name].clear()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    found = str(candidate) if candidate.is_file() else shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _library_path(name: str) -> pathlib.Path:
+    source = (KERNEL_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> str:
+    """Compile kernel ``name`` unless its current library exists, and
+    return what ``nvcc`` printed (``ptxas -v``: registers, spills,
+    shared memory), or ``""`` when nothing was built."""
+    out = _library_path(name)
+    if out.is_file():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"{name}: nvcc exit {proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build(name)
+        lib = ctypes.CDLL(str(_library_path(name)))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,80 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU with ``nvcc`` (they build the kernels)
+and are marked ``cuda``; without a card they skip. On the card:
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
+
+They import no JAX (``--noconftest`` skips the suite's JAX set-up), so
+they run where only PyTorch is installed. On the CPU, the wrapper's
+plain path and the launch counter are tested.
+"""
+import pytest
+import torch
+
+from semantic_merge_tpu_torch import kernels
+from semantic_merge_tpu_torch.parallel.flash import (flash_chunk_attention,
+                                                     flash_chunk_attention_plain)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(b, lq, lk, h, dh, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, n, h, dh, generator=g).to(torch.bfloat16)
+               for n in (lq, lk, lk))
+    mask = torch.rand(b, lk, generator=g) < 0.7
+    mask[:, 0] = True
+    mask[-1] = False
+    return [t.to(device) for t in (q, k, v, mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,dh", [
+    (16, 64, 64, 8, 32), (2, 300, 257, 4, 32), (3, 40, 70, 2, 64), (2, 33, 65, 2, 128)])
+def test_flash_chunk_kernel_matches_plain(card, b, lq, lk, h, dh):
+    inputs = _inputs(b, lq, lk, h, dh, card)
+    before = kernels.LAUNCHES["flash_chunk"]
+    pv_k, m_k, l_k = flash_chunk_attention(*inputs)
+    pv_p, m_p, l_p = flash_chunk_attention_plain(*inputs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_chunk"] == before + 1
+    assert kernels.LAUNCH_SHAPES["flash_chunk"][(b, lq, lk, h, dh)] >= 1
+    # bf16 inputs, f32 sums in another order: atol/rtol 2e-3.
+    torch.testing.assert_close(pv_k / l_k.transpose(1, 2)[..., None],
+                               pv_p / l_p.transpose(1, 2)[..., None],
+                               atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(l_k * torch.exp(m_k - m_p), l_p, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_flash_chunk_kernel_rejects_what_it_cannot_take(card):
+    q, k, v, mask = _inputs(2, 8, 8, 2, 32, card)
+    with pytest.raises(ValueError):
+        flash_chunk_attention(q.float(), k, v, mask)
+    with pytest.raises(ValueError):
+        flash_chunk_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask)
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    inputs = _inputs(2, 8, 8, 2, 32, torch.device("cpu"))
+    before = dict(kernels.LAUNCHES)
+    shapes = {k: dict(v) for k, v in kernels.LAUNCH_SHAPES.items()}
+    got = flash_chunk_attention(*inputs)
+    want = flash_chunk_attention_plain(*inputs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernels.LAUNCHES == before
+    assert kernels.LAUNCH_SHAPES == shapes
+
+
+def test_reset_launches():
+    kernels.LAUNCHES["flash_chunk"] += 3
+    kernels.LAUNCH_SHAPES["flash_chunk"][(2, 8, 8, 2, 32)] = 3
+    kernels.reset_launches()
+    assert kernels.LAUNCHES == {"flash_chunk": 0}
+    assert kernels.LAUNCH_SHAPES == {"flash_chunk": {}}
