@@ -8,7 +8,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each fatal on failure:
 
 1. probe: CUDA must be available; prints the card's name and power limit.
-2. build: compiles every kernel of the port with nvcc (sm_90a).
+2. build: compiles every kernel of the port with nvcc (sm_90a), prints
+   ptxas's registers and spills (and fails on a spill) and, where the
+   toolkit has cuobjdump, the SASS counts of HMMA, LDSM, LDGSTS and LDS
+   (and fails if no tensor-core instruction was emitted).
 3. repo + semdiff: builds a git repository of the bench's ``synth_repo``
    shape at its rung5 size (10,000 files x 4 decls) whose side branch
    renames functions in every even file and renames AND retypes the
@@ -19,13 +22,17 @@ Phases, each fatal on failure:
    idle share). Launch counts and shapes are set to 0 just before and
    read just after; every kernel of the path must have launched.
 4. kernels: calls each kernel's wrapper on the card at every shape the
-   semdiff launched it with (and at the matcher's cap, a multi-block and
-   wider-head shapes), holds the result against its plain PyTorch
-   version (normalised output and rebased row sums, atol/rtol 2e-3:
-   bf16 inputs, f32 sums in another order), and times, at each path
-   shape, the wrapper, the plain version and one library call
-   (``scaled_dot_product_attention``, a yardstick only) with CUDA events,
-   and the kernel alone on the device with torch.profiler.
+   semdiff launched it with (and at the matcher's cap, a multi-block,
+   wider-head and ragged edge shapes), holds the result against its
+   plain PyTorch version (normalised output and rebased row sums,
+   atol/rtol 2e-3: bf16 inputs, f32 sums in another order; the plain
+   f32 einsums run with TF32 off) and requires l = Lk on all-masked rows,
+   and times, at each path shape, the wrapper, the plain version and one
+   library call (``scaled_dot_product_attention``, a yardstick only) with
+   CUDA events (and the wrapper's host cost per call), the kernel and the
+   library call on the device with torch.profiler (the kernel's achieved
+   GB/s and share of the bound come from this device time), and both
+   replayed back to back from a CUDA graph.
 5. reference: the same diff of a small input on the card and on the CPU
    (plain versions) must give identical op logs, and the card's
    embeddings must match the CPU's.
@@ -37,6 +44,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -64,7 +72,51 @@ def phase(name: str, t0: float) -> float:
     return now
 
 
-# --- phase 3: kernels against their plain versions ---------------------------
+# --- phase 2: build ----------------------------------------------------------
+
+SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "LDS")
+
+
+def report_ptxas(name: str, log: str) -> None:
+    """Prints ptxas's entry, register and spill lines; fails on a spill."""
+    for line in log.splitlines():
+        if "entry function" in line or "registers" in line or "spill" in line:
+            print(f"ptxas {name}: {line.strip()}")
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and (int(spills.group(1)) or int(spills.group(2))):
+            fail(f"{name}: ptxas reports spills: {line.strip()}")
+
+
+def report_sass(kernels, name: str) -> None:
+    """Prints, per kernel function in the built library, how many HMMA
+    (tensor-core MMA), LDSM (ldmatrix), LDGSTS (cp.async) and LDS
+    instructions its SASS holds; fails if there is SASS but no HMMA."""
+    try:
+        tool = kernels.toolkit_tool("cuobjdump")
+    except kernels.KernelBuildError:
+        print(f"sass {name}: cuobjdump not found, counts not taken")
+        return
+    sass = subprocess.run([tool, "-sass", str(kernels.library_path(name))], check=True,
+                          stdout=subprocess.PIPE, text=True).stdout
+    counts, function = {}, None
+    for line in sass.splitlines():
+        header = re.search(r"Function : (\S+)", line)
+        if header:
+            function = header.group(1)
+            counts[function] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)[.\s]", line)
+        if function and op and op.group(1) in SASS_OPS:
+            counts[function][op.group(1)] += 1
+    for function, ops in counts.items():
+        dh = re.search(r"ILi(\d+)E", function)
+        label = f"Dh={dh.group(1)}" if dh else function[:60]
+        print(f"sass {name} {label}: " + " ".join(f"{k} {v}" for k, v in ops.items()))
+    if counts and not sum(ops["HMMA"] for ops in counts.values()):
+        fail(f"{name}: no HMMA (tensor-core) instruction in the built SASS")
+
+
+# --- phase 4: kernels against their plain versions ---------------------------
 
 def _attention_inputs(torch, b, lq, lk, h, dh, *, dead_rows, seed):
     """bf16 q/k/v and a ragged key mask; the last ``dead_rows`` batch
@@ -80,7 +132,7 @@ def _attention_inputs(torch, b, lq, lk, h, dh, *, dead_rows, seed):
     return q, k, v, mask.contiguous()
 
 
-def _flash_error(torch, flash, inputs) -> float:
+def _flash_error(torch, flash, inputs, dead_rows) -> float:
     pv_k, m_k, l_k = flash.flash_chunk_attention(*inputs)
     pv_p, m_p, l_p = flash.flash_chunk_attention_plain(*inputs)
     torch.cuda.synchronize()
@@ -93,21 +145,50 @@ def _flash_error(torch, flash, inputs) -> float:
         if not torch.allclose(got, want, atol=TOL, rtol=TOL):
             fail(f"flash_chunk {name}: max abs err "
                  f"{(got - want).abs().max().item():.3e} exceeds atol/rtol {TOL}")
+    lk = inputs[1].shape[1]
+    if dead_rows and not bool((l_k[-dead_rows:] == lk).all()):
+        fail(f"flash_chunk: an all-masked row's l is not its Lk={lk} "
+             f"(got {l_k[-dead_rows:].unique().tolist()[:4]})")
     return (out_k - out_p).abs().max().item()
 
 
-def _time_ms(torch, fn, input_sets, iters=40) -> float:
-    """Mean ms per call with CUDA events, rotating over input sets whose
-    total exceeds the 50 MB L2 so each call reads its inputs from HBM.
-    Host work inside ``fn`` counts where the host cannot keep ahead."""
+def _time_ms(torch, fn, input_sets, iters=40):
+    """(event ms, host ms) per call: CUDA events around back-to-back
+    calls, rotating over input sets whose total exceeds the 50 MB L2 so
+    each call reads its inputs from HBM (host work inside ``fn`` counts
+    where the host cannot keep ahead), and the host clock around the same
+    loop before it synchronises (the cost of issuing one call)."""
     for inputs in input_sets:
         fn(*inputs)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for i in range(iters):
         fn(*input_sets[i % len(input_sets)])
+    host = time.perf_counter() - t0
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters, host * 1e3 / iters
+
+
+def _graph_ms(torch, fn, input_sets, iters=40) -> float:
+    """Mean ms per call when ``fn``'s work replays from a CUDA graph of
+    ``iters`` calls: the device's time with no host work between calls."""
+    for inputs in input_sets:
+        fn(*inputs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*input_sets[i % len(input_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
@@ -131,10 +212,11 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def _kernel_device_ms(torch, fn, input_sets, kernel: str, iters=40):
-    """Mean device time per launch of the kernels named ``kernel`` while
-    ``fn`` runs, from a torch.profiler trace; None if the trace holds no
-    such kernel."""
+def _device_ms(torch, fn, input_sets, kernel=None, iters=40):
+    """Mean device time per call of ``fn``: the summed device activities
+    of a torch.profiler trace over ``iters`` calls (only those whose name
+    holds ``kernel``, if given), divided by ``iters``; None if the trace
+    holds none."""
     from torch.profiler import ProfilerActivity, profile
 
     for inputs in input_sets:
@@ -144,17 +226,26 @@ def _kernel_device_ms(torch, fn, input_sets, kernel: str, iters=40):
         for i in range(iters):
             fn(*input_sets[i % len(input_sets)])
         torch.cuda.synchronize()
-    spans = [(s, e) for name, s, e in _device_events(prof) if kernel in name]
+    spans = [(s, e) for name, s, e in _device_events(prof)
+             if kernel is None or kernel in name]
     if not spans:
         return None
-    return sum(e - s for s, e in spans) / len(spans) / 1e3
+    return sum(e - s for s, e in spans) / iters / 1e3
 
 
-def _bound_ms(b, lq, lk, h, dh):
+def _work(b, lq, lk, h, dh):
+    """(bytes, flops) a launch must move and do: each input read once,
+    each output written once; QK^T and PV over every key."""
     nbytes = (b * lq * h * dh * 2 + 2 * b * lk * h * dh * 2 + b * lk  # q, k, v bf16 + mask
               + b * lq * h * dh * 4 + 2 * b * h * lq * 4)  # pv, m, l f32 written once
-    flops = 4 * b * h * lq * lk * dh                # QK^T and PV over every key
-    return nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    return nbytes, 4 * b * h * lq * lk * dh
+
+
+def _roofline(nbytes, device_ms, bound_ms):
+    """Achieved GB/s and the share of the bound, from device time."""
+    if device_ms is None:
+        return None, None
+    return nbytes / (device_ms * 1e-3) / 1e9, bound_ms / device_ms
 
 
 def check_kernels(torch, path_shapes: dict) -> dict:
@@ -174,14 +265,20 @@ def check_kernels(torch, path_shapes: dict) -> dict:
         ("multi-block", 4, 1024, 1000, 8, 32, 1),
         ("Dh=64", 8, 128, 96, 4, 64, 1),
         ("Dh=128", 4, 256, 200, 2, 128, 1),
+        # edges of the 64-row / 64-key tiling
+        ("one query, one key", 4, 1, 1, 8, 32, 1),
+        ("ragged tiles", 6, 17, 65, 8, 32, 1),
+        ("two query blocks", 6, 65, 64, 8, 32, 1),
+        ("Dh=128 long chunk", 3, 130, 1000, 2, 128, 1),
     ]
     errs = []
     for i, (label, b, lq, lk, h, dh, dead) in enumerate(shapes):
         err = _flash_error(torch, flash, _attention_inputs(
-            torch, b, lq, lk, h, dh, dead_rows=dead, seed=i))
+            torch, b, lq, lk, h, dh, dead_rows=dead, seed=i), dead)
         errs.append(err)
         print(f"flash_chunk {label} B={b} Lq={lq} Lk={lk} H={h} Dh={dh}: "
-              f"max abs err {err:.3e} (atol/rtol {TOL})", flush=True)
+              f"max abs err {err:.3e} (atol/rtol {TOL}); all-masked rows: l = Lk",
+              flush=True)
 
     def sdpa(q, k, v, mask):  # yardstick only: normalised output, (B, H, L, Dh)
         return F.scaled_dot_product_attention(
@@ -192,17 +289,25 @@ def check_kernels(torch, path_shapes: dict) -> dict:
     for (b, lq, lk, h, dh), n in sorted(path_shapes.items()):
         sets = [_attention_inputs(torch, b, lq, lk, h, dh, dead_rows=b // 8, seed=100 + s)
                 for s in range(4)]
-        bytes_ms, ops_ms = _bound_ms(b, lq, lk, h, dh)
-        per_shape.append({
+        nbytes, flops = _work(b, lq, lk, h, dh)
+        bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+        ms, host_ms = _time_ms(torch, flash.flash_chunk_attention, sets)
+        row = {
             "B": b, "Lq": lq, "Lk": lk, "H": h, "Dh": dh, "launches": n,
-            "ms": _time_ms(torch, flash.flash_chunk_attention, sets),
-            "device_ms": _kernel_device_ms(torch, flash.flash_chunk_attention, sets,
-                                           "flash_chunk_kernel"),
-            "plain_ms": _time_ms(torch, flash.flash_chunk_attention_plain, sets),
-            "library_ms": _time_ms(torch, sdpa, sets),
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        })
-        print(f"flash_chunk timing {json.dumps(per_shape[-1])}", flush=True)
+            "ms": ms, "host_ms": host_ms,
+            "device_ms": _device_ms(torch, flash.flash_chunk_attention, sets,
+                                    "flash_chunk_kernel"),
+            "graph_ms": _graph_ms(torch, flash.flash_chunk_attention, sets),
+            "plain_ms": _time_ms(torch, flash.flash_chunk_attention_plain, sets)[0],
+            "library_ms": _time_ms(torch, sdpa, sets)[0],
+            "library_device_ms": _device_ms(torch, sdpa, sets),
+            "library_graph_ms": _graph_ms(torch, sdpa, sets),
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        }
+        row["gb_per_s"], row["bound_share"] = _roofline(
+            nbytes, row["device_ms"], max(bytes_ms, ops_ms))
+        per_shape.append(row)
+        print(f"flash_chunk timing {json.dumps(row)}", flush=True)
 
     total = sum(s["launches"] for s in per_shape)
 
@@ -215,6 +320,8 @@ def check_kernels(torch, path_shapes: dict) -> dict:
     if kernels_built != ["flash_chunk"]:
         fail(f"unexpected kernel set {kernels_built}")
     bytes_ms, ops_ms = mean("bytes_ms"), mean("ops_ms")
+    bound_ms = max(bytes_ms, ops_ms)
+    gb_per_s, bound_share = _roofline(mean("bytes"), mean("device_ms"), bound_ms)
     return {
         "name": "flash_chunk",
         "route": "cuda",
@@ -223,16 +330,22 @@ def check_kernels(torch, path_shapes: dict) -> dict:
         "launches": None,
         "max_abs_err": max(errs),
         "ms": mean("ms"),
+        "host_ms": mean("host_ms"),
         "device_ms": mean("device_ms"),
+        "graph_ms": mean("graph_ms"),
         "plain_ms": mean("plain_ms"),
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": mean("library_ms"),
+        "library_device_ms": mean("library_device_ms"),
+        "library_graph_ms": mean("library_graph_ms"),
+        "gb_per_s": gb_per_s,
+        "bound_share": bound_share,
         "shapes": per_shape,
     }
 
 
-# --- phase 4: the semantic diff end to end -----------------------------------
+# --- phase 3: the semantic diff end to end -----------------------------------
 
 def _unique_params(idx: int, n_digits: int) -> str:
     digits = []
@@ -380,6 +493,12 @@ def main() -> int:
                            "--format=csv,noheader"], check=True,
                           stdout=subprocess.PIPE, text=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}", flush=True)
+    # The plain versions' f32 einsums are the references: no TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print(f"references: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()!r}", flush=True)
     t = phase("probe", t)
 
     from semantic_merge_tpu_torch import kernels
@@ -387,9 +506,8 @@ def main() -> int:
     from semantic_merge_tpu_torch.models.matcher import save_matcher_checkpoint
 
     for name in sorted(kernels.LAUNCHES):
-        for line in kernels.build(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        report_ptxas(name, kernels.build(name))
+        report_sass(kernels, name)
     t = phase("build", t)
 
     shutil.rmtree(WORK, ignore_errors=True)

@@ -47,16 +47,19 @@ def reset_launches() -> None:
         LAUNCH_SHAPES[name].clear()
 
 
-def _nvcc() -> str:
+def toolkit_tool(tool: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): under
+    ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``), else on PATH."""
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
-    found = str(candidate) if candidate.is_file() else shutil.which("nvcc")
+    candidate = pathlib.Path(cuda_home) / "bin" / tool
+    found = str(candidate) if candidate.is_file() else shutil.which(tool)
     if found is None:
-        raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+        raise KernelBuildError(f"{tool} not found (set CUDA_HOME or put it on PATH)")
     return found
 
 
-def _library_path(name: str) -> pathlib.Path:
+def library_path(name: str) -> pathlib.Path:
+    """Where kernel ``name``'s library for the current source lives."""
     source = (KERNEL_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -66,13 +69,13 @@ def build(name: str) -> str:
     """Compile kernel ``name`` unless its current library exists, and
     return what ``nvcc`` printed (``ptxas -v``: registers, spills,
     shared memory), or ``""`` when nothing was built."""
-    out = _library_path(name)
+    out = library_path(name)
     if out.is_file():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_DIR / f"{name}.cu")],
+        [toolkit_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_DIR / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise KernelBuildError(f"{name}: nvcc exit {proc.returncode}\n{proc.stdout}")
@@ -85,6 +88,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build(name)
-        lib = ctypes.CDLL(str(_library_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib

@@ -45,8 +45,9 @@ def flash_chunk_attention(q, k, v, kmask):
     """Partial-softmax attention of ``q`` over one resident K/V chunk.
 
     Same arguments and results as :func:`flash_chunk_attention_plain`.
-    A CUDA call takes bf16 q/k/v and a bool mask, all contiguous, with
-    Dh in :data:`SUPPORTED_HEAD_DIMS`, and raises on anything else.
+    A CUDA call takes bf16 q/k/v (16-byte aligned) and a bool mask, all
+    contiguous, with Dh in :data:`SUPPORTED_HEAD_DIMS`, and raises on
+    anything else. Its m and l are the two halves of one buffer.
     """
     if q.device.type == "cpu":
         return flash_chunk_attention_plain(q, k, v, kmask)
@@ -54,6 +55,7 @@ def flash_chunk_attention(q, k, v, kmask):
         raise ValueError(f"flash_chunk_attention: unsupported device {q.device}")
     b, lq, h, dh = q.shape
     lk = k.shape[1]
+    device = q.device
     if dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_chunk_attention: Dh={dh} not in {SUPPORTED_HEAD_DIMS}")
     if k.shape != (b, lk, h, dh) or v.shape != k.shape or kmask.shape != (b, lk):
@@ -62,15 +64,16 @@ def flash_chunk_attention(q, k, v, kmask):
                          f"kmask {tuple(kmask.shape)} do not agree")
     for name, t, dtype in (("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
                            ("v", v, torch.bfloat16), ("kmask", kmask, torch.bool)):
-        if t.dtype != dtype or not t.is_contiguous() or t.device != q.device:
+        if t.dtype != dtype or not t.is_contiguous() or t.device != device:
             raise ValueError(f"flash_chunk_attention: {name} must be a contiguous "
-                             f"{dtype} tensor on {q.device}")
-    pv = torch.empty((b, lq, h, dh), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+                             f"{dtype} tensor on {device}")
+        if name != "kmask" and t.data_ptr() % 16:
+            raise ValueError(f"flash_chunk_attention: {name} must be 16-byte aligned")
+    pv = torch.empty((b, lq, h, dh), dtype=torch.float32, device=device)
+    m, l = torch.empty((2, b, h, lq), dtype=torch.float32, device=device)
     fn = _entry_point()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kmask.data_ptr(),
                  pv.data_ptr(), m.data_ptr(), l.data_ptr(),
                  b, lq, lk, h, dh, dh ** -0.5, stream)

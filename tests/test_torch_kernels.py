@@ -36,7 +36,10 @@ def _inputs(b, lq, lk, h, dh, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,lq,lk,h,dh", [
-    (16, 64, 64, 8, 32), (2, 300, 257, 4, 32), (3, 40, 70, 2, 64), (2, 33, 65, 2, 128)])
+    (16, 64, 64, 8, 32), (2, 300, 257, 4, 32), (3, 40, 70, 2, 64), (2, 33, 65, 2, 128),
+    # edges of the kernel's 64-row / 64-key tiles: one query and one key,
+    # ragged query and key tiles, two query blocks, Dh=128 over 16 key tiles
+    (4, 1, 1, 8, 32), (6, 17, 65, 8, 32), (6, 65, 64, 8, 32), (3, 130, 1000, 2, 128)])
 def test_flash_chunk_kernel_matches_plain(card, b, lq, lk, h, dh):
     inputs = _inputs(b, lq, lk, h, dh, card)
     before = kernels.LAUNCHES["flash_chunk"]
@@ -50,6 +53,20 @@ def test_flash_chunk_kernel_matches_plain(card, b, lq, lk, h, dh):
                                pv_p / l_p.transpose(1, 2)[..., None],
                                atol=2e-3, rtol=2e-3)
     torch.testing.assert_close(l_k * torch.exp(m_k - m_p), l_p, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lk", [1, 65, 1000])
+def test_flash_chunk_kernel_all_masked_row_sums_to_lk(card, lk):
+    # Keys past Lk do not exist: a row whose keys are all masked weighs
+    # each of its Lk keys by exp(0) = 1, and nothing pads that count.
+    inputs = _inputs(3, 20, lk, 2, 32, card, seed=lk)
+    pv, m, l = flash_chunk_attention(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(l[-1], torch.full_like(l[-1], float(lk)))
+    assert torch.equal(m[-1], torch.full_like(m[-1], -1e30))
+    torch.testing.assert_close(pv[-1], inputs[2][-1].float().sum(0, keepdim=True)
+                               .expand_as(pv[-1]), atol=2e-3, rtol=2e-3)
 
 
 @pytest.mark.cuda
