@@ -250,15 +250,16 @@ def _roofline(nbytes, device_ms, bound_ms):
 
 def check_kernels(torch, path_shapes: dict) -> dict:
     """Holds the kernel against its plain version at every shape the
-    semdiff launched it with (``path_shapes``: shape → launches) and at
-    wider ones, and times it at the path's shapes. The row's times and
-    bound are per launch, weighted by the path's launches at each shape."""
+    semdiff and the semmerge launched it with (``path_shapes``: shape →
+    launches of both paths) and at wider ones, and times it at the
+    paths' shapes. The row's times and bound are per launch, weighted by
+    the paths' launches at each shape."""
     import torch.nn.functional as F
 
     from semantic_merge_tpu_torch import kernels
     from semantic_merge_tpu_torch.parallel import flash
 
-    shapes = [(f"semdiff path x{n}", *shape, shape[0] // 8)
+    shapes = [(f"path x{n}", *shape, shape[0] // 8)
               for shape, n in sorted(path_shapes.items())]
     shapes += [  # (label, B, Lq, Lk, H, Dh, dead rows)
         ("matcher cap", 512, 64, 64, 8, 32, 64),
@@ -355,42 +356,65 @@ def _unique_params(idx: int, n_digits: int) -> str:
     return ", ".join(f"p{k}: {t}" for k, t in enumerate(digits))
 
 
+README = "".join(f"line {k} of the readme\n" for k in range(1, 21))
+
+
 def synth_trees(n_files: int, decls: int, n_retyped: int):
-    """(base, side) path→content maps in the shape of the bench's
-    ``synth_repo``: unique signatures per decl; the side renames the
-    first function of every even file, adds one to every 51st odd file
-    (every 17th in the bench; sparser here so that the residual adds stay
-    under the matcher's cap of 512 candidates), and renames AND retypes
-    (return type number→string) the first function of the first
-    ``n_retyped`` other odd files."""
+    """(base, side, other) path→content maps in the shape of the bench's
+    ``synth_repo``: unique signatures per decl and a README.md.
+
+    The side (A) renames the first function of every even file, adds one
+    to every 51st odd file (every 17th in the bench; sparser here so
+    that the residual adds stay under the matcher's cap of 512
+    candidates), renames AND retypes (return type number→string) the
+    first function of the first ``n_retyped`` other odd files, and edits
+    line 2 of the README.
+
+    The other branch (B) moves every 4th file (all renamed on A) from
+    ``src/`` to ``lib/``, renames AND retypes (number→boolean) the first
+    function of the next ``n_retyped`` odd files that A leaves unchanged,
+    and edits line 19 of the README, so the text layer merges it."""
     n_digits = 1
     while len(_SIG_TYPES) ** n_digits < n_files * decls:
         n_digits += 1
-    base, side = {}, {}
-    retyped = 0
+    base, side, other = {"README.md": README}, {}, {}
+    side["README.md"] = README.replace("line 2 of", "line 2 (edited on A) of")
+    other["README.md"] = README.replace("line 19 of", "line 19 (edited on B) of")
+    retyped = retyped_other = 0
     for i in range(n_files):
         path = f"src/mod{i:05d}.ts"
         content = "\n".join(
             f"export function fn{i}_{d}({_unique_params(i * decls + d, n_digits)})"
             f": number {{ return {d}; }}" for d in range(decls)) + "\n"
         base[path] = content
+        other[f"lib/mod{i:05d}.ts" if i % 4 == 0 else path] = content
         if i % 2 == 0:
             side[path] = content.replace(f"function fn{i}_0(", f"function renamed{i}_0(")
         elif i % 51 == 0:
             side[path] = content + f"export function added{i}(x: string): string {{ return x; }}\n"
         elif retyped < n_retyped:
-            head, rest = content.split("\n", 1)
-            head = head.replace(f"function fn{i}_0(", f"function reshaped{i}_0(")
-            side[path] = head.replace("): number {", "): string {") + "\n" + rest
+            side[path] = _reshape(content, f"fn{i}_0", f"reshaped{i}_0", "string")
             retyped += 1
         else:
             side[path] = content
-    if retyped != n_retyped:
-        raise ValueError(f"only {retyped} files to retype")
-    return base, side
+            if retyped_other < n_retyped:
+                other[path] = _reshape(content, f"fn{i}_0", f"reshapedB{i}_0", "boolean")
+                retyped_other += 1
+    if retyped != n_retyped or retyped_other != n_retyped:
+        raise ValueError(f"only {retyped} / {retyped_other} files to retype")
+    return base, side, other
 
 
-def make_repo(root: pathlib.Path, base: dict, side: dict) -> None:
+def _reshape(content: str, name: str, new_name: str, new_return: str) -> str:
+    """Renames the file's first function and changes its return type."""
+    head, rest = content.split("\n", 1)
+    head = head.replace(f"function {name}(", f"function {new_name}(")
+    return head.replace("): number {", f"): {new_return} {{") + "\n" + rest
+
+
+def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict) -> None:
+    """A git repository with branches ``base``, ``side`` and ``other``
+    (each a commit on ``base``), ``side`` checked out."""
     env = dict(os.environ, GIT_AUTHOR_DATE="2024-01-01T00:00:00Z",
                GIT_COMMITTER_DATE="2024-01-02T00:00:00Z",
                GIT_AUTHOR_NAME="smoke", GIT_AUTHOR_EMAIL="smoke@example.com",
@@ -400,22 +424,27 @@ def make_repo(root: pathlib.Path, base: dict, side: dict) -> None:
         subprocess.run(["git", *args], cwd=root, env=env, check=True,
                        stdout=subprocess.DEVNULL)
 
-    def write(tree):
+    def commit(tree, message):
+        for top in ("src", "lib"):
+            shutil.rmtree(root / top, ignore_errors=True)
         for path, text in tree.items():
+            (root / path).parent.mkdir(parents=True, exist_ok=True)
             (root / path).write_text(text)
+        git("add", "-A")
+        git("commit", "-q", "-m", message)
 
-    (root / "src").mkdir(parents=True)
+    root.mkdir(parents=True)
     git("init", "-q", "-b", "base")
-    write(base)
-    git("add", "-A")
-    git("commit", "-q", "-m", "base")
-    git("checkout", "-q", "-b", "side")
-    write(side)
-    git("add", "-A")
-    git("commit", "-q", "-m", "side")
+    git("config", "user.email", "smoke@example.com")  # git notes needs an identity
+    git("config", "user.name", "smoke")
+    commit(base, "base")
+    git("checkout", "-q", "-b", "other")
+    commit(other, "other")
+    git("checkout", "-q", "-b", "side", "base")
+    commit(side, "side")
 
 
-def run_semdiff(torch, repo: pathlib.Path, ckpt: pathlib.Path):
+def run_semdiff(torch, repo: pathlib.Path):
     """Runs the semdiff under a torch.profiler device trace; returns its
     result, the launch counts and shapes, the op log, the host wall and
     the device's busy time (union of its activities) in seconds."""
@@ -423,8 +452,6 @@ def run_semdiff(torch, repo: pathlib.Path, ckpt: pathlib.Path):
 
     from semantic_merge_tpu_torch import cli, kernels
 
-    (repo / ".semmerge.toml").write_text(
-        f'[engine]\nmatcher_ckpt_dir = "{ckpt}"\n')
     args = cli.build_parser().parse_args(
         ["semdiff", "base", "side", "--json-out", "--change-signature",
          "--signature-matcher"])
@@ -444,6 +471,165 @@ def run_semdiff(torch, repo: pathlib.Path, ckpt: pathlib.Path):
         os.chdir(cwd)
     busy = _busy_us([(s, e) for _, s, e in _device_events(prof)]) / 1e6
     return result, launches, shapes, json.loads(text), wall, busy
+
+
+def write_config(root: pathlib.Path, ckpt: pathlib.Path) -> str:
+    """Writes the repository's ``.semmerge.toml`` (untracked, so no
+    revision holds it): the matcher's checkpoint, a formatter that does
+    nothing and no typecheck, so that the merge never waits on an
+    ``npx`` without a network. Returns what it set."""
+    text = (f'[engine]\nmatcher_ckpt_dir = "{ckpt}"\n'
+            '[languages.typescript]\nformatter_cmd = ["true"]\n'
+            '[ci]\nrequire_typecheck = false\n')
+    (root / ".semmerge.toml").write_text(text)
+    return text
+
+
+def _counts(ops) -> dict:
+    counts: dict = {}
+    for op in ops:
+        counts[op.type] = counts.get(op.type, 0) + 1
+    return dict(sorted(counts.items()))
+
+
+def run_semmerge(torch, repo: pathlib.Path):
+    """Runs ``semmerge base side other --inplace --change-signature
+    --signature-matcher`` through the port's CLI function, with ``side``
+    checked out, under a torch.profiler device trace; returns its
+    result, the launch counts and shapes, the host wall and the device's
+    busy time in seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_merge_tpu_torch import cli, kernels
+
+    args = cli.build_parser().parse_args(
+        ["semmerge", "base", "side", "other", "--inplace", "--change-signature",
+         "--signature-matcher"])
+    cwd = os.getcwd()
+    os.chdir(repo)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = cli.semmerge(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            shapes = {k: dict(v) for k, v in kernels.LAUNCH_SHAPES.items()}
+    finally:
+        os.chdir(cwd)
+    busy = _busy_us([(s, e) for _, s, e in _device_events(prof)]) / 1e6
+    return result, launches, shapes, wall, busy
+
+
+def check_semmerge(repo: pathlib.Path, result, launches) -> None:
+    """The merged work tree, the text-merged README and the notes."""
+    if result.code != 0:
+        fail(f"semmerge exited {result.code}, expected 0")
+    if launches.get("flash_chunk") != 16:
+        fail(f"{launches.get('flash_chunk')} flash_chunk launches on the semmerge path, "
+             "expected 16 (2 sides x 2 embeds x 4 layers)")
+    for i in range(0, N_FILES, 4):
+        path = repo / "lib" / f"mod{i:05d}.ts"
+        if not path.is_file() or f"renamed{i}_0" not in path.read_text():
+            fail(f"{path.relative_to(repo)} is missing or lacks renamed{i}_0")
+    readme = (repo / "README.md").read_text()
+    if "(edited on A)" not in readme or "(edited on B)" not in readme:
+        fail("README.md does not hold both sides' edits")
+    for rev, log in (("side", result.result.op_log_left), ("other", result.result.op_log_right)):
+        note = subprocess.run(["git", "notes", "--ref", "semmerge", "show", rev], cwd=repo,
+                              check=True, stdout=subprocess.PIPE, text=True).stdout
+        if len(json.loads(note)) != len(log):
+            fail(f"the semmerge note on {rev} holds {len(json.loads(note))} ops, "
+                 f"its op log {len(log)}")
+
+
+def check_compose(torch, result) -> dict:
+    """The merge's two op logs composed again on the CPU must give the
+    card's composed stream and conflicts; then the device compose alone,
+    at that shape: device time and kernels of one call (torch.profiler),
+    torch.sort's share of that time, and host time per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_merge_tpu_torch.ops.compose import compose_oplogs_device
+
+    left, right = result.result.op_log_left, result.result.op_log_right
+    cpu_ops, cpu_conflicts = compose_oplogs_device(left, right, device="cpu")
+    if ([o.to_dict() for o in cpu_ops] != [o.to_dict() for o in result.composed]
+            or [c.to_dict() for c in cpu_conflicts] != [c.to_dict() for c in result.conflicts]):
+        fail("the device compose on the card differs from the CPU's")
+    compose_oplogs_device(left, right, device="cuda")  # warm
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        compose_oplogs_device(left, right, device="cuda")
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        compose_oplogs_device(left, right, device="cuda")
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    kernels_ = [(n, s, e) for n, s, e in events if not n.startswith("Mem")]
+    device_ms = sum(e - s for _, s, e in events) / 1e3
+    sort_ms = sum(e - s for n, s, e in kernels_ if "sort" in n.lower()) / 1e3
+    return {"n_a": len(left), "n_b": len(right), "n_out": len(result.composed),
+            "conflicts": len(result.conflicts), "host_ms_per_call": host_ms,
+            "device_ms": device_ms, "device_kernels": len(kernels_),
+            "device_copies": len(events) - len(kernels_), "sort_ms": sort_ms,
+            "sort_share": sort_ms / device_ms if device_ms else None}
+
+
+_SMALL_UTIL = "export function foo(n: number): number {\n  return n;\n}\n"
+#: name → (base, other's tree, exit code); the side renames foo to bar
+#: and edits line 2 of the README.
+SMALL_MERGES = {
+    "divergent_rename": ({"src/util.ts": _SMALL_UTIL.replace("foo", "baz"), "README.md": README},
+                         1),
+    "rename_vs_move": ({"lib/util.ts": _SMALL_UTIL,
+                        "README.md": README.replace("line 19 of", "line 19 (B) of")}, 0),
+}
+
+
+def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
+    """Small three-way merges through the CLI, each in a fresh copy of
+    its repository, on the card and with ``--device cpu``: the exit
+    code, the work tree (with ``.semmerge-conflicts.json``) and the notes
+    on both sides must be identical."""
+    from semantic_merge_tpu_torch import cli
+
+    base = {"src/util.ts": _SMALL_UTIL, "README.md": README}
+    side = {"src/util.ts": _SMALL_UTIL.replace("foo", "bar"),
+            "README.md": README.replace("line 2 of", "line 2 (A) of")}
+    codes = {}
+    for name, (other, expect) in SMALL_MERGES.items():
+        origin = work / name / "origin"
+        make_repo(origin, base, side, other)
+        outcome = {}
+        for device in ("cuda", "cpu"):
+            copy = work / name / device
+            shutil.copytree(origin, copy)
+            write_config(copy, ckpt)
+            cwd = os.getcwd()
+            os.chdir(copy)
+            try:
+                code = cli.main(["semmerge", "base", "side", "other", "--inplace",
+                                 "--device", device])
+            finally:
+                os.chdir(cwd)
+            tree = {p.relative_to(copy).as_posix(): p.read_bytes()
+                    for p in sorted(copy.rglob("*"))
+                    if p.is_file() and ".git" not in p.relative_to(copy).parts}
+            notes = [subprocess.run(["git", "notes", "--ref", "semmerge", "show", rev],
+                                    cwd=copy, stdout=subprocess.PIPE,
+                                    stderr=subprocess.DEVNULL).stdout
+                     for rev in ("side", "other")]
+            outcome[device] = (code, tree, notes)
+        if outcome["cuda"][0] != expect:
+            fail(f"small merge {name}: exit {outcome['cuda'][0]} on the card, expected {expect}")
+        if outcome["cuda"] != outcome["cpu"]:
+            fail(f"small merge {name}: the card's exit code, tree or notes differ from the CPU's")
+        codes[name] = expect
+    return codes
 
 
 def check_reference(torch, ckpt: pathlib.Path) -> float:
@@ -516,12 +702,16 @@ def main() -> int:
         make_repo(repo, *synth_trees(N_FILES, DECLS, N_RETYPED))
         encoder = Encoder(EncoderConfig(), generator=torch.Generator().manual_seed(0))
         save_matcher_checkpoint(ckpt, encoder.state_dict())
-        print(f"repo: {N_FILES} files x {DECLS} decls, {N_RETYPED} renamed+retyped; "
-              "matcher checkpoint: the port's seeded init (seed 0), UNTRAINED "
-              "random weights", flush=True)
+        config = write_config(repo, ckpt)
+        print(f"repo: {N_FILES} files x {DECLS} decls and a README.md; side (A): "
+              f"{(N_FILES + 1) // 2} renames, {N_RETYPED} renamed+retyped, README line 2; "
+              f"other (B): {(N_FILES + 3) // 4} files moved src/ -> lib/, {N_RETYPED} other "
+              "files renamed+retyped, README line 19; matcher checkpoint: the port's "
+              "seeded init (seed 0), UNTRAINED random weights; .semmerge.toml: "
+              + config.replace("\n", "; "), flush=True)
         t = phase("repo", t)
 
-        result, launches, shapes, ops, wall, busy = run_semdiff(torch, repo, ckpt)
+        result, launches, shapes, ops, wall, busy = run_semdiff(torch, repo)
         t = phase("semdiff", t)
         counts = {}
         for op in ops:
@@ -547,17 +737,42 @@ def main() -> int:
         if counts.get("deleteDecl", 0) + counts.get("changeSignature", 0) != N_RETYPED:
             fail(f"deleteDecl + changeSignature != {N_RETYPED}")
 
-        row = check_kernels(torch, shapes["flash_chunk"])
+        merged, merge_launches, merge_shapes, merge_wall, merge_busy = run_semmerge(torch, repo)
+        t = phase("semmerge", t)
+        print("semmerge phases (s): " + json.dumps(
+            {k: round(v, 4) for k, v in merged.phases.items()}))
+        print(f"semmerge exit {merged.code}, wall {merge_wall:.3f} s (under a torch.profiler "
+              f"trace); device busy {merge_busy:.4f} s, idle share "
+              f"{1 - merge_busy / merge_wall:.4f}; launches {merge_launches}; launch shapes "
+              f"(B, Lq, Lk, H, Dh) {merge_shapes}")
+        if merged.result is not None:
+            print(f"semmerge ops by type: A {json.dumps(_counts(merged.result.op_log_left))}; "
+                  f"B {json.dumps(_counts(merged.result.op_log_right))}; composed "
+                  f"{json.dumps(_counts(merged.composed))}; conflicts {len(merged.conflicts)}")
+        check_semmerge(repo, merged, merge_launches)
+        compose = check_compose(torch, merged)
+        print(f"compose: card and CPU give identical composed streams and conflicts; "
+              f"alone on the card {json.dumps(compose)}", flush=True)
+        t = phase("compose", t)
+
+        path_shapes = dict(shapes["flash_chunk"])
+        for shape, n in merge_shapes["flash_chunk"].items():
+            path_shapes[shape] = path_shapes.get(shape, 0) + n
+        row = check_kernels(torch, path_shapes)
         t = phase("kernels", t)
 
         emb_err = check_reference(torch, ckpt)
         print(f"reference: small-input op log identical on card and CPU; "
               f"embedding max abs err {emb_err:.3e} (atol 2e-2)")
+        codes = check_reference_merges(WORK / "small", ckpt)
+        print(f"reference: small merges {codes} (name: exit) give identical exit codes, "
+              "trees, conflicts and notes on the card and the CPU")
         t = phase("reference", t)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    row["launches"] = launches["flash_chunk"]
+    row["launches"] = {"semdiff": launches["flash_chunk"],
+                       "semmerge": merge_launches["flash_chunk"]}
     print(json.dumps({"kernels": [row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,12 @@ from .ops import OP_TYPES
 EPOCH_ISO = "1970-01-01T00:00:00Z"
 
 
+def stable_hash_hex(*parts, n_hex: int = 64) -> str:
+    """SHA-256 over the ``|``-joined string forms of *parts*."""
+    payload = "|".join(str(p) for p in parts)
+    return hashlib.sha256(payload.encode("utf-8")).hexdigest()[:n_hex]
+
+
 #: Stable 1-byte code per schema op type (OP_TYPES is schema-ordered and
 #: append-only). The device diff kinds 0-3 coincide with the first four.
 _TYPE_CODE = {t: i for i, t in enumerate(OP_TYPES)}

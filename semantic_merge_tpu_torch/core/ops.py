@@ -8,8 +8,9 @@ of an operation record must round-trip with the reference's op schema
      "target": {"symbolId", "addressId"},
      "params", "guards", "effects", "provenance"}
 
-The port's copy of the JAX package's ``core/ops.py`` (the records a
-diff produces; composition precedence comes with the merge slice).
+The port's copy of the JAX package's ``core/ops.py``: the records a
+diff produces, the composition precedence and sort key, and the op-log
+serialization the notes store writes.
 
 Differences from the reference, by design:
 
@@ -51,6 +52,33 @@ OpType = Literal[
 
 #: The 17 operation kinds, in schema order (reference ``semmerge/ops.py:10-28``).
 OP_TYPES: tuple[str, ...] = OpType.__args__  # type: ignore[attr-defined]
+
+#: Composition precedence — lower composes earlier
+#: (reference ``semmerge/compose.py:130-149``).
+OP_PRECEDENCE: Dict[str, int] = {
+    "moveDecl": 10,
+    "renameSymbol": 11,
+    "modifyImport": 12,
+    "reorderImports": 13,
+    "changeSignature": 20,
+    "updateCall": 21,
+    "addDecl": 30,
+    "deleteDecl": 31,
+    "extractMethod": 40,
+    "inlineMethod": 41,
+    "editStmtBlock": 50,
+    "reorderParams": 51,
+    "addParam": 52,
+    "removeParam": 53,
+    "moveFile": 60,
+    "renameFile": 61,
+    "modifyNamespace": 70,
+}
+
+#: Precedence assigned to unknown op types by the composer's sort
+#: (reference ``semmerge/compose.py:18``).
+UNKNOWN_PRECEDENCE = 99
+
 
 def dumps_canonical(obj: Any) -> str:
     """Compact JSON, byte-compatible with the reference's orjson output."""
@@ -134,6 +162,13 @@ class Op:
     def pretty(self) -> str:
         return f"{self.type} {self.target.symbolId} {self.params}"
 
+    def sort_key(self) -> tuple[int, str, str]:
+        """The canonical composition sort key
+        (reference ``semmerge/compose.py:16-18``)."""
+        timestamp = str(self.provenance.get("timestamp", "1970-01-01T00:00:00Z"))
+        return (OP_PRECEDENCE.get(self.type, UNKNOWN_PRECEDENCE), timestamp, self.id)
+
+
 @dataclass
 class OpLog:
     """An ordered collection of ops (reference ``semmerge/ops.py:106-121``)."""
@@ -142,6 +177,10 @@ class OpLog:
 
     def to_json(self) -> str:
         return dumps_canonical([o.to_dict() for o in self.ops])
+
+    def to_json_bytes(self) -> bytes:
+        """UTF-8 bytes of :meth:`to_json` (the notes payload)."""
+        return self.to_json().encode("utf-8")
 
     @staticmethod
     def from_json(data: str) -> "OpLog":

@@ -196,3 +196,25 @@ def diff_lift_device(base: DeclTensor, side: DeclTensor,
     s_cols = torch.from_numpy(_padded_cols(side, ns)).to(device)
     out = _diff_lift_core(b_cols, s_cols, nb, ns)
     return _decode_stacked(out.cpu().numpy())
+
+
+def diff_lift_device_pair(base: DeclTensor, left: DeclTensor, right: DeclTensor,
+                          device: torch.device) -> tuple[DiffOpsTensor, DiffOpsTensor]:
+    """Both sides of a three-way merge against base in one device call:
+    each side through :func:`_diff_lift_core`, the two outputs padded to
+    one width (``NULL_ID``) and stacked, one device→host fetch."""
+    nb = bucket_size(max(base.n, 1))
+    nl = bucket_size(max(left.n, 1))
+    nr = bucket_size(max(right.n, 1))
+    b_cols = torch.from_numpy(_padded_cols(base, nb)).to(device)
+    l_cols = torch.from_numpy(_padded_cols(left, nl)).to(device)
+    r_cols = torch.from_numpy(_padded_cols(right, nr)).to(device)
+    out_l = _diff_lift_core(b_cols, l_cols, nb, nl)
+    out_r = _diff_lift_core(b_cols, r_cols, nb, nr)
+    m = max(out_l.shape[1], out_r.shape[1])
+
+    def pad(a):
+        return torch.nn.functional.pad(a, (0, m - a.shape[1]), value=NULL_ID)
+
+    out = torch.stack([pad(out_l), pad(out_r)]).cpu().numpy()
+    return _decode_stacked(out[0]), _decode_stacked(out[1])

@@ -1,18 +1,22 @@
 """Git plumbing: revisions, commit times and in-memory snapshots.
 
-The slice's part of the JAX package's ``runtime/git.py``: a revision's
+The port's part of the JAX package's ``runtime/git.py``: a revision's
 tree is read through one ``git archive`` piped to an in-process tar
-reader, never materialized on disk. Every command runs in ``cwd`` (the
+reader; only the merge's apply step materializes one (the base tree) on
+disk, in a temporary directory. Every command runs in ``cwd`` (the
 process's working directory when ``None``).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import io
 import pathlib
+import shutil
 import subprocess
 import tarfile
-from typing import Iterable
+import tempfile
+from typing import Iterable, Iterator
 
 from ..frontend.snapshot import SOURCE_EXTENSIONS, Snapshot
 
@@ -45,6 +49,25 @@ def archive_bytes(rev: str, cwd: pathlib.Path | None = None) -> bytes:
     proc = subprocess.run(["git", "archive", resolved], check=True,
                           stdout=subprocess.PIPE, cwd=cwd)
     return proc.stdout
+
+
+def extract_tree_to_temp(tar_bytes: bytes) -> pathlib.Path:
+    """Materialize already-fetched archive bytes into a temp dir."""
+    tmpdir = pathlib.Path(tempfile.mkdtemp(prefix="semmerge_tree_"))
+    with tarfile.open(fileobj=io.BytesIO(tar_bytes)) as tar:
+        tar.extractall(tmpdir, filter="data")
+    return tmpdir
+
+
+@contextlib.contextmanager
+def temp_tree(tar_bytes: bytes) -> Iterator[pathlib.Path]:
+    """:func:`extract_tree_to_temp` as a context manager: the temp tree
+    is removed on every exit path."""
+    tmpdir = extract_tree_to_temp(tar_bytes)
+    try:
+        yield tmpdir
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 def snapshot_from_bytes(tar_bytes: bytes) -> Snapshot:

@@ -7,7 +7,8 @@
   out of ``sys.modules``.
 - Without a CUDA device the CLI (without ``--device cpu``) and
   ``chip_smoke.py`` exit non-zero and say why; neither carries on on
-  the CPU, and the smoke test prints no result.
+  the CPU, ``semmerge`` leaves the work tree as it was, and the smoke
+  test prints no result.
 """
 import ast
 import os
@@ -62,14 +63,32 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == f"{len(modules)} []"
 
 
-def test_cli_without_cuda_fails_clearly(tmp_path):
-    out = subprocess.run([sys.executable, "-m", "semantic_merge_tpu_torch", "semdiff",
-                          "HEAD", "HEAD", "--json-out"], env=_env(), cwd=tmp_path,
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                         timeout=120)
-    assert out.returncode == 2
+def _tree_state(root):
+    return {p.relative_to(root).as_posix(): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+@pytest.mark.parametrize("command,code", [("semdiff", 2), ("semmerge", 11)])
+def test_cli_without_cuda_fails_clearly(tmp_path, command, code):
+    # semmerge exits with the KernelFault code (never 2, "type errors")
+    # before it reads a revision or touches the work tree.
+    repo = tmp_path / "repo"
+    (repo / "src").mkdir(parents=True)
+    (repo / "src" / "a.ts").write_text("export function f(): void {}\n")
+    for args in (["init", "-q", "-b", "main"], ["add", "-A"],
+                 ["-c", "user.email=t@example.com", "-c", "user.name=t",
+                  "commit", "-q", "-m", "base"]):
+        subprocess.run(["git", *args], cwd=repo, check=True)
+    before = _tree_state(repo)
+    argv = {"semdiff": ["HEAD", "HEAD", "--json-out"],
+            "semmerge": ["HEAD", "HEAD", "HEAD", "--inplace"]}[command]
+    out = subprocess.run([sys.executable, "-m", "semantic_merge_tpu_torch", command, *argv],
+                         env=_env(), cwd=repo, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, timeout=120)
+    assert out.returncode == code
     assert out.stdout == ""
     assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    assert _tree_state(repo) == before
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])

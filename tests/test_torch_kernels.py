@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card,
+and the device compose on the card against the CPU.
 
 These tests need an NVIDIA GPU with ``nvcc`` (they build the kernels)
 and are marked ``cuda``; without a card they skip. On the card:
@@ -9,10 +10,13 @@ They import no JAX (``--noconftest`` skips the suite's JAX set-up), so
 they run where only PyTorch is installed. On the CPU, the wrapper's
 plain path and the launch counter are tested.
 """
+import numpy as np
 import pytest
 import torch
 
 from semantic_merge_tpu_torch import kernels
+from semantic_merge_tpu_torch.core.ops import Op, Target
+from semantic_merge_tpu_torch.ops.compose import compose_oplogs_device
 from semantic_merge_tpu_torch.parallel.flash import (flash_chunk_attention,
                                                      flash_chunk_attention_plain)
 
@@ -95,3 +99,33 @@ def test_reset_launches():
     kernels.reset_launches()
     assert kernels.LAUNCHES == {"flash_chunk": 0}
     assert kernels.LAUNCH_SHAPES == {"flash_chunk": {}}
+
+
+def _fuzz_oplog(rs, side, n, n_sym):
+    types = ("renameSymbol", "moveDecl", "addDecl", "deleteDecl", "editStmtBlock")
+    ops = []
+    for i in range(n):
+        t = types[rs.randint(len(types))]
+        params = {}
+        if t == "renameSymbol":
+            params = {"oldName": "o", "newName": "pqr"[rs.randint(3)], "file": f"f{rs.randint(4)}.ts"}
+        elif t == "moveDecl":
+            params = {"newAddress": f"addr-{rs.randint(10)}", "newFile": f"g{rs.randint(4)}.ts"}
+        ops.append(Op.new(t, Target(f"sym-{rs.randint(n_sym)}", f"base-addr-{i}"), params,
+                          provenance={"timestamp": f"2024-0{1 + rs.randint(3)}-01T00:00:00Z"},
+                          op_id=f"{side}{i:05d}" + "0" * 26))
+    return ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_device_compose_on_card_matches_cpu(card, seed):
+    # Seeds 0-2 compose thousands of ops over many symbols (no walk, or
+    # a rare one), 3-5 a few hundred over few symbols (the walk fires).
+    rs = np.random.RandomState(seed)
+    n, n_sym = (3000, 2000) if seed < 3 else (300, 6)
+    a, b = (_fuzz_oplog(rs, side, rs.randint(n // 2, n), n_sym) for side in "ab")
+    got = compose_oplogs_device(a, b, device=card)
+    want = compose_oplogs_device(a, b, device="cpu")
+    assert [o.to_dict() for o in got[0]] == [o.to_dict() for o in want[0]]
+    assert [c.to_dict() for c in got[1]] == [c.to_dict() for c in want[1]]
