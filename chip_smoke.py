@@ -5,37 +5,71 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+Phases, each fatal on failure, each printing its seconds:
 
-1. probe: CUDA must be available; prints the card's name and power limit.
-2. build: compiles every kernel of the port with nvcc (sm_90a), prints
-   ptxas's registers and spills (and fails on a spill) and, where the
-   toolkit has cuobjdump, the SASS counts of HMMA, LDSM, LDGSTS and LDS
-   (and fails if no tensor-core instruction was emitted).
-3. repo + semdiff: builds a git repository of the bench's ``synth_repo``
-   shape at its rung5 size (10,000 files x 4 decls) whose side branch
-   renames functions in every even file and renames AND retypes the
-   first function of 256 other files, writes a matcher checkpoint from
-   the port's seeded (untrained) initializer, and runs
-   ``semdiff base side --json-out --change-signature --signature-matcher``
-   through the port's CLI under a torch.profiler trace (for the device's
-   idle share). Launch counts and shapes are set to 0 just before and
-   read just after; every kernel of the path must have launched.
-4. kernels: calls each kernel's wrapper on the card at every shape the
-   semdiff launched it with (and at the matcher's cap, a multi-block,
-   wider-head and ragged edge shapes), holds the result against its
-   plain PyTorch version (normalised output and rebased row sums,
-   atol/rtol 2e-3: bf16 inputs, f32 sums in another order; the plain
-   f32 einsums run with TF32 off) and requires l = Lk on all-masked rows,
-   and times, at each path shape, the wrapper, the plain version and one
-   library call (``scaled_dot_product_attention``, a yardstick only) with
-   CUDA events (and the wrapper's host cost per call), the kernel and the
-   library call on the device with torch.profiler (the kernel's achieved
-   GB/s and share of the bound come from this device time), and both
-   replayed back to back from a CUDA graph.
-5. reference: the same diff of a small input on the card and on the CPU
-   (plain versions) must give identical op logs, and the card's
-   embeddings must match the CPU's.
+1. probe: CUDA must be available; prints the card's name, power limit
+   and maximum SM clock.
+2. build: compiles every kernel of the port (``kernels/*.cu``), one
+   nvcc per source, all started together, for sm_90a; prints ptxas's
+   registers and spills (fails on a spill) and, where the toolkit has
+   cuobjdump, SASS counts per kernel: the instruction total, the ALU-
+   and FMA-pipe totals, HMMA, LDSM, LDGSTS and LDS for ``flash_chunk``
+   (fails without HMMA), SHF, LOP3, IADD3, PRMT, ISETP and IMAD for
+   ``sha256`` (fails without SHF, the rotates; its bound in phase 5 is
+   counted from these, so it fails there without cuobjdump).
+3. repo: a git repository of the bench's ``synth_repo`` shape at its
+   rung5 size (10,000 files x 4 decls): the side branch renames
+   functions in every even file and renames AND retypes the first
+   function of 256 other files, the other branch moves every 4th file
+   to ``lib/``; a matcher checkpoint from the port's seeded (untrained)
+   initializer.
+4. Four runs of the port's CLI functions, each under a torch.profiler
+   trace (wall, phases, device busy time and idle share), with the
+   launch counts and shapes set to 0 just before and read just after:
+   - matcher semdiff: ``semdiff base side --json-out --change-signature
+     --signature-matcher`` (the two-program path): 8 ``flash_chunk``
+     launches, no ``sha256``;
+   - fused semdiff: ``semdiff base side --json-out``: the fused engine,
+     ``sha256`` launched (2 on a cold engine), no ``flash_chunk``; op
+     counts; every op id equals ``core/ids.py::deterministic_op_id``
+     recomputed with hashlib on the host; the op log rendered on the
+     card equals ``_json_rows``'s host rendering;
+   - fused semmerge: ``semmerge base side other --inplace`` in a second
+     work tree of the repository (``git worktree add``): exit 0, the
+     fused path taken (the backend's phases hold ``fused`` and no
+     ``compose``, the composed stream is a column-backed view), 4
+     ``sha256`` launches, renames in every moved file, both README
+     edits, each note's op count and bytes (device-rendered) equal to
+     ``_json_rows``'s rendering, and ``compose_oplogs_device`` on the
+     card over the materialized op logs equal to the fused composed
+     stream;
+   - matcher semmerge: ``semmerge base side other --inplace
+     --change-signature --signature-matcher``: the fused engine runs
+     first (4 ``sha256`` launches) and its result is set aside, since
+     the matcher could pair deletes with adds; then the two-program path
+     with 16 ``flash_chunk`` launches; the tree and notes; then the
+     device compose of its op logs on the card against the CPU, and
+     timed alone.
+5. kernels: each kernel's wrapper on the card at the shapes the paths
+   launched it with (and edge shapes), held against its plain PyTorch
+   version: ``flash_chunk`` within atol/rtol 2e-3 (normalised output
+   and rebased row sums; bf16 inputs, f32 sums in another order; the
+   plain f32 einsums run with TF32 off, and l = Lk on all-masked rows),
+   ``sha256`` bit-exact and against hashlib (lengths 0, 1, 55, 56, 63,
+   64, 119 and 120, capacities of 1-3 blocks, 1 row and a row count
+   that is no multiple of the CTA). Timed at the path shapes: CUDA-event
+   and host time per call, device time (torch.profiler), CUDA-graph
+   back-to-back time, the plain version's time, and for ``flash_chunk``
+   one library call (``scaled_dot_product_attention``, a yardstick
+   only); the bound from this run's shapes. Then the fused merge and
+   diff programs and the render program, on the inputs the fused paths
+   gave them: device time, kernels and host time per call.
+6. reference: small inputs on the card and on the CPU must give
+   identical op logs (a matcher semdiff) and identical exit codes,
+   trees, conflicts and notes (fused semmerges, one with a
+   DivergentRename conflict, which runs the host cursor walk, and a
+   DivergentRename merge with --change-signature that takes the
+   two-program path and its compose's host cursor walk).
 
 Prints the kernels' JSON line, the card line, and last the device JSON.
 """
@@ -53,10 +87,24 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent
 WORK = REPO / "_smoke"  # scratch git repository and checkpoint (gitignored)
 
+#: The rung5 size; ``--files N`` scales a rehearsal down (and the
+#: retyped files in proportion).
 N_FILES, DECLS, N_RETYPED = 10_000, 4, 256
 TOL = 2e-3
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_SMS = 132  # SMs of the H100 SXM (Hopper white paper)
+#: Per-SM thread-instructions per clock on Hopper (CUDA C++ Programming
+#: Guide, arithmetic instruction throughput, compute capability 9.0):
+#: the ALU pipe's integer and logic instructions, the FMA pipe's integer
+#: multiply-adds, and the four schedulers' issue of one warp instruction
+#: each. The pipes run side by side; each bounds on its own.
+SM_RATES = {"alu": 64, "fma": 64, "issue": 128}
+#: SASS opcodes of each pipe (the ALU pipe as Nsight Compute's pipe
+#: names describe it: integer and logic, without IMAD and IMUL).
+ALU_OPS = frozenset(("IADD3", "LOP3", "PLOP3", "SHF", "SHL", "SHR", "PRMT", "ISETP", "SEL",
+                     "LEA", "IMNMX", "IABS", "FLO", "POPC", "BREV", "BMSK", "SGXT", "MOV"))
+FMA_OPS = frozenset(("IMAD", "IMUL"))
 _SIG_TYPES = ("string", "number", "boolean", "bigint", "symbol", "object",
               "unknown", "never", "void", "undefined", "null")
 
@@ -74,7 +122,10 @@ def phase(name: str, t0: float) -> float:
 
 # --- phase 2: build ----------------------------------------------------------
 
-SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "LDS")
+#: SASS instructions printed per kernel, and the one each must hold.
+SASS_OPS = {"flash_chunk": ("HMMA", "LDSM", "LDGSTS", "LDS"),
+            "sha256": ("SHF", "LOP3", "IADD3", "PRMT", "ISETP", "IMAD")}
+SASS_REQUIRED = {"flash_chunk": "HMMA", "sha256": "SHF"}
 
 
 def report_ptxas(name: str, log: str) -> None:
@@ -87,15 +138,17 @@ def report_ptxas(name: str, log: str) -> None:
             fail(f"{name}: ptxas reports spills: {line.strip()}")
 
 
-def report_sass(kernels, name: str) -> None:
-    """Prints, per kernel function in the built library, how many HMMA
-    (tensor-core MMA), LDSM (ldmatrix), LDGSTS (cp.async) and LDS
-    instructions its SASS holds; fails if there is SASS but no HMMA."""
+def report_sass(kernels, name: str) -> dict:
+    """Prints, per kernel function in the built library, its SASS
+    instruction total (NOPs left out), the counts of ``SASS_OPS[name]``
+    and its ALU- and FMA-pipe totals; fails if there is SASS but no
+    ``SASS_REQUIRED[name]`` instruction. Returns ``{function: {opcode:
+    count}}`` (``{}`` where the toolkit has no cuobjdump)."""
     try:
         tool = kernels.toolkit_tool("cuobjdump")
     except kernels.KernelBuildError:
         print(f"sass {name}: cuobjdump not found, counts not taken")
-        return
+        return {}
     sass = subprocess.run([tool, "-sass", str(kernels.library_path(name))], check=True,
                           stdout=subprocess.PIPE, text=True).stdout
     counts, function = {}, None
@@ -103,17 +156,29 @@ def report_sass(kernels, name: str) -> None:
         header = re.search(r"Function : (\S+)", line)
         if header:
             function = header.group(1)
-            counts[function] = dict.fromkeys(SASS_OPS, 0)
+            counts[function] = {}
             continue
-        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)[.\s]", line)
-        if function and op and op.group(1) in SASS_OPS:
-            counts[function][op.group(1)] += 1
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)[.\s;]", line)
+        if function and op and op.group(1) != "NOP":
+            counts[function][op.group(1)] = counts[function].get(op.group(1), 0) + 1
     for function, ops in counts.items():
         dh = re.search(r"ILi(\d+)E", function)
-        label = f"Dh={dh.group(1)}" if dh else function[:60]
-        print(f"sass {name} {label}: " + " ".join(f"{k} {v}" for k, v in ops.items()))
-    if counts and not sum(ops["HMMA"] for ops in counts.values()):
-        fail(f"{name}: no HMMA (tensor-core) instruction in the built SASS")
+        label = f"Dh={dh.group(1)}" if dh else function[-40:]
+        pipes = _pipe_counts(ops)
+        print(f"sass {name} {label}: instructions {pipes['issue']} "
+              + " ".join(f"{k} {ops.get(k, 0)}" for k in SASS_OPS[name])
+              + f"; ALU pipe {pipes['alu']}, FMA pipe {pipes['fma']}")
+    need = SASS_REQUIRED[name]
+    if counts and not sum(ops.get(need, 0) for ops in counts.values()):
+        fail(f"{name}: no {need} instruction in the built SASS")
+    return counts
+
+
+def _pipe_counts(ops: dict) -> dict:
+    """ALU-pipe, FMA-pipe and issued instructions of an opcode count."""
+    return {"alu": sum(n for k, n in ops.items() if k in ALU_OPS),
+            "fma": sum(n for k, n in ops.items() if k in FMA_OPS),
+            "issue": sum(ops.values())}
 
 
 # --- phase 4: kernels against their plain versions ---------------------------
@@ -212,11 +277,11 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def _device_ms(torch, fn, input_sets, kernel=None, iters=40):
-    """Mean device time per call of ``fn``: the summed device activities
-    of a torch.profiler trace over ``iters`` calls (only those whose name
-    holds ``kernel``, if given), divided by ``iters``; None if the trace
-    holds none."""
+def _device_ms(torch, fn, input_sets, kernel, iters=40):
+    """Mean device time of one launch of ``kernel``: the durations of its
+    launches in a torch.profiler trace over ``iters`` calls, averaged over
+    the launches the trace recorded (after long traced runs a trace can
+    drop records; how many it kept is returned beside the mean)."""
     from torch.profiler import ProfilerActivity, profile
 
     for inputs in input_sets:
@@ -226,11 +291,35 @@ def _device_ms(torch, fn, input_sets, kernel=None, iters=40):
         for i in range(iters):
             fn(*input_sets[i % len(input_sets)])
         torch.cuda.synchronize()
-    spans = [(s, e) for name, s, e in _device_events(prof)
-             if kernel is None or kernel in name]
-    if not spans:
-        return None
-    return sum(e - s for s, e in spans) / iters / 1e3
+    spans = [e - s for name, s, e in _device_events(prof) if kernel in name]
+    return (sum(spans) / len(spans) / 1e3 if spans else None), len(spans)
+
+
+#: Cycles of the sleep kernel that holds the card while a measured call
+#: is issued (about 0.1 s at the H100's 1.98 GHz).
+SLEEP_CYCLES = 200_000_000
+
+
+def _queued_ms(torch, fn, input_sets=((),), reps=10):
+    """Device time per call with no host gaps: each call is issued while
+    a sleep kernel keeps the card busy, between two CUDA events, so the
+    card runs the call's kernels back to back; the median over ``reps``.
+    None if the card reached the first event before the call was issued."""
+    fn(*input_sets[0])
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn(*input_sets[i % len(input_sets)])
+        stop.record()
+        if start.query():
+            return None
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return sorted(times)[len(times) // 2]
 
 
 def _work(b, lq, lk, h, dh):
@@ -296,15 +385,16 @@ def check_kernels(torch, path_shapes: dict) -> dict:
         row = {
             "B": b, "Lq": lq, "Lk": lk, "H": h, "Dh": dh, "launches": n,
             "ms": ms, "host_ms": host_ms,
-            "device_ms": _device_ms(torch, flash.flash_chunk_attention, sets,
-                                    "flash_chunk_kernel"),
+            "device_ms": None, "device_records": None,
             "graph_ms": _graph_ms(torch, flash.flash_chunk_attention, sets),
             "plain_ms": _time_ms(torch, flash.flash_chunk_attention_plain, sets)[0],
             "library_ms": _time_ms(torch, sdpa, sets)[0],
-            "library_device_ms": _device_ms(torch, sdpa, sets),
+            "library_device_ms": _queued_ms(torch, sdpa, sets),
             "library_graph_ms": _graph_ms(torch, sdpa, sets),
             "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         }
+        row["device_ms"], row["device_records"] = _device_ms(
+            torch, flash.flash_chunk_attention, sets, "flash_chunk_kernel")
         row["gb_per_s"], row["bound_share"] = _roofline(
             nbytes, row["device_ms"], max(bytes_ms, ops_ms))
         per_shape.append(row)
@@ -317,9 +407,6 @@ def check_kernels(torch, path_shapes: dict) -> dict:
             return None
         return sum(s[key] * s["launches"] for s in per_shape) / total
 
-    kernels_built = sorted(kernels.LAUNCHES)
-    if kernels_built != ["flash_chunk"]:
-        fail(f"unexpected kernel set {kernels_built}")
     bytes_ms, ops_ms = mean("bytes_ms"), mean("ops_ms")
     bound_ms = max(bytes_ms, ops_ms)
     gb_per_s, bound_share = _roofline(mean("bytes"), mean("device_ms"), bound_ms)
@@ -344,6 +431,194 @@ def check_kernels(torch, path_shapes: dict) -> dict:
         "bound_share": bound_share,
         "shapes": per_shape,
     }
+
+
+def _weighted(rows, key):
+    """Mean of ``key`` per launch, weighted by the rows' launches."""
+    total = sum(r["launches"] for r in rows)
+    if not total or any(r[key] is None for r in rows):
+        return None
+    return sum(r[key] * r["launches"] for r in rows) / total
+
+
+SHA_EDGES = (0, 1, 55, 56, 63, 64, 119, 120)
+
+
+def _sha_inputs(torch, n, blocks, lens=None, seed=0):
+    """uint8 rows of junk (ignored past each length) and int32 lengths."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    msg = torch.randint(0, 256, (n, blocks * 64), generator=g, device="cuda",
+                        dtype=torch.int32).to(torch.uint8)
+    if lens is None:
+        lens = torch.randint(0, blocks * 64 - 8, (n,), generator=g, device="cuda")
+    return msg, torch.as_tensor(lens, device="cuda").to(torch.int32)
+
+
+def _sha_check(torch, sha, msg, lens, n_words) -> None:
+    """The kernel against its plain version (bit-exact) and hashlib."""
+    import hashlib
+
+    got = sha.sha256_device(msg, lens, n_words)
+    want = sha.sha256_device_plain(msg, lens, n_words)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).any(dim=1).sum())
+        fail(f"sha256: {bad} of {msg.shape[0]} rows differ from the plain version")
+    host_msg, host_len = msg.cpu().numpy(), lens.cpu().numpy()
+    words = got.cpu().numpy().view("uint32")
+    for i in range(msg.shape[0]):
+        digest = hashlib.sha256(host_msg[i, :host_len[i]].tobytes()).hexdigest()
+        if "".join(f"{int(w):08x}" for w in words[i]) != digest[:8 * n_words]:
+            fail(f"sha256 row {i} (length {host_len[i]}) differs from hashlib")
+
+
+def _sha_work(n, blocks, n_words, lens, pipes):
+    """(bytes, SM clocks) of one call: each row read once with its
+    length, the digest words written once; and for each block of each
+    row's own padded length, one pass of the kernel's instructions
+    (``pipes``: its static SASS counts per pipe, one block's loop body
+    with the row's set-up and stores; an upper estimate for rows of one
+    block, as on the fused path), at the slowest pipe's rate."""
+    used = int(((lens.long() + 9 + 63) // 64).clamp(max=blocks).sum())
+    return (n * (blocks * 64 + 4 + 4 * n_words),
+            used * max(pipes[k] / SM_RATES[k] for k in SM_RATES))
+
+
+def check_sha256(torch, path_shapes: dict, clock_hz: float, sass: dict) -> dict:
+    """Holds the SHA-256 kernel against its plain version and hashlib at
+    the paths' shapes (payload rows of 51 bytes, as the fused engine
+    hashes) and at edge shapes, and times it at the paths' shapes. Its
+    operations bound comes from the kernel's SASS (``sass``, as
+    :func:`report_sass` counted it): per pipe, instructions over the
+    pipe's per-SM rate, times 132 SMs at the card's maximum clock."""
+    from semantic_merge_tpu_torch.ops import sha256 as sha
+
+    checks = [("path", n, blocks, n_words, [51] * n)
+              for (n, blocks, n_words) in sorted(path_shapes)]
+    for blocks in (1, 2, 3):
+        edges = [x for x in SHA_EDGES if x <= blocks * 64 - 9]
+        checks.append((f"edges {blocks} block(s)", len(edges), blocks, 8, edges))
+    checks += [("one row", 1, 1, 8, [3]), ("1000 rows", 1000, 2, 4, None),
+               ("129 rows", 129, 3, 8, None)]
+    for i, (label, n, blocks, n_words, lens) in enumerate(checks):
+        msg, ln = _sha_inputs(torch, n, blocks, lens, seed=i)
+        _sha_check(torch, sha, msg, ln, n_words)
+        print(f"sha256 {label} n={n} blocks={blocks} words={n_words}: equal to the plain "
+              "version (bit-exact) and to hashlib", flush=True)
+
+    functions = [ops for f, ops in sass.items() if "sha256_rows_kernel" in f]
+    if len(functions) != 1:
+        fail(f"sha256: {len(functions)} sha256_rows_kernel functions in the SASS, expected 1 "
+             "(its operations bound is counted from them)")
+    pipes = _pipe_counts(functions[0])
+    sm_clocks_per_s = H100_SMS * clock_hz
+    rows = []
+    for (n, blocks, n_words), launches in sorted(path_shapes.items()):
+        sets = [_sha_inputs(torch, n, blocks, [51] * n, seed=100 + k) for k in range(4)]
+        nbytes, sm_clocks = _sha_work(n, blocks, n_words, sets[0][1], pipes)
+        fn = lambda m, ln: sha.sha256_device(m, ln, n_words)  # noqa: E731
+        plain = lambda m, ln: sha.sha256_device_plain(m, ln, n_words)  # noqa: E731
+        ms, host_ms = _time_ms(torch, fn, sets)
+        row = {"n": n, "blocks": blocks, "words": n_words, "launches": launches,
+               "ms": ms, "host_ms": host_ms,
+               "graph_ms": _graph_ms(torch, fn, sets),
+               "plain_ms": _time_ms(torch, plain, sets, iters=4)[0],
+               "bytes": nbytes, "sm_clocks": sm_clocks,
+               "bytes_ms": nbytes / H100_BYTES_PER_S * 1e3,
+               "ops_ms": sm_clocks / sm_clocks_per_s * 1e3}
+        row["device_ms"], row["device_records"] = _device_ms(torch, fn, sets,
+                                                             "sha256_rows_kernel")
+        row["bound_share"] = (max(row["bytes_ms"], row["ops_ms"]) / row["device_ms"]
+                              if row["device_ms"] else None)
+        rows.append(row)
+        print(f"sha256 timing {json.dumps(row)}", flush=True)
+    bytes_ms, ops_ms = _weighted(rows, "bytes_ms"), _weighted(rows, "ops_ms")
+    device_ms = _weighted(rows, "device_ms")
+    return {
+        "name": "sha256",
+        "route": "cuda",
+        "source": "semantic_merge_tpu_torch/kernels/sha256.cu",
+        "replaces": "semantic_merge_tpu/ops/sha256.py:112",
+        "launches": None,
+        "max_abs_err": 0,
+        "ms": _weighted(rows, "ms"),
+        "host_ms": _weighted(rows, "host_ms"),
+        "device_ms": device_ms,
+        "graph_ms": _weighted(rows, "graph_ms"),
+        "plain_ms": _weighted(rows, "plain_ms"),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes SHA-256
+        "sass_per_block": pipes,
+        "sm_rates": SM_RATES,
+        "clock_hz": clock_hz,
+        "bound_share": max(bytes_ms, ops_ms) / device_ms if device_ms else None,
+        "shapes": rows,
+    }
+
+
+def time_programs(torch, captured: dict) -> dict:
+    """The fused merge and diff programs and the render program, on the
+    inputs the fused paths gave them: device time per call with the
+    kernels back to back (:func:`_queued_ms`), the kernels and copies of
+    one call (the most any of five single-call traces recorded), and the
+    CUDA-event and host (issuing) time per call when the host paces it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, (fn, args, kwargs) in captured.items():
+        call = lambda: fn(*args, **kwargs)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        reps = 10
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        stop.record()
+        torch.cuda.synchronize()
+        counts = []
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [n for n, _, _ in _device_events(prof)]
+            kern = [n for n in names if not n.startswith("Mem")]
+            counts.append((len(kern), len(names) - len(kern),
+                           sum("sha256_rows_kernel" in n for n in kern)))
+        kernels_, copies, sha_launches = max(counts)
+        out[name] = {"device_ms": _queued_ms(torch, call), "kernels": kernels_,
+                     "copies": copies, "sha256_launches": sha_launches,
+                     "event_ms": start.elapsed_time(stop) / reps, "host_ms": host_ms}
+        print(f"program {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
+class Capture:
+    """Wraps ``module.name`` so that its first and last calls' arguments
+    are kept (the function then runs as before); counts its calls."""
+
+    def __init__(self, module, name: str) -> None:
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = 0
+        self.first = self.last = None
+
+    def __enter__(self):
+        def wrapper(*args, **kwargs):
+            self.calls += 1
+            self.last = (self.fn, args, kwargs)
+            self.first = self.first or self.last
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
 
 
 # --- phase 3: the semantic diff end to end -----------------------------------
@@ -444,33 +719,47 @@ def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict) -> None:
     commit(side, "side")
 
 
-def run_semdiff(torch, repo: pathlib.Path):
-    """Runs the semdiff under a torch.profiler device trace; returns its
-    result, the launch counts and shapes, the op log, the host wall and
-    the device's busy time (union of its activities) in seconds."""
+def run_cli(torch, repo: pathlib.Path, argv: list):
+    """Runs the port's ``semdiff`` or ``semmerge`` CLI function for
+    ``argv`` in ``repo`` under a torch.profiler device trace, with the
+    launch counts and shapes set to 0 just before and read just after;
+    returns the result, the counts, the shapes, the host wall and the
+    device's busy time (union of its activities) in seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     from semantic_merge_tpu_torch import cli, kernels
 
-    args = cli.build_parser().parse_args(
-        ["semdiff", "base", "side", "--json-out", "--change-signature",
-         "--signature-matcher"])
+    args = cli.build_parser().parse_args(argv)
+    run = cli.semdiff if argv[0] == "semdiff" else cli.semmerge
     cwd = os.getcwd()
     os.chdir(repo)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             kernels.reset_launches()
             t0 = time.perf_counter()
-            result = cli.semdiff(args)
+            result = run(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(kernels.LAUNCHES)
             shapes = {k: dict(v) for k, v in kernels.LAUNCH_SHAPES.items()}
-        text = cli.render(result.ops, json_out=True)
     finally:
         os.chdir(cwd)
     busy = _busy_us([(s, e) for _, s, e in _device_events(prof)]) / 1e6
-    return result, launches, shapes, json.loads(text), wall, busy
+    print(f"{' '.join(argv)}: wall {wall:.3f} s (under a torch.profiler trace); device busy "
+          f"{busy:.4f} s, idle share {1 - busy / wall:.4f}; launches {launches}; launch shapes "
+          f"{shapes}; phases (s) "
+          + json.dumps({k: round(v, 4) for k, v in result.phases.items()}), flush=True)
+    return result, launches, shapes, wall, busy
+
+
+def expect_launches(path: str, launches: dict, want: dict) -> None:
+    """Fails unless every kernel launched as often as ``want`` says on
+    this path (``None``: at least once)."""
+    for name, n in want.items():
+        got = launches.get(name, 0)
+        if (n is None and got == 0) or (n is not None and got != n):
+            fail(f"{got} {name} launches on the {path} path, expected "
+                 f"{'at least 1' if n is None else n}")
 
 
 def write_config(root: pathlib.Path, ckpt: pathlib.Path) -> str:
@@ -492,43 +781,10 @@ def _counts(ops) -> dict:
     return dict(sorted(counts.items()))
 
 
-def run_semmerge(torch, repo: pathlib.Path):
-    """Runs ``semmerge base side other --inplace --change-signature
-    --signature-matcher`` through the port's CLI function, with ``side``
-    checked out, under a torch.profiler device trace; returns its
-    result, the launch counts and shapes, the host wall and the device's
-    busy time in seconds."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from semantic_merge_tpu_torch import cli, kernels
-
-    args = cli.build_parser().parse_args(
-        ["semmerge", "base", "side", "other", "--inplace", "--change-signature",
-         "--signature-matcher"])
-    cwd = os.getcwd()
-    os.chdir(repo)
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            result = cli.semmerge(args)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(kernels.LAUNCHES)
-            shapes = {k: dict(v) for k, v in kernels.LAUNCH_SHAPES.items()}
-    finally:
-        os.chdir(cwd)
-    busy = _busy_us([(s, e) for _, s, e in _device_events(prof)]) / 1e6
-    return result, launches, shapes, wall, busy
-
-
-def check_semmerge(repo: pathlib.Path, result, launches) -> None:
+def check_semmerge(repo: pathlib.Path, result) -> None:
     """The merged work tree, the text-merged README and the notes."""
     if result.code != 0:
         fail(f"semmerge exited {result.code}, expected 0")
-    if launches.get("flash_chunk") != 16:
-        fail(f"{launches.get('flash_chunk')} flash_chunk launches on the semmerge path, "
-             "expected 16 (2 sides x 2 embeds x 4 layers)")
     for i in range(0, N_FILES, 4):
         path = repo / "lib" / f"mod{i:05d}.ts"
         if not path.is_file() or f"renamed{i}_0" not in path.read_text():
@@ -537,11 +793,102 @@ def check_semmerge(repo: pathlib.Path, result, launches) -> None:
     if "(edited on A)" not in readme or "(edited on B)" not in readme:
         fail("README.md does not hold both sides' edits")
     for rev, log in (("side", result.result.op_log_left), ("other", result.result.op_log_right)):
-        note = subprocess.run(["git", "notes", "--ref", "semmerge", "show", rev], cwd=repo,
-                              check=True, stdout=subprocess.PIPE, text=True).stdout
+        note = _note(repo, rev)
         if len(json.loads(note)) != len(log):
             fail(f"the semmerge note on {rev} holds {len(json.loads(note))} ops, "
                  f"its op log {len(log)}")
+
+
+def _note(repo: pathlib.Path, rev: str) -> bytes:
+    return subprocess.run(["git", "notes", "--ref", "semmerge", "show", rev], cwd=repo,
+                          check=True, stdout=subprocess.PIPE).stdout
+
+
+def _host_json(view) -> bytes:
+    """An op-stream view's op log as the host serializer renders it."""
+    return ("[" + ",".join(view._json_rows(0, len(view))) + "]").encode("utf-8")
+
+
+def fused_semdiff_counts() -> dict:
+    """Op counts of the fused semdiff base→side. At the rung5 size:
+    5,000 renames (each also moves its decl, whose address holds its
+    name, and shifts the other three decls of its file: 20,000 moves),
+    256 retyped functions (a new signature, so a delete and an add, and
+    three shifted decls each: 768 moves) and 98 added functions."""
+    added = sum(1 for i in range(N_FILES) if i % 2 and i % 51 == 0)
+    return {"addDecl": added + N_RETYPED, "deleteDecl": N_RETYPED,
+            "moveDecl": 4 * ((N_FILES + 1) // 2) + 3 * N_RETYPED,
+            "renameSymbol": (N_FILES + 1) // 2}
+
+
+def check_fused_semdiff(torch, result) -> dict:
+    """The fused semdiff's op log: an op-stream view with the expected
+    counts, every id recomputed on the host with hashlib, and the op log
+    rendered on the card equal to the host serializer's bytes."""
+    from semantic_merge_tpu_torch.core.ids import deterministic_op_id
+    from semantic_merge_tpu_torch.ops.oplog_view import OpStreamView
+    from semantic_merge_tpu_torch.ops.render import render_view
+
+    view = result.ops
+    if not isinstance(view, OpStreamView) or "fused" not in result.phases:
+        fail(f"the semdiff did not take the fused path (got {type(view).__name__})")
+    counts, want = _counts(view), fused_semdiff_counts()
+    print(f"fused semdiff ops by type {json.dumps(counts)}", flush=True)
+    if counts != want:
+        fail(f"fused semdiff op counts {counts}, expected {want}")
+    types = ("renameSymbol", "moveDecl", "addDecl", "deleteDecl")
+    rev = view.prov["rev"]
+    ids = view.ids()
+    for i, (k, a, b) in enumerate(zip(view.kind.tolist(), view.a_slot.tolist(),
+                                      view.b_slot.tolist())):
+        an = view.base_nodes[a] if types[k] != "addDecl" else None
+        bn = view.side_nodes[b] if types[k] != "deleteDecl" else None
+        want = deterministic_op_id("0/R", rev, i, types[k], (an or bn).symbolId,
+                                   an.addressId if an else "", bn.addressId if bn else "")
+        if ids[i] != want:
+            fail(f"fused semdiff op {i}: id {ids[i]} != hashlib's {want}")
+    t0 = time.perf_counter()
+    rendered = render_view(view, "cuda").json_bytes()
+    render_s = time.perf_counter() - t0
+    if rendered != _host_json(view):
+        fail("the fused semdiff's op log rendered on the card differs from _json_rows")
+    return {"ops": len(view), "ids_checked": len(ids), "render_s": render_s,
+            "rendered_bytes": len(rendered)}
+
+
+def check_fused_semmerge(torch, work: pathlib.Path, merged) -> dict:
+    """The fused semmerge: the path taken, the tree and notes as in
+    :func:`check_semmerge`, each note's bytes (rendered on the card)
+    equal to the host serializer's, and the device compose of the
+    materialized op logs, on the card, equal to the fused composed
+    stream."""
+    from semantic_merge_tpu_torch.ops.compose import compose_oplogs_device
+    from semantic_merge_tpu_torch.ops.oplog_view import ComposedOpView
+
+    if not (isinstance(merged.composed, ComposedOpView) and merged.composed.supports_columns
+            and "fused" in merged.phases and "compose" not in merged.phases):
+        fail("the semmerge did not take the fused path")
+    check_semmerge(work, merged)
+    left, right = merged.result.op_log_left, merged.result.op_log_right
+    for rev, view in (("side", left), ("other", right)):
+        if view.render is None:
+            fail(f"the op log of {rev} ({len(view)} ops) was not rendered on the card")
+        if _note(work, rev).rstrip(b"\n") != _host_json(view):
+            fail(f"the semmerge note on {rev} differs from _json_rows's rendering")
+    fused_composed = [o.to_dict() for o in merged.composed]
+    ops, conflicts = compose_oplogs_device(list(left), list(right), device="cuda")
+    if ([o.to_dict() for o in ops] != fused_composed
+            or [c.to_dict() for c in conflicts] != [c.to_dict() for c in merged.conflicts]):
+        fail("compose_oplogs_device on the card differs from the fused composed stream")
+    counts = {"A": _counts(left), "B": _counts(right), "composed": _counts(merged.composed),
+              "conflicts": len(merged.conflicts)}
+    print(f"fused semmerge ops by type {json.dumps(counts)}; notes rendered on the card "
+          "equal _json_rows; compose_oplogs_device on the card equals the fused composed "
+          "stream", flush=True)
+    if len(fused_composed) != len(left) + len(right) or merged.conflicts:
+        fail(f"{len(fused_composed)} composed ops from {len(left)} + {len(right)}, "
+             f"{len(merged.conflicts)} conflicts")
+    return counts
 
 
 def check_compose(torch, result) -> dict:
@@ -580,13 +927,24 @@ def check_compose(torch, result) -> dict:
 
 
 _SMALL_UTIL = "export function foo(n: number): number {\n  return n;\n}\n"
-#: name → (base, other's tree, exit code); the side renames foo to bar
-#: and edits line 2 of the README.
+_SMALL_G = "export function g(a: boolean, b: boolean): void {}\n"
+#: name → (flags, extra files {path: (base and other, side)}, other's
+#: tree, exit code, path taken); the side renames foo to bar and edits
+#: line 2 of the README. In the last case the side also retypes g, a
+#: delete+add pair of one (file, name, kind) that --change-signature
+#: could fold, so the merge leaves the fused result for the two-program
+#: path, whose compose walks the DivergentRename on the host.
 SMALL_MERGES = {
-    "divergent_rename": ({"src/util.ts": _SMALL_UTIL.replace("foo", "baz"), "README.md": README},
-                         1),
-    "rename_vs_move": ({"lib/util.ts": _SMALL_UTIL,
-                        "README.md": README.replace("line 19 of", "line 19 (B) of")}, 0),
+    "divergent_rename": ([], {}, {"src/util.ts": _SMALL_UTIL.replace("foo", "baz"),
+                                  "README.md": README}, 1, "fused"),
+    "rename_vs_move": ([], {}, {"lib/util.ts": _SMALL_UTIL,
+                                "README.md": README.replace("line 19 of", "line 19 (B) of")},
+                       0, "fused"),
+    "divergent_rename_changesig": (
+        ["--change-signature"], {"src/g.ts": (_SMALL_G, _SMALL_G.replace("a: boolean",
+                                                                         "a: string"))},
+        {"src/util.ts": _SMALL_UTIL.replace("foo", "baz"), "README.md": README}, 1,
+        "two-program"),
 }
 
 
@@ -594,14 +952,22 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
     """Small three-way merges through the CLI, each in a fresh copy of
     its repository, on the card and with ``--device cpu``: the exit
     code, the work tree (with ``.semmerge-conflicts.json``) and the notes
-    on both sides must be identical."""
+    on both sides must be identical. Each merge must take the path
+    ``SMALL_MERGES`` names: the fused engine runs once in every merge;
+    the two-program path is the backend's ``compose``, and there the
+    DivergentRename conflict runs the compose's host cursor walk."""
     from semantic_merge_tpu_torch import cli
+    from semantic_merge_tpu_torch.backends.ts_torch import TorchTSBackend
+    from semantic_merge_tpu_torch.ops import compose
+    from semantic_merge_tpu_torch.ops.fused import FusedMergeEngine
 
-    base = {"src/util.ts": _SMALL_UTIL, "README.md": README}
-    side = {"src/util.ts": _SMALL_UTIL.replace("foo", "bar"),
-            "README.md": README.replace("line 2 of", "line 2 (A) of")}
     codes = {}
-    for name, (other, expect) in SMALL_MERGES.items():
+    for name, (flags, extra, other, expect, path) in SMALL_MERGES.items():
+        base = {"src/util.ts": _SMALL_UTIL, "README.md": README}
+        side = {"src/util.ts": _SMALL_UTIL.replace("foo", "bar"),
+                "README.md": README.replace("line 2 of", "line 2 (A) of")}
+        for file, (both, side_text) in extra.items():
+            base[file], side[file], other = both, side_text, {**other, file: both}
         origin = work / name / "origin"
         make_repo(origin, base, side, other)
         outcome = {}
@@ -612,10 +978,19 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
             cwd = os.getcwd()
             os.chdir(copy)
             try:
-                code = cli.main(["semmerge", "base", "side", "other", "--inplace",
-                                 "--device", device])
+                with Capture(FusedMergeEngine, "merge") as fused_runs, \
+                        Capture(TorchTSBackend, "compose") as composes, \
+                        Capture(compose, "_walk_on_host") as walks:
+                    code = cli.main(["semmerge", "base", "side", "other", "--inplace",
+                                     "--device", device, *flags])
             finally:
                 os.chdir(cwd)
+            want = (1, 1 if path == "two-program" else 0,
+                    1 if path == "two-program" and expect == 1 else 0)
+            if (fused_runs.calls, composes.calls, walks.calls) != want:
+                fail(f"small merge {name} on {device}: the fused engine, the two-program "
+                     f"compose and its host walk ran {fused_runs.calls}, {composes.calls} "
+                     f"and {walks.calls} times, expected {want} (the {path} path)")
             tree = {p.relative_to(copy).as_posix(): p.read_bytes()
                     for p in sorted(copy.rglob("*"))
                     if p.is_file() and ".git" not in p.relative_to(copy).parts}
@@ -628,7 +1003,7 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
             fail(f"small merge {name}: exit {outcome['cuda'][0]} on the card, expected {expect}")
         if outcome["cuda"] != outcome["cpu"]:
             fail(f"small merge {name}: the card's exit code, tree or notes differ from the CPU's")
-        codes[name] = expect
+        codes[name] = f"exit {expect}, {path} path"
     return codes
 
 
@@ -667,18 +1042,30 @@ def check_reference(torch, ckpt: pathlib.Path) -> float:
 
 
 def main() -> int:
+    global N_FILES, N_RETYPED
+    import argparse
+
+    parser = argparse.ArgumentParser(description="On-card smoke test of the port")
+    parser.add_argument("--files", type=int, default=N_FILES,
+                        help="repository size (default: the rung5 size, 10,000 files)")
+    N_FILES = parser.parse_args().files
+    N_RETYPED = min(N_RETYPED, N_FILES * N_RETYPED // 10_000)
     if not (REPO / "semantic_merge_tpu_torch" / "kernels" / "flash_chunk.cu").is_file():
         fail(f"the port's sources are not beside this script in {REPO}")
     sys.path.insert(0, str(REPO))
     import torch
 
-    t = time.perf_counter()
+    t = t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
                           stdout=subprocess.PIPE, text=True).stdout.strip().splitlines()[0]
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}", flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, stdout=subprocess.PIPE, text=True).stdout.split()[0])
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}; "
+          f"max SM clock {clock_mhz:.0f} MHz", flush=True)
     # The plain versions' f32 einsums are the references: no TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -690,15 +1077,17 @@ def main() -> int:
     from semantic_merge_tpu_torch import kernels
     from semantic_merge_tpu_torch.models.encoder import Encoder, EncoderConfig
     from semantic_merge_tpu_torch.models.matcher import save_matcher_checkpoint
+    from semantic_merge_tpu_torch.ops import fused, render
 
-    for name in sorted(kernels.LAUNCHES):
-        report_ptxas(name, kernels.build(name))
-        report_sass(kernels, name)
+    sass = {}
+    for name, log in kernels.build_all(sorted(kernels.LAUNCHES)).items():
+        report_ptxas(name, log)
+        sass[name] = report_sass(kernels, name)
     t = phase("build", t)
 
     shutil.rmtree(WORK, ignore_errors=True)
     try:
-        repo, ckpt = WORK / "repo", WORK / "ckpt"
+        repo, ckpt, fused_tree = WORK / "repo", WORK / "ckpt", WORK / "fused"
         make_repo(repo, *synth_trees(N_FILES, DECLS, N_RETYPED))
         encoder = Encoder(EncoderConfig(), generator=torch.Generator().manual_seed(0))
         save_matcher_checkpoint(ckpt, encoder.state_dict())
@@ -711,69 +1100,100 @@ def main() -> int:
               + config.replace("\n", "; "), flush=True)
         t = phase("repo", t)
 
-        result, launches, shapes, ops, wall, busy = run_semdiff(torch, repo)
-        t = phase("semdiff", t)
-        counts = {}
-        for op in ops:
-            counts[op["type"]] = counts.get(op["type"], 0) + 1
-        print("semdiff phases (s): " + json.dumps(
-            {k: round(v, 4) for k, v in result.phases.items()}))
-        print(f"semdiff wall {wall:.3f} s (under a torch.profiler trace); "
-              f"device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}; "
-              f"ops by type {json.dumps(counts, sort_keys=True)}; "
-              f"changeSignature {counts.get('changeSignature', 0)}; launches {launches}; "
-              f"launch shapes (B, Lq, Lk, H, Dh) {shapes}")
-        missing = [name for name, n in launches.items() if n == 0]
-        if missing:
-            fail(f"kernels never launched on the semdiff path: {missing}")
+        # The matcher semdiff (two-program path).
+        result, launches, shapes, wall, busy = run_cli(
+            torch, repo, ["semdiff", "base", "side", "--json-out", "--change-signature",
+                          "--signature-matcher"])
+        expect_launches("matcher semdiff", launches, {"flash_chunk": 8, "sha256": 0})
         if result.matcher is None or result.matcher.encoder is None:
             fail("the signature matcher did not run")
         devices = {p.device.type for p in result.matcher.encoder.parameters()}
         if devices != {"cuda"}:
             fail(f"encoder parameters on {devices}, expected cuda")
-        expect_renames = (N_FILES + 1) // 2
-        if counts.get("renameSymbol") != expect_renames:
-            fail(f"{counts.get('renameSymbol')} renameSymbol ops, expected {expect_renames}")
+        counts = _counts(result.ops)
+        print(f"matcher semdiff ops by type {json.dumps(counts)}", flush=True)
+        if counts.get("renameSymbol") != (N_FILES + 1) // 2:
+            fail(f"{counts.get('renameSymbol')} renameSymbol ops, expected {(N_FILES + 1) // 2}")
         if counts.get("deleteDecl", 0) + counts.get("changeSignature", 0) != N_RETYPED:
             fail(f"deleteDecl + changeSignature != {N_RETYPED}")
+        runs = {"semdiff": (launches, shapes)}
+        t = phase("semdiff", t)
 
-        merged, merge_launches, merge_shapes, merge_wall, merge_busy = run_semmerge(torch, repo)
-        t = phase("semmerge", t)
-        print("semmerge phases (s): " + json.dumps(
-            {k: round(v, 4) for k, v in merged.phases.items()}))
-        print(f"semmerge exit {merged.code}, wall {merge_wall:.3f} s (under a torch.profiler "
-              f"trace); device busy {merge_busy:.4f} s, idle share "
-              f"{1 - merge_busy / merge_wall:.4f}; launches {merge_launches}; launch shapes "
-              f"(B, Lq, Lk, H, Dh) {merge_shapes}")
+        # The fused semdiff.
+        with Capture(fused, "_fused_diff_program") as diff_program:
+            result, launches, shapes, wall, busy = run_cli(
+                torch, repo, ["semdiff", "base", "side", "--json-out"])
+        expect_launches("fused semdiff", launches, {"flash_chunk": 0, "sha256": None})
+        print(f"fused semdiff checks: {json.dumps(check_fused_semdiff(torch, result))}",
+              flush=True)
+        runs["fused_semdiff"] = (launches, shapes)
+        t = phase("fused semdiff", t)
+
+        # The fused semmerge, in a second work tree at `side`, before the
+        # matcher merge rewrites the notes.
+        subprocess.run(["git", "worktree", "add", "-q", "--detach", str(fused_tree), "side"],
+                       cwd=repo, check=True)
+        write_config(fused_tree, ckpt)
+        with Capture(fused, "_fused_merge_program") as merge_program, \
+                Capture(render, "_render_program") as render_program:
+            merged, launches, shapes, wall, busy = run_cli(
+                torch, fused_tree, ["semmerge", "base", "side", "other", "--inplace"])
+        expect_launches("fused semmerge", launches, {"flash_chunk": 0, "sha256": 4})
+        check_fused_semmerge(torch, fused_tree, merged)
+        runs["fused_semmerge"] = (launches, shapes)
+        t = phase("fused semmerge", t)
+
+        # The matcher semmerge (two-program path), in the first work tree.
+        merged, launches, shapes, wall, busy = run_cli(
+            torch, repo, ["semmerge", "base", "side", "other", "--inplace",
+                          "--change-signature", "--signature-matcher"])
+        # The fused engine runs first, as in the JAX package, and its
+        # result is set aside: the matcher could pair its deletes and adds.
+        expect_launches("matcher semmerge", launches, {"flash_chunk": 16, "sha256": 4})
+        if not {"fused", "compose"} <= set(merged.phases):
+            fail("the matcher semmerge did not try the fused engine first, then compose")
         if merged.result is not None:
             print(f"semmerge ops by type: A {json.dumps(_counts(merged.result.op_log_left))}; "
                   f"B {json.dumps(_counts(merged.result.op_log_right))}; composed "
                   f"{json.dumps(_counts(merged.composed))}; conflicts {len(merged.conflicts)}")
-        check_semmerge(repo, merged, merge_launches)
+        check_semmerge(repo, merged)
+        runs["semmerge"] = (launches, shapes)
+        t = phase("semmerge", t)
         compose = check_compose(torch, merged)
         print(f"compose: card and CPU give identical composed streams and conflicts; "
               f"alone on the card {json.dumps(compose)}", flush=True)
         t = phase("compose", t)
 
-        path_shapes = dict(shapes["flash_chunk"])
-        for shape, n in merge_shapes["flash_chunk"].items():
-            path_shapes[shape] = path_shapes.get(shape, 0) + n
-        row = check_kernels(torch, path_shapes)
+        def path_shapes(kernel):
+            union: dict = {}
+            for _, shapes_ in runs.values():
+                for shape, n in shapes_.get(kernel, {}).items():
+                    union[shape] = union.get(shape, 0) + n
+            return union
+
+        rows = [check_kernels(torch, path_shapes("flash_chunk")),
+                check_sha256(torch, path_shapes("sha256"), clock_mhz * 1e6,
+                             sass["sha256"])]
+        for row in rows:
+            row["launches"] = {path: launches_.get(row["name"], 0)
+                               for path, (launches_, _) in runs.items()}
+        time_programs(torch, {"fused merge program": merge_program.last,
+                              "fused diff program": diff_program.last,
+                              "render program (A)": render_program.first})
         t = phase("kernels", t)
 
         emb_err = check_reference(torch, ckpt)
         print(f"reference: small-input op log identical on card and CPU; "
               f"embedding max abs err {emb_err:.3e} (atol 2e-2)")
         codes = check_reference_merges(WORK / "small", ckpt)
-        print(f"reference: small merges {codes} (name: exit) give identical exit codes, "
+        print(f"reference: small merges {json.dumps(codes)} give identical exit codes, "
               "trees, conflicts and notes on the card and the CPU")
         t = phase("reference", t)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    row["launches"] = {"semdiff": launches["flash_chunk"],
-                       "semmerge": merge_launches["flash_chunk"]}
-    print(json.dumps({"kernels": [row]}))
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

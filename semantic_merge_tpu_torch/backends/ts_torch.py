@@ -1,25 +1,38 @@
 """TypeScript backend on the GPU — the port's semantic diff and merge.
 
-The counterpart of the two-program branch of the JAX package's
-``TpuTSBackend`` (``backends/ts_tpu.py``): the host scans and interns the
-snapshots, the device runs the diff join
-(:mod:`semantic_merge_tpu_torch.ops.diff`; both sides of a merge in one
-call), the op stream decodes back into ``Diff`` records, the optional
-changeSignature refinement runs (with the embedding matcher, whose
-encoder runs on the device), and the shared
-:func:`semantic_merge_tpu_torch.core.difflift.lift` mints the op logs.
-A merge then composes the two logs on the device
-(:mod:`semantic_merge_tpu_torch.ops.compose`). Op logs, composed stream
-and conflicts are byte-identical to the JAX package's by construction:
-same scan, same enumeration order, same deterministic ids, same
-composition. The JAX package's fused one-program engine gives the same
-output; it is not ported yet.
+The counterpart of the JAX package's ``TpuTSBackend``
+(``backends/ts_tpu.py``), single device. The host scans the snapshots
+and interns them into the backend's one id space; then, as in the JAX
+package:
+
+- **The fused path** (the default): :meth:`diff` without
+  changeSignature, and :meth:`merge` unless the changeSignature
+  refinement could rewrite an op stream (:func:`_changesig_candidates`),
+  run :class:`~semantic_merge_tpu_torch.ops.fused.FusedMergeEngine` —
+  the diff join, op ids by SHA-256 on the device and the compose in one
+  device pass — and return columnar views
+  (:mod:`semantic_merge_tpu_torch.ops.oplog_view`). The merge builds its
+  symbol maps while the device works.
+- **The two-program path**: the device diff join
+  (:mod:`semantic_merge_tpu_torch.ops.diff`; both sides of a merge in
+  one call) decodes back into ``Diff`` records, the changeSignature
+  refinement runs (with the embedding matcher, whose encoder runs on the
+  device), :func:`semantic_merge_tpu_torch.core.difflift.lift` mints the
+  op logs, and a merge composes them on the device
+  (:mod:`semantic_merge_tpu_torch.ops.compose`). It also takes a merge
+  whose fused capacity retries run out.
+
+Both paths give op logs, composed stream and conflicts byte-identical to
+the JAX package's: same scan, same enumeration order, same
+deterministic ids, same composition.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List
+
+import numpy as np
 
 from ..core.difflift import Diff, lift, refine_signature_changes, source_maps
 from ..core.encode import Interner, encode_decls
@@ -29,6 +42,7 @@ from ..device import resolve_device
 from ..frontend.scanner import DeclNode, scan_snapshot_py
 from ..frontend.snapshot import TS_EXTENSIONS, Snapshot, filter_files
 from ..ops.compose import compose_oplogs_device
+from ..ops.fused import FusedMergeEngine
 from ..ops.diff import (KIND_ADD, KIND_DELETE, KIND_MOVE, KIND_RENAME,
                         DiffOpsTensor, diff_lift_device, diff_lift_device_pair)
 
@@ -58,32 +72,62 @@ def symbol_map(nodes) -> List[dict]:
 
 class TorchTSBackend:
     """``device``: ``None``/``"cuda"`` for the card, ``"cpu"`` only when
-    asked for. ``phases`` holds the seconds each phase of the last
-    :meth:`diff` or :meth:`merge` took."""
+    asked for. ``host_workers``: the fused path's host-tail workers
+    (``[engine] host_workers``; ``None`` = auto). ``phases`` holds the
+    seconds each phase of the last :meth:`diff` or :meth:`merge` took,
+    and ``path`` which path it took (``"fused"`` or ``"two-program"``).
+    The interner and the fused engine live as long as the backend."""
 
     name = "torch"
     #: The files this backend's semantic pipeline owns; the merge's text
     #: layer merges every other file (``runtime/textmerge.py``).
     extensions = frozenset(TS_EXTENSIONS)
 
-    def __init__(self, device: str | None = None) -> None:
+    def __init__(self, device: str | None = None,
+                 host_workers: int | None = None) -> None:
         self.device = resolve_device(device)
+        self.host_workers = host_workers
         self.phases: Dict[str, float] = {}
+        self.path: str | None = None
+        self._interner = Interner()
+        self._fused: FusedMergeEngine | None = None
+
+    def _fused_engine(self) -> FusedMergeEngine:
+        if self._fused is None:
+            self._fused = FusedMergeEngine(self._interner, self.device,
+                                           host_workers=self.host_workers)
+        return self._fused
+
+    def _scan_encode(self, snaps, clock):
+        nodes = [scan_snapshot_py(ts_files(snap)) for snap in snaps]
+        clock.lap("scan")
+        tensors = [encode_decls(n, self._interner) for n in nodes]
+        clock.lap("encode")
+        return nodes, tensors
 
     def diff(self, base: Snapshot, right: Snapshot,
              *, base_rev: str = "base", seed: str = "0",
              timestamp: str | None = None,
              change_signature: bool = False,
              signature_matcher=None) -> List[Op]:
+        """The op log from ``base`` to ``right``: the fused engine's
+        :class:`~semantic_merge_tpu_torch.ops.oplog_view.OpStreamView`
+        without changeSignature, else (and when the fused capacity
+        retries run out) a list from the two-program path."""
         ts = timestamp or EPOCH_ISO
         clock = _PhaseClock(self.phases)
-        interner = Interner()
-        base_nodes = scan_snapshot_py(ts_files(base))
-        right_nodes = scan_snapshot_py(ts_files(right))
-        clock.lap("scan")
-        base_t = encode_decls(base_nodes, interner)
-        right_t = encode_decls(right_nodes, interner)
-        clock.lap("encode")
+        (base_nodes, right_nodes), (base_t, right_t) = self._scan_encode(
+            (base, right), clock)
+        if not change_signature:
+            engine = self._fused_engine()
+            view = engine.diff(base_t, base_nodes, right_t, right_nodes,
+                               seed=seed, base_rev=base_rev, timestamp=ts)
+            clock.lap("fused")
+            self.phases.update(engine.phases)
+            if view is not None:
+                self.path = "fused"
+                return view
+        self.path = "two-program"
         t = diff_lift_device(base_t, right_t, self.device)
         clock.lap("device_diff")
         diffs = decode_diffs(t, base_t, right_t, base_nodes, right_nodes)
@@ -106,13 +150,19 @@ class TorchTSBackend:
         into one id space, both diffs in one device call, each side
         refined with the matcher, lifted with seeds ``seed + "/L"`` and
         ``seed + "/R"``."""
-        ts = timestamp or EPOCH_ISO
         clock = _PhaseClock(self.phases)
-        interner = Interner()
-        nodes = [scan_snapshot_py(ts_files(snap)) for snap in (base, left, right)]
-        clock.lap("scan")
-        base_t, left_t, right_t = (encode_decls(n, interner) for n in nodes)
-        clock.lap("encode")
+        snaps = (base, left, right)
+        nodes, tensors = self._scan_encode(snaps, clock)
+        return self._diff_lift(snaps, nodes, tensors, clock, base_rev=base_rev, seed=seed,
+                               timestamp=timestamp, change_signature=change_signature,
+                               signature_matcher=signature_matcher)
+
+    def _diff_lift(self, snaps, nodes, tensors, clock, *, base_rev, seed, timestamp,
+                   change_signature, signature_matcher) -> BuildAndDiffResult:
+        """:meth:`build_and_diff` after the scan."""
+        ts = timestamp or EPOCH_ISO
+        base, left, right = snaps
+        base_t, left_t, right_t = tensors
         t_l, t_r = diff_lift_device_pair(base_t, left_t, right_t, self.device)
         clock.lap("device_diff")
         diffs_l = decode_diffs(t_l, base_t, left_t, nodes[0], nodes[1])
@@ -144,16 +194,47 @@ class TorchTSBackend:
               timestamp: str | None = None,
               change_signature: bool = False,
               signature_matcher=None):
-        """Full three-way merge: :meth:`build_and_diff`, then
-        :meth:`compose`. Returns ``(BuildAndDiffResult, composed ops,
-        conflicts)``."""
-        result = self.build_and_diff(base, left, right, base_rev=base_rev, seed=seed,
-                                     timestamp=timestamp,
-                                     change_signature=change_signature,
-                                     signature_matcher=signature_matcher)
-        t0 = time.perf_counter()
+        """Full three-way merge. Returns ``(BuildAndDiffResult, composed
+        ops, conflicts)``.
+
+        The fused engine runs first (``ts_tpu.py`` ``merge``): its op
+        logs are :class:`~semantic_merge_tpu_torch.ops.oplog_view.
+        OpStreamView`s and its composed stream a column-backed
+        :class:`~semantic_merge_tpu_torch.ops.oplog_view.ComposedOpView`
+        for the columnar applier. With changeSignature, a side whose
+        rows hold a foldable delete+add pair would be rewritten by the
+        refinement, so that merge — like one whose capacity retries run
+        out — takes the two-program path on the same scan: the steps of
+        :meth:`build_and_diff`, then :meth:`compose`."""
+        ts = timestamp or EPOCH_ISO
+        clock = _PhaseClock(self.phases)
+        snaps = (base, left, right)
+        nodes, tensors = self._scan_encode(snaps, clock)
+        base_t, left_t, right_t = tensors
+        maps: Dict[str, List[dict]] = {}
+
+        def build_symbol_maps():
+            maps.update(zip(("base", "left", "right"), map(symbol_map, nodes)))
+
+        engine = self._fused_engine()
+        fused = engine.merge(base_t, nodes[0], left_t, nodes[1], right_t, nodes[2],
+                             seed=seed, base_rev=base_rev, timestamp=ts,
+                             overlap_work=build_symbol_maps)
+        clock.lap("fused")
+        self.phases.update(engine.phases)
+        if fused is not None:
+            ops_l, ops_r, composed, conflicts = fused
+            if not (change_signature
+                    and (_changesig_candidates(ops_l, signature_matcher)
+                         or _changesig_candidates(ops_r, signature_matcher))):
+                self.path = "fused"
+                return BuildAndDiffResult(ops_l, ops_r, maps), composed, conflicts
+        result = self._diff_lift(snaps, nodes, tensors, clock, base_rev=base_rev, seed=seed,
+                                 timestamp=timestamp, change_signature=change_signature,
+                                 signature_matcher=signature_matcher)
         composed, conflicts = self.compose(result.op_log_left, result.op_log_right)
-        self.phases["compose"] = time.perf_counter() - t0
+        clock.lap("compose")
+        self.path = "two-program"
         return result, composed, conflicts
 
 
@@ -167,6 +248,26 @@ class _PhaseClock:
         now = time.perf_counter()
         self._phases[name] = now - self._t
         self._t = now
+
+
+def _changesig_candidates(view, matcher) -> bool:
+    """Could ``refine_signature_changes`` rewrite this fused op stream?
+    Its exact-key pass pairs a deleted and an added decl sharing
+    ``(file, name, kind)``; with a model ``matcher`` the residual pass
+    keys by ``(kind, file)``, so any delete+add pair at all counts.
+    ``view`` is an ``OpStreamView``; only its delete and add rows' nodes
+    are read."""
+    del_rows = np.nonzero(view.kind == KIND_DELETE)[0]
+    add_rows = np.nonzero(view.kind == KIND_ADD)[0]
+    if not len(del_rows) or not len(add_rows):
+        return False
+    if matcher is not None:
+        return True
+    dels = {(a.file, a.name, a.kind)
+            for a in map(view.base_nodes.__getitem__, view.a_slot[del_rows].tolist())
+            if a.name}
+    return any(b.name and (b.file, b.name, b.kind) in dels
+               for b in map(view.side_nodes.__getitem__, view.b_slot[add_rows].tolist()))
 
 
 def decode_diffs(t: DiffOpsTensor, base_t, side_t,

@@ -125,7 +125,7 @@ class SemdiffResult:
 def semdiff(args: argparse.Namespace) -> SemdiffResult:
     """Run ``semdiff`` for parsed ``args`` in the working directory."""
     config = load_config().engine
-    backend = TorchTSBackend(device=args.device)
+    backend = TorchTSBackend(device=args.device, host_workers=config.host_workers)
     change_sig = args.change_signature or config.change_signature
     matcher = _signature_matcher(args, config, change_sig, backend.device)
     t0 = time.perf_counter()
@@ -191,6 +191,7 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
             recover()
     config = load_config()
     engine = config.engine
+    backend.host_workers = engine.host_workers
     change_sig = args.change_signature or engine.change_signature
     out = SemmergeResult(code=0, matcher=_signature_matcher(
         args, engine, change_sig, backend.device))

@@ -16,6 +16,8 @@ the rest:
     text_fallback = true           # 3-way text merge for files the
                                    # TypeScript pipeline does not index
     formatter_scope = "tree"       # "tree" | "touched"
+    host_workers = 0               # fused path's host-tail worker threads
+                                   # (0 = auto; SEMMERGE_HOST_WORKERS wins)
 
     [languages.typescript]
     formatter_cmd = ["npx", "prettier", "--write"]
@@ -44,6 +46,7 @@ class EngineConfig:
     matcher_ckpt_dir: str | None = None
     text_fallback: bool = True
     formatter_scope: str = "tree"
+    host_workers: int = 0
 
 
 @dataclass
@@ -96,6 +99,7 @@ def load_config(start: pathlib.Path | None = None) -> Config:
         formatter_scope=_validated(
             str(engine.get("formatter_scope", defaults.formatter_scope)),
             "engine.formatter_scope", ("tree", "touched")),
+        host_workers=int(engine.get("host_workers", defaults.host_workers)),
     )
     for lang, ldata in data.get("languages", {}).items():
         config.languages[lang] = LanguageConfig(formatter_cmd=[

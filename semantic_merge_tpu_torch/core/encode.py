@@ -13,6 +13,7 @@ slots sort to the end.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -30,6 +31,9 @@ class Interner:
     def __init__(self) -> None:
         self._ids: Dict[str, int] = {}
         self.strings: List[str] = []
+        self._obj: np.ndarray | None = None
+        self._obj_n = 0
+        self._lock = threading.Lock()
 
     def intern(self, s: str | None) -> int:
         if s is None:
@@ -41,6 +45,28 @@ class Interner:
         self.strings.append(s)
         self._ids[s] = new_id
         return new_id
+
+    def object_table(self) -> np.ndarray:
+        """Read-only numpy object mirror ``[*strings, None]`` (grown
+        geometrically): fancy-indexing an int32 id column against it
+        decodes the whole column in one gather, ``NULL_ID`` (-1) wrapping
+        to the trailing ``None``. Gather from it at once; a later
+        :meth:`intern` may overwrite the trailing slot. The lock lets the
+        fused path's tail workers call it alongside each other."""
+        with self._lock:
+            n = len(self.strings)
+            if self._obj is None or n + 1 > len(self._obj):
+                grown = np.empty((max(64, 2 * (n + 1)),), dtype=object)
+                grown[:n] = self.strings
+                self._obj = grown
+                self._obj_n = n
+            elif n > self._obj_n:
+                self._obj[self._obj_n:n] = self.strings[self._obj_n:n]
+                self._obj_n = n
+            self._obj[n] = None
+            view = self._obj[:n + 1]
+            view.flags.writeable = False
+            return view
 
     def lookup(self, idx: int) -> str | None:
         if idx == NULL_ID:
@@ -126,6 +152,17 @@ def bucket_size(n: int, minimum: int = 8) -> int:
             return half
         size *= 2
     return size
+
+
+def shard_ranges(n: int, rows_per_shard: int) -> list[tuple[int, int]]:
+    """Split ``n`` rows into contiguous ``(lo, hi)`` ranges of at most
+    ``rows_per_shard`` rows — the host-tail pipeline's shard plan, a pure
+    function of its arguments so every consumer agrees on the shard
+    boundaries. ``n = 0`` yields no shards."""
+    if n <= 0:
+        return []
+    rows = max(1, int(rows_per_shard))
+    return [(lo, min(lo + rows, n)) for lo in range(0, n, rows)]
 
 
 def shard_bucket(n: int, k: int = 1) -> int:

@@ -179,7 +179,12 @@ class OpLog:
         return dumps_canonical([o.to_dict() for o in self.ops])
 
     def to_json_bytes(self) -> bytes:
-        """UTF-8 bytes of :meth:`to_json` (the notes payload)."""
+        """UTF-8 bytes of :meth:`to_json` (the notes payload); a
+        columnar op-log view (``ops/oplog_view.py``) serializes straight
+        from its columns, or hands its device-rendered bytes through."""
+        fast = getattr(self.ops, "to_json_bytes", None)
+        if fast is not None:
+            return fast()
         return self.to_json().encode("utf-8")
 
     @staticmethod

@@ -29,10 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: Kernel name → the number of launches its wrapper made.
-LAUNCHES: Dict[str, int] = {"flash_chunk": 0}
+LAUNCHES: Dict[str, int] = {"flash_chunk": 0, "sha256": 0}
 
 #: Kernel name → {launch shape → launches}, recorded beside the count.
-LAUNCH_SHAPES: Dict[str, Dict[Tuple[int, ...], int]] = {"flash_chunk": {}}
+LAUNCH_SHAPES: Dict[str, Dict[Tuple[int, ...], int]] = {"flash_chunk": {}, "sha256": {}}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -69,18 +69,37 @@ def build(name: str) -> str:
     """Compile kernel ``name`` unless its current library exists, and
     return what ``nvcc`` printed (``ptxas -v``: registers, spills,
     shared memory), or ``""`` when nothing was built."""
-    out = library_path(name)
-    if out.is_file():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [toolkit_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(f"{name}: nvcc exit {proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    return build_all([name])[name]
+
+
+def build_all(names) -> Dict[str, str]:
+    """Compile every kernel of ``names`` whose current library is
+    missing, one ``nvcc`` per source, all started together; returns
+    ``{name: what nvcc printed}`` (``""`` where nothing was built)."""
+    logs: Dict[str, str] = {}
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            logs[name] = ""
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [toolkit_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+             str(KERNEL_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        logs[name] = log
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -43,8 +43,7 @@ into a plain ``List[Op]``, bit-identical to the host composer
 """
 from __future__ import annotations
 
-from bisect import bisect_left, bisect_right
-from typing import List, Optional, Sequence, Set, Tuple
+from typing import List, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +53,9 @@ from ..core.conflict import Conflict, divergent_rename_conflict
 from ..core.encode import (NULL_ID, OP_COLUMNS, PAD_ID, Interner, OpTensor,
                            build_rank_tables, encode_oplog, pad_to,
                            shard_bucket)
-from ..core.ops import UNKNOWN_PRECEDENCE, Op, Target
+from ..core.ops import UNKNOWN_PRECEDENCE, Op
 from ..device import resolve_device
+from .oplog_view import _materialize_decoded, cursor_walk_conflicts_columnar
 
 _PAD_PREC = 2**30  # sorts after every real precedence
 #: Precedence rank of padded rows in the packed sort keys: every real
@@ -102,32 +102,39 @@ def _sort_stream(cols: torch.Tensor, n_ts: int, n_id: int) -> torch.Tensor:
     return cols[:, _stable_order(_sort_key(cols, n_ts, n_id))]
 
 
-def _rename_pairs(cols: torch.Tensor, n_real: int):
-    """(symbol, newName key) of a stream's rename rows, ``PAD_ID``
-    symbols elsewhere."""
-    idx = torch.arange(cols.shape[1], device=cols.device)
-    is_r = (cols[_IS_RENAME] == 1) & (idx < n_real)
-    sym = torch.where(is_r, cols[_SYM], int(PAD_ID)).long()
-    return sym, cols[_NEW_NAME].long()
+def _rename_pairs(is_rename: torch.Tensor, sym: torch.Tensor,
+                  new_name: torch.Tensor, n_real):
+    """(symbol, newName key) of a stream's rename rows among its first
+    ``n_real``, ``PAD_ID`` symbols elsewhere."""
+    idx = torch.arange(sym.shape[0], device=sym.device)
+    is_r = (is_rename == 1) & (idx < n_real)
+    return torch.where(is_r, sym, int(PAD_ID)).long(), new_name.long()
 
 
-def _rename_candidates(a: torch.Tensor, n_a: int,
-                       b: torch.Tensor, n_b: int) -> torch.Tensor:
+def _rename_candidates_cols(a, n_a, b, n_b) -> torch.Tensor:
     """Stage 2a, the parallel precheck: does any B rename share its
-    symbol with an A rename of another name? A's renames sort by
-    (symbol, name), so a query reads its symbol run's min and max name
-    (scanning the run's two ends alone would miss a run with mixed
-    names)."""
-    na = a.shape[1]
-    a_sym, a_name = _rename_pairs(a, n_a)
+    symbol with an A rename of another name? ``a``/``b`` are the
+    streams' canonical ``(is_rename, sym, new_name)`` columns. A's
+    renames sort by (symbol, name), so a query reads its symbol run's
+    min and max name (scanning the run's two ends alone would miss a run
+    with mixed names)."""
+    na = a[1].shape[0]
+    a_sym, a_name = _rename_pairs(*a, n_a)
     srt = torch.sort((a_sym << 32) | (a_name + 1)).values
     nm_sym, nm_name = srt >> 32, (srt & 0xFFFFFFFF) - 1
-    b_sym, b_name = _rename_pairs(b, n_b)
+    b_sym, b_name = _rename_pairs(*b, n_b)
     lo = torch.searchsorted(nm_sym, b_sym).clamp(0, na - 1)
     hi = (torch.searchsorted(nm_sym, b_sym, right=True) - 1).clamp(0, na - 1)
     differing = ((nm_sym[lo] == b_sym) & (b_sym != int(PAD_ID))
                  & ((nm_name[lo] != b_name) | (nm_name[hi] != b_name)))
     return differing.any()
+
+
+def _rename_candidates(a: torch.Tensor, n_a: int,
+                       b: torch.Tensor, n_b: int) -> torch.Tensor:
+    """:func:`_rename_candidates_cols` over two sorted op matrices."""
+    return _rename_candidates_cols((a[_IS_RENAME], a[_SYM], a[_NEW_NAME]), n_a,
+                                   (b[_IS_RENAME], b[_SYM], b[_NEW_NAME]), n_b)
 
 
 def _seg_last_valid(seg_sym: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -202,66 +209,6 @@ def _merge_and_scan(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,
     ]).to(torch.int32)
 
 
-def cursor_walk_conflicts_columnar(
-        key_a: Sequence[int], ren_a: Sequence[bool], sym_a: Sequence[int],
-        name_a: Sequence[int],
-        key_b: Sequence[int], ren_b: Sequence[bool], sym_b: Sequence[int],
-        name_b: Sequence[int]) -> Tuple[List[Tuple[int, int]], Set[int], Set[int]]:
-    """The reference's head-vs-head DivergentRename walk on int rows of
-    the two canonically sorted streams (the port's copy of the JAX
-    package's ``ops/oplog_view.py::cursor_walk_conflicts_columnar``).
-
-    ``key_*`` is the cross-stream comparison key, ordered as
-    ``(precedence, timestamp)``; type, symbol and newName come as ints:
-    the interner is injective, so int equality IS string equality (and
-    the newName ids are ``equality_key`` ids, Python ``==`` semantics).
-    Runs of takes against a non-rename head cannot conflict and advance
-    by bisection. Returns ``(pairs, dropped_a, dropped_b)``: the
-    ``(ia, ib)`` sorted-stream positions of each conflict in the walk's
-    emission order, and the positions each side drops."""
-    pairs: List[Tuple[int, int]] = []
-    dropped_a: Set[int] = set()
-    dropped_b: Set[int] = set()
-    na, nb = len(key_a), len(key_b)
-    ia = ib = 0
-    while ia < na or ib < nb:
-        if ib >= nb or not ren_b[ib]:
-            if ia >= na:
-                ib = nb
-            elif ib >= nb:
-                ia = na
-            else:
-                nxt = bisect_right(key_a, key_b[ib], ia, na)
-                if nxt == ia:
-                    ib += 1
-                else:
-                    ia = nxt
-            continue
-        if ia >= na or not ren_a[ia]:
-            if ia >= na:
-                ib = nb
-            else:
-                nxt = bisect_left(key_b, key_a[ia], ib, nb)
-                if nxt == ib:
-                    ia += 1
-                else:
-                    ib = nxt
-            continue
-        take_a = key_a[ia] <= key_b[ib]
-        if sym_a[ia] == sym_b[ib] and name_a[ia] != name_b[ib]:
-            pairs.append((ia, ib))
-            dropped_a.add(ia)
-            dropped_b.add(ib)
-            ia += 1
-            ib += 1
-            continue
-        if take_a:
-            ia += 1
-        else:
-            ib += 1
-    return pairs, dropped_a, dropped_b
-
-
 def _walk_on_host(a: torch.Tensor, n_a: int, b: torch.Tensor, n_b: int,
                   n_ts: int) -> Tuple[List[Tuple[int, int]], Set[int], Set[int]]:
     """Fetch the sorted streams' walk columns once and replay the walk."""
@@ -274,38 +221,6 @@ def _walk_on_host(a: torch.Tensor, n_a: int, b: torch.Tensor, n_b: int,
     return cursor_walk_conflicts_columnar(
         key[:n_a], ren[:n_a], sym[:n_a], name[:n_a],
         key[n_a:], ren[n_a:], sym[n_a:], name[n_a:])
-
-
-def _materialize_decoded(op: Op, new_addr: Optional[str],
-                         new_file: Optional[str],
-                         rename_ctx: Optional[str]) -> Op:
-    """Apply a row's decoded chain overrides to its stream op (the
-    port's copy of the JAX package's ``ops/oplog_view.py::
-    _materialize_decoded``; observable output identical to the host
-    composer's deep clone). A row without overrides passes the stream op
-    through unchanged: composed ops are treated as immutable downstream."""
-    if new_addr is None and new_file is None and (
-            rename_ctx is None or op.type == "renameSymbol"):
-        return op
-    cloned = Op(id=op.id, schemaVersion=op.schemaVersion, type=op.type,
-                target=op.target, params=dict(op.params),
-                guards=op.guards, effects=op.effects,
-                provenance=op.provenance)
-    if new_addr is not None or new_file is not None:
-        if cloned.type == "moveDecl":
-            if new_addr is not None:
-                cloned.params["newAddress"] = new_addr
-            if new_file is not None:
-                cloned.params["newFile"] = new_file
-        if new_addr is not None:
-            cloned.target = Target(symbolId=cloned.target.symbolId,
-                                   addressId=new_addr)
-        if cloned.type == "renameSymbol" and new_file is not None:
-            cloned.params["newFile"] = new_file
-            cloned.params["file"] = new_file
-    if rename_ctx is not None and cloned.type != "renameSymbol":
-        cloned.params["renameContext"] = rename_ctx
-    return cloned
 
 
 def decode_compose_output(out: np.ndarray, delta_a: List[Op], delta_b: List[Op],

@@ -1,29 +1,42 @@
 """Materialize composed ops onto a tree (reference ``semmerge/applier.py``).
 
-The port's copy of the object path of the JAX package's
-``runtime/applier.py``: applies a composed op stream to a copy of the
-base tree, one handler per op. Implemented handlers (the reference's
-set): ``moveDecl`` moves the *whole file* old→new; ``renameSymbol``
-rewrites word-boundary occurrences across the file; ``modifyImport`` is
-a literal replace; ``moveFile`` moves by old/new path. Everything else
-is logged and skipped (reference ``semmerge/applier.py:30-31``).
-Additionally ``reorderImports`` is applied via the RGA CRDT ordering
+The port of the JAX package's ``runtime/applier.py``: applies a composed
+op stream to a copy of the base tree. Implemented handlers (the
+reference's set): ``moveDecl`` moves the *whole file* old→new;
+``renameSymbol`` rewrites word-boundary occurrences across the file;
+``modifyImport`` is a literal replace; ``moveFile`` moves by old/new
+path. Everything else is logged and skipped (reference
+``semmerge/applier.py:30-31``). Additionally ``reorderImports`` is
+applied via the RGA CRDT ordering
 (:mod:`semantic_merge_tpu_torch.core.crdt`, resolved on the host), and
 ``editStmtBlock`` splices a body edit. Ops carrying structured decl
 payloads (``effects["decl"]``) splice spans and append decls.
 
-The JAX package's columnar dispatch, which reads the fused engine's
-op-stream columns, gives byte-identical trees; it comes with the fused
-engine.
+Two dispatch paths, one contract:
+
+- **Columnar** (the fused engine's output): a
+  :class:`~semantic_merge_tpu_torch.ops.oplog_view.ComposedOpView`
+  backed by op-stream columns is consumed directly — dispatch on the
+  int kind column, params read through the cached per-snapshot field
+  lists, chain-file overrides applied where ``_materialize_decoded``
+  would put them. No ``Op`` materializes; the walk goes shard by shard
+  over the view's tail plan.
+- **Object** (the two-program path, and the parity oracle behind
+  ``SEMMERGE_OBJECT_APPLY=1``): the per-op handler loop.
+
+Both call the same file-edit primitives, so the trees are identical.
 """
 from __future__ import annotations
 
 import logging
+import os
 import pathlib
 import re
 import shutil
 import tempfile
 from typing import Iterable, Set
+
+import numpy as np
 
 from ..core.ops import Op
 
@@ -32,8 +45,171 @@ logger = logging.getLogger(__name__)
 
 def apply_ops(base_tree: pathlib.Path, ops: Iterable[Op]) -> pathlib.Path:
     """Apply composed ops to a copy of ``base_tree``; returns the copy
-    (a new temporary directory the caller removes)."""
-    ops = list(ops)
+    (a new temporary directory the caller removes). A column-backed
+    composed view takes the columnar loop, anything else (and anything
+    under ``SEMMERGE_OBJECT_APPLY=1``) the object loop."""
+    view = _columnar_view(ops)
+    if view is not None and not _object_apply_forced():
+        return _apply_columnar(pathlib.Path(base_tree), view)
+    return _apply_objects(pathlib.Path(base_tree), list(ops))
+
+
+def _object_apply_forced() -> bool:
+    """``SEMMERGE_OBJECT_APPLY=1`` keeps the object applier as the
+    parity oracle: composed views then materialize their ``Op``s."""
+    return os.environ.get("SEMMERGE_OBJECT_APPLY", "").strip() == "1"
+
+
+def _columnar_view(ops):
+    """``ops`` as a column-backed ComposedOpView, or ``None``."""
+    from ..ops.oplog_view import ComposedOpView
+    if isinstance(ops, ComposedOpView) and ops.supports_columns:
+        return ops
+    return None
+
+
+# --------------------------------------------------------------------------
+# Columnar dispatch
+# --------------------------------------------------------------------------
+
+#: OP_PRECEDENCE of the four diff kinds, indexed by KIND_* code (rename,
+#: move, add, delete): the composed stream's order.
+_PREC_OF_KIND = np.asarray([11, 10, 30, 31], dtype=np.int32)
+
+
+def iter_columnar_actions(view):
+    """Per-shard apply actions straight off a composed view's columns.
+
+    Yields, per tail-plan shard, a list of action groups:
+    ``("move", old_files, new_files)`` or ``("rename", files, old_names,
+    new_names)`` — parallel lists, overrides applied and invalid rows
+    filtered. Rows with no tree effect (``addDecl`` without decl text,
+    ``deleteDecl``, rows missing a required param) are absent.
+
+    The chain-file override lands where ``_materialize_decoded`` puts
+    it: the ``file`` param of a RENAME row. On a MOVE row it is a proven
+    no-op (the inclusive chain scan makes a live move's chain file its
+    own ``newFile``) and is skipped; the addr/name overrides touch
+    fields the applier never reads.
+
+    Assembly is bulk per kind, relying on the composed stream's
+    canonical order: within a shard every moveDecl precedes every
+    renameSymbol, so moves-then-renames IS row order. Each shard checks
+    that order; a shard that breaks it is assembled row by row (a
+    ``("rows", actions)`` group)."""
+    from ..ops.oplog_view import KIND_MOVE, KIND_RENAME
+    left, right = view.left, view.right
+    b_name, b_file = left.base_fields()[2:4]
+    l_name, l_file = left.side_fields()[2:4]
+    r_name, r_file = right.side_fields()[2:4]
+    kL, kR = left.kind, right.kind
+
+    def merged(col_l, col_r, is_l, rows):
+        """Per-row gather from a per-stream int column pair, clamped so
+        the other side's (never selected) lane stays in bounds."""
+        li = col_l[np.minimum(rows, max(col_l.shape[0] - 1, 0))] if col_l.shape[0] else rows
+        ri = col_r[np.minimum(rows, max(col_r.shape[0] - 1, 0))] if col_r.shape[0] else rows
+        return np.where(is_l, li, ri)
+
+    def gather_side(fields_l, fields_r, is_l, slot):
+        out = np.empty(len(slot), dtype=object)
+        wl, wr = np.nonzero(is_l)[0], np.nonzero(~is_l)[0]
+        if len(wl):
+            out[wl] = list(map(fields_l.__getitem__, slot[wl].tolist()))
+        if len(wr):
+            out[wr] = list(map(fields_r.__getitem__, slot[wr].tolist()))
+        return out
+
+    def with_override(vals, file_o, rows) -> list:
+        ov = list(map(file_o.__getitem__, rows.tolist()))
+        if any(o is not None for o in ov):
+            return [v if o is None else o for o, v in zip(ov, vals)]
+        return vals
+
+    for lo, hi in view.apply_shard_ranges():
+        sides, idxs = view.row_slices(lo, hi)
+        _, file_o, _ = view.override_rows(lo, hi)
+        sides = np.asarray(sides, dtype=np.int32)
+        idxs = np.asarray(idxs, dtype=np.int32)
+        is_l = sides == 0
+        kind_row = merged(kL, kR, is_l, idxs)
+        prec = _PREC_OF_KIND[kind_row]
+        if hi - lo > 1 and not bool((prec[1:] >= prec[:-1]).all()):
+            yield [("rows", _row_order_actions(view, kind_row, is_l, idxs, file_o))]
+            continue
+        groups: list = []
+        mv = np.nonzero(kind_row == KIND_MOVE)[0]
+        if len(mv):
+            is_l_k = is_l[mv]
+            a_row = merged(left.a_slot, right.a_slot, is_l_k, idxs[mv])
+            b_row = merged(left.b_slot, right.b_slot, is_l_k, idxs[mv])
+            # Move params are decl file fields, never empty: the object
+            # handler's falsy-param skip cannot fire here.
+            groups.append(("move", list(map(b_file.__getitem__, a_row.tolist())),
+                           gather_side(l_file, r_file, is_l_k, b_row)))
+        ren = np.nonzero(kind_row == KIND_RENAME)[0]
+        if len(ren):
+            is_l_k = is_l[ren]
+            a_row = merged(left.a_slot, right.a_slot, is_l_k, idxs[ren])
+            b_row = merged(left.b_slot, right.b_slot, is_l_k, idxs[ren])
+            olds = list(map(b_name.__getitem__, a_row.tolist()))
+            news = gather_side(l_name, r_name, is_l_k, b_row)
+            files = with_override(gather_side(l_file, r_file, is_l_k, b_row), file_o, ren)
+            kept = [(f, o, nw) for f, o, nw in zip(files, olds, news) if f and o and nw]
+            groups.append(("rename", [f for f, _, _ in kept], [o for _, o, _ in kept],
+                           [nw for _, _, nw in kept]))
+        yield groups
+
+
+def _row_order_actions(view, kind_row, is_l, idxs, file_o) -> list:
+    """Exact row-order assembly for a shard that is not precedence
+    sorted (no producer emits one; this keeps the bulk path honest)."""
+    from ..ops.oplog_view import KIND_MOVE, KIND_RENAME
+    left, right = view.left, view.right
+    b_name, b_file = left.base_fields()[2:4]
+    cols = ((left.a_slot, left.b_slot) + left.side_fields()[2:4],
+            (right.a_slot, right.b_slot) + right.side_fields()[2:4])
+    acts: list = []
+    for w, (k, s, i) in enumerate(zip(kind_row.tolist(), is_l.tolist(), idxs.tolist())):
+        a_c, b_c, s_name, s_file = cols[0 if s else 1]
+        if k == KIND_RENAME:
+            f = file_o[w] if file_o[w] is not None else s_file[int(b_c[i])]
+            old, new = b_name[int(a_c[i])], s_name[int(b_c[i])]
+            if f and old and new:
+                acts.append(("rename", f, old, new))
+        elif k == KIND_MOVE:
+            nf = file_o[w] if file_o[w] is not None else s_file[int(b_c[i])]
+            of = b_file[int(a_c[i])]
+            if of and nf:
+                acts.append(("move", of, nf))
+    return acts
+
+
+def _apply_columnar(base_tree: pathlib.Path, view) -> pathlib.Path:
+    out = pathlib.Path(tempfile.mkdtemp(prefix="semmerge_merged_"))
+    shutil.copytree(base_tree, out, dirs_exist_ok=True)
+    for groups in iter_columnar_actions(view):
+        for g in groups:
+            if g[0] == "rename":
+                for f, old, new in zip(g[1], g[2], g[3]):
+                    _rename_symbol_in_file(out, f, old, new)
+            elif g[0] == "move":
+                for old, new in zip(g[1], g[2]):
+                    _move_decl_path(out, old, new)
+            else:  # ("rows", [...]): the exact row-order assembly
+                for act in g[1]:
+                    if act[0] == "rename":
+                        _rename_symbol_in_file(out, *act[1:])
+                    else:
+                        _move_decl_path(out, *act[1:])
+    return out
+
+
+# --------------------------------------------------------------------------
+# Object dispatch (the oracle)
+# --------------------------------------------------------------------------
+
+def _apply_objects(base_tree: pathlib.Path, ops: list) -> pathlib.Path:
     out = pathlib.Path(tempfile.mkdtemp(prefix="semmerge_merged_"))
     shutil.copytree(base_tree, out, dirs_exist_ok=True)
     resolved_orders = _resolve_reorder_orders(ops)
@@ -75,11 +251,51 @@ def touched_paths(ops: Iterable[Op]) -> Set[str]:
     """Normalized tree-relative paths of every file the composed stream
     can write — the ``[engine] formatter_scope = "touched"`` scope (the
     path-bearing params: ``file``/``oldFile``/``newFile``/``oldPath``/
-    ``newPath``)."""
+    ``newPath``). A columnar view computes the set from its columns;
+    the object comprehension is the oracle."""
+    view = _columnar_view(ops)
+    if view is not None and not _object_apply_forced():
+        return _touched_paths_columnar(view)
     return {str(_normalize_relpath(v))
             for op in ops
             for k in ("file", "oldFile", "newFile", "oldPath", "newPath")
             if isinstance((v := op.params.get(k)), str) and v}
+
+
+def _touched_paths_columnar(view) -> Set[str]:
+    from ..ops.oplog_view import KIND_ADD, KIND_DELETE, KIND_MOVE, KIND_RENAME
+    left, right = view.left, view.right
+    b_file = left.base_fields()[3]
+    sources = ((left.kind, left.a_slot, left.b_slot, left.side_fields()[3]),
+               (right.kind, right.a_slot, right.b_slot, right.side_fields()[3]))
+    raw: Set[str] = set()
+    for lo, hi in view.apply_shard_ranges():
+        sides, idxs = view.row_slices(lo, hi)
+        _, file_o, _ = view.override_rows(lo, hi)
+        sides = np.asarray(sides, dtype=np.int32)
+        idxs = np.asarray(idxs, dtype=np.int32)
+        for s, (kind_c, a_c, b_c, s_file) in enumerate(sources):
+            on_side = np.nonzero(sides == s)[0]
+            if not len(on_side):
+                continue
+            kind = kind_c[idxs[on_side]]
+            # Rename `file` / move `newFile`: the side file, with the
+            # chain-file override where _materialize_decoded puts it.
+            ren_mv = on_side[(kind == KIND_RENAME) | (kind == KIND_MOVE)]
+            for w, y in zip(ren_mv.tolist(), b_c[idxs[ren_mv]].tolist()):
+                f = file_o[w] if file_o[w] is not None else s_file[y]
+                if f:
+                    raw.add(f)
+            # Add `file`: the raw side file.
+            for y in b_c[idxs[on_side[kind == KIND_ADD]]].tolist():
+                if s_file[y]:
+                    raw.add(s_file[y])
+            # Move `oldFile` / delete `file`: the base file.
+            base_rows = on_side[(kind == KIND_MOVE) | (kind == KIND_DELETE)]
+            for x in a_c[idxs[base_rows]].tolist():
+                if b_file[x]:
+                    raw.add(b_file[x])
+    return {str(_normalize_relpath(p)) for p in raw}
 
 
 def _apply_span_edits(root: pathlib.Path, span_ops) -> None:
@@ -127,6 +343,11 @@ def _apply_move_decl(root: pathlib.Path, op: Op) -> None:
     new_file = op.params.get("newFile") or op.params.get("file")
     if not old_file or not new_file:
         return
+    _move_decl_path(root, old_file, new_file)
+
+
+def _move_decl_path(root: pathlib.Path, old_file, new_file) -> None:
+    """The moveDecl edit primitive, shared by both dispatch paths."""
     src = root / _normalize_relpath(old_file)
     dst = root / _normalize_relpath(new_file)
     if src == dst:
@@ -158,12 +379,18 @@ def _apply_rename_symbol(root: pathlib.Path, op: Op) -> None:
     new_name = op.params.get("newName")
     if not file_path or not old_name or not new_name:
         return
+    _rename_symbol_in_file(root, file_path, str(old_name), str(new_name))
+
+
+def _rename_symbol_in_file(root: pathlib.Path, file_path, old_name: str,
+                           new_name: str) -> None:
+    """The renameSymbol edit primitive, shared by both dispatch paths."""
     path = root / _normalize_relpath(file_path)
     if not path.exists():
         logger.debug("renameSymbol target missing: %s", path)
         return
     code = path.read_text(encoding="utf-8")
-    code = re.sub(rf"\b{re.escape(str(old_name))}\b", str(new_name), code)
+    code = re.sub(rf"\b{re.escape(old_name)}\b", new_name, code)
     path.write_text(code, encoding="utf-8")
 
 

@@ -43,6 +43,21 @@ def test_no_forbidden_imports(path):
     assert not (_imported_roots(path) & set(FORBIDDEN)), path
 
 
+#: The fused engine's modules: each must be among the sources checked
+#: above, with its own copies of the host code it needs.
+FUSED_MODULES = ("ops/sha256.py", "ops/fused.py", "ops/oplog_view.py", "ops/render.py",
+                 "runtime/applier.py", "backends/ts_torch.py")
+
+
+@pytest.mark.parametrize("module", FUSED_MODULES)
+def test_fused_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    roots = _imported_roots(path)
+    assert not roots & set(FORBIDDEN), roots
+    assert (PORT / "kernels" / "sha256.cu").is_file()
+
+
 def _env(**extra):
     env = dict(os.environ, PYTHONPATH=str(REPO_ROOT), CUDA_VISIBLE_DEVICES="")
     env.update(extra)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card,
-and the device compose on the card against the CPU.
+and the device compose, the fused merge program and the op-log render
+on the card against the CPU.
 
 These tests need an NVIDIA GPU with ``nvcc`` (they build the kernels)
 and are marked ``cuda``; without a card they skip. On the card:
@@ -10,13 +11,17 @@ They import no JAX (``--noconftest`` skips the suite's JAX set-up), so
 they run where only PyTorch is installed. On the CPU, the wrapper's
 plain path and the launch counter are tested.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from semantic_merge_tpu_torch import kernels
 from semantic_merge_tpu_torch.core.ops import Op, Target
+from semantic_merge_tpu_torch.ops import fused
 from semantic_merge_tpu_torch.ops.compose import compose_oplogs_device
+from semantic_merge_tpu_torch.ops.sha256 import sha256_device, sha256_device_plain
 from semantic_merge_tpu_torch.parallel.flash import (flash_chunk_attention,
                                                      flash_chunk_attention_plain)
 
@@ -97,8 +102,8 @@ def test_reset_launches():
     kernels.LAUNCHES["flash_chunk"] += 3
     kernels.LAUNCH_SHAPES["flash_chunk"][(2, 8, 8, 2, 32)] = 3
     kernels.reset_launches()
-    assert kernels.LAUNCHES == {"flash_chunk": 0}
-    assert kernels.LAUNCH_SHAPES == {"flash_chunk": {}}
+    assert kernels.LAUNCHES == {"flash_chunk": 0, "sha256": 0}
+    assert kernels.LAUNCH_SHAPES == {"flash_chunk": {}, "sha256": {}}
 
 
 def _fuzz_oplog(rs, side, n, n_sym):
@@ -129,3 +134,112 @@ def test_device_compose_on_card_matches_cpu(card, seed):
     want = compose_oplogs_device(a, b, device="cpu")
     assert [o.to_dict() for o in got[0]] == [o.to_dict() for o in want[0]]
     assert [c.to_dict() for c in got[1]] == [c.to_dict() for c in want[1]]
+
+
+# --- SHA-256 ----------------------------------------------------------------------
+
+SHA_EDGES = [0, 1, 55, 56, 63, 64, 119, 120]
+
+
+def _sha_rows(n, blocks, seed):
+    rs = np.random.RandomState(seed)
+    cap = blocks * 64 - 9
+    lens = ([x for x in SHA_EDGES if x <= cap] + list(rs.randint(0, cap + 1, n)))[:n]
+    msg = rs.randint(0, 256, (n, blocks * 64)).astype(np.uint8)  # junk past each length
+    return msg, np.asarray(lens, np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,blocks,n_words", [
+    (1, 1, 8), (8, 1, 8), (1000, 1, 4), (129, 2, 8), (300, 3, 8), (32768, 1, 4)])
+def test_sha256_kernel_matches_plain_and_hashlib(card, n, blocks, n_words):
+    msg, lens = _sha_rows(n, blocks, seed=n + blocks)
+    before = kernels.LAUNCHES["sha256"]
+    got = sha256_device(torch.from_numpy(msg).to(card), torch.from_numpy(lens).to(card), n_words)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sha256"] == before + 1
+    assert kernels.LAUNCH_SHAPES["sha256"][(n, blocks, n_words)] >= 1
+    want = sha256_device_plain(torch.from_numpy(msg), torch.from_numpy(lens), n_words)
+    assert torch.equal(got.cpu(), want)
+    words = got.cpu().numpy().view(np.uint32)
+    for i in range(min(n, 64)):
+        digest = hashlib.sha256(msg[i, :lens[i]].tobytes()).hexdigest()
+        assert "".join(f"{int(w):08x}" for w in words[i]) == digest[:8 * n_words]
+
+
+@pytest.mark.cuda
+def test_sha256_kernel_rejects_what_it_cannot_take(card):
+    msg = torch.zeros((4, 65), dtype=torch.uint8, device=card)
+    lens = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        sha256_device(msg, lens)                              # not whole blocks
+    with pytest.raises(ValueError):
+        sha256_device(msg[:, :64].contiguous(), lens.long())  # lengths not int32
+    with pytest.raises(ValueError):
+        sha256_device(torch.zeros(4 * 64 + 1, dtype=torch.uint8, device=card)[1:]
+                      .view(4, 64), lens)                     # not 16-byte aligned
+    before = kernels.LAUNCHES["sha256"]
+    empty = sha256_device(torch.zeros((0, 64), dtype=torch.uint8, device=card),
+                          torch.zeros(0, dtype=torch.int32, device=card))
+    assert tuple(empty.shape) == (0, 8) and kernels.LAUNCHES["sha256"] == before
+
+
+def test_sha256_cpu_tensors_take_the_plain_version_without_counting():
+    msg, lens = _sha_rows(5, 1, seed=0)
+    before = dict(kernels.LAUNCHES)
+    got = sha256_device(torch.from_numpy(msg), torch.from_numpy(lens))
+    assert torch.equal(got, sha256_device_plain(torch.from_numpy(msg), torch.from_numpy(lens)))
+    assert kernels.LAUNCHES == before
+
+
+# --- the fused merge program and the render ------------------------------------------
+
+def _program_inputs(seed, n=48):
+    rs = np.random.RandomState(seed)
+    n_sym = rs.randint(4, 4 * n)
+    cols = []
+    for _ in range(3):
+        c = np.full((4, n), -1, np.int32)
+        c[0] = 2**31 - 1
+        k = rs.randint(n // 2, n + 1)
+        c[:, :k] = np.stack([rs.randint(0, n_sym, k), rs.randint(0, 900, k),
+                             rs.randint(-1, 40, k), rs.randint(0, 30, k)])
+        cols.append(c)
+    tab = rs.randint(0, 256, (1024, 10)).astype(np.uint8)
+    digs = [rs.randint(0, 256, 16).astype(np.uint8) for _ in range(2)]
+    return [torch.from_numpy(x) for x in (*cols, tab, *digs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,C", [(0, 48, 128), (1, 48, 16), (2, 768, 2048)])
+def test_fused_merge_program_on_card_matches_cpu(card, seed, n, C):
+    inputs = _program_inputs(seed, n)
+    before = kernels.LAUNCHES["sha256"]
+    got = fused._fused_merge_program(*(t.to(card) for t in inputs), C)
+    want = fused._fused_merge_program(*inputs, C)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sha256"] == before + 2  # one per side
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_render_on_card_matches_cpu(card):
+    from semantic_merge_tpu_torch.frontend.scanner import DeclNode
+    from semantic_merge_tpu_torch.ops.oplog_view import OpStreamView
+    from semantic_merge_tpu_torch.ops.render import render_view
+
+    rs = np.random.RandomState(0)
+    names = ['q"uote', "back\\slash", "nl\nline", "é€", "x" * 200, "plain"]
+    nodes = [DeclNode(symbolId=f"s{i}", addressId=f"f{i % 9}.ts::{names[i % 6]}::{i}",
+                      kind="FunctionDeclaration", name=f"{names[i % 6]}{i}",
+                      file=f"src/{names[i % 6][:5]}/f{i % 9}.ts", pos=i, end=i + 1, signature="")
+             for i in range(200)]
+    n = 5000
+    view = OpStreamView(rs.randint(0, 4, n).astype(np.int32), rs.randint(0, 200, n).astype(np.int32),
+                        rs.randint(0, 200, n).astype(np.int32),
+                        rs.randint(-2**31, 2**31, (n, 4)).astype(np.int32),
+                        nodes, nodes[::-1], {"rev": "r", "timestamp": "t"})
+    got = render_view(view, card).json_bytes()
+    assert got == render_view(view, "cpu").json_bytes()
+    assert got == ("[" + ",".join(view._json_rows(0, n)) + "]").encode()

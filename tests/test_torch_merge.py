@@ -13,6 +13,10 @@
   fresh copy of the repository (so the notes do not collide): the exit
   code, every work-tree file's bytes, ``.semmerge-conflicts.json``'s
   bytes and ``git notes --ref semmerge show`` of A and B must be equal.
+  Without ``--change-signature`` both take their fused path. The same
+  for ``semdiff`` (pretty and ``--json-out``), and for a ``semmerge
+  --inplace`` whose notes are rendered on the device in both packages
+  (``SEMMERGE_RENDER_MIN_ROWS=1``).
 """
 import os
 import pathlib
@@ -291,3 +295,71 @@ def test_cli_cases_show_what_they_are_named_for(cli_runs):
     resumed = cli_runs["resume_rolls_forward", "port"]
     assert resumed["stdout"] == "inplace recovery: rolled-forward (2 writes)\n"
     assert resumed["tree"]["src/util.ts"] == b"staged\n" and "lib/x.ts" in resumed["tree"]
+
+
+# --- the fused path through the CLI ---------------------------------------------
+
+_FUSED_BASE = {f"src/m{i}.ts": f"export function f{i}(a{i}: number, b: {t}): void {{ f{i}; }}\n"
+               for i, t in enumerate(("string", "boolean", "bigint", "object"))}
+_FUSED_BASE["README.md"] = _README
+_FUSED_A = {"src/m0.ts": _FUSED_BASE["src/m0.ts"].replace("f0", "g0"),
+            "src/m1.ts": _FUSED_BASE["src/m1.ts"].replace("f1", "g1"),
+            "src/new.ts": "export function added(q: string): string { return q; }\n",
+            "README.md": _README.replace("line1\n", "A1\n")}
+_FUSED_B = {"src/m0.ts": None, "lib/m0.ts": _FUSED_BASE["src/m0.ts"],
+            "src/m3.ts": None, "README.md": _README.replace("line8\n", "B8\n")}
+
+#: name → (argv after the module, extra environment)
+FUSED_RUNS = {
+    "semdiff_json": (["semdiff", "basebr", "branch-a", "--json-out"], {}),
+    "semdiff_pretty": (["semdiff", "basebr", "branch-b"], {}),
+    "semmerge_rendered_notes": (["semmerge", "basebr", "branch-a", "branch-b", "--inplace"],
+                                {"SEMMERGE_RENDER_MIN_ROWS": "1"}),
+}
+
+
+@pytest.fixture(scope="module")
+def fused_cli_runs(tmp_path_factory):
+    work = tmp_path_factory.mktemp("fused_cli")
+    origin = work / "origin"
+    _make_repo(origin, _FUSED_BASE, _FUSED_A, _FUSED_B)
+    base_env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    base_env.update(PYTHONPATH=str(REPO_ROOT), JAX_PLATFORMS="cpu", SEMMERGE_DAEMON="off")
+    procs = {}
+    for name, (argv, extra) in FUSED_RUNS.items():
+        for side, module, flag in (("jax", "semantic_merge_tpu", ["--backend", "tpu"]),
+                                   ("port", "semantic_merge_tpu_torch", ["--device", "cpu"])):
+            copy = work / name / side
+            shutil.copytree(origin, copy)
+            procs[name, side] = (copy, subprocess.Popen(
+                [sys.executable, "-m", module, *argv, *flag], cwd=copy,
+                env=dict(base_env, **extra), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+    runs = {}
+    try:
+        for key, (copy, proc) in procs.items():
+            out, err = proc.communicate(timeout=300)
+            runs[key] = {"code": proc.returncode, "stdout": out, "stderr": err,
+                         "tree": _tree_bytes(copy),
+                         "notes": [_notes(copy, rev) for rev in ("branch-a", "branch-b")]}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return runs
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_RUNS))
+def test_cli_fused_path_matches_jax_cli(fused_cli_runs, name):
+    want, got = fused_cli_runs[name, "jax"], fused_cli_runs[name, "port"]
+    assert want["code"] == 0, want["stderr"]
+    assert got["code"] == 0, got["stderr"]
+    assert got["stdout"] == want["stdout"]
+    assert got["tree"] == want["tree"]
+    assert got["notes"] == want["notes"]
+    if name.startswith("semdiff"):
+        assert got["stdout"].strip()
+    else:
+        assert all(rc == 0 and out.startswith(b"[{") for rc, out in got["notes"])
+        assert b"function g0" in got["tree"]["lib/m0.ts"]
