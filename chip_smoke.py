@@ -16,16 +16,21 @@ Phases, each fatal on failure, each printing its seconds:
    and FMA-pipe totals, HMMA, LDSM, LDGSTS and LDS for ``flash_chunk``
    (fails without HMMA), SHF, LOP3, IADD3, PRMT, ISETP and IMAD for
    ``sha256`` (fails without SHF, the rotates; its bound in phase 5 is
-   counted from these, so it fails there without cuobjdump).
+   counted from these, so it fails there without cuobjdump). Then
+   ``g++`` builds the native scanner
+   (``frontend/semmerge_native.cpp``); prints its build seconds.
 3. repo: a git repository of the bench's ``synth_repo`` shape at its
    rung5 size (10,000 files x 4 decls): the side branch renames
    functions in every even file and renames AND retypes the first
    function of 256 other files, the other branch moves every 4th file
-   to ``lib/``; a matcher checkpoint from the port's seeded (untrained)
-   initializer.
-4. Four runs of the port's CLI functions, each under a torch.profiler
-   trace (wall, phases, device busy time and idle share), with the
-   launch counts and shapes set to 0 just before and read just after:
+   to ``lib/``, the stmt branch edits the body of the last function of
+   every 3rd file; a matcher checkpoint from the port's seeded
+   (untrained) initializer.
+4. Five runs of the port's CLI functions, each under a torch.profiler
+   trace (wall, phases, device busy time and idle share), with the decl
+   cache emptied and the launch counts and shapes set to 0 just before
+   and read just after; each must scan with the native scanner (its
+   scan seconds and the cache's hits and misses printed):
    - matcher semdiff: ``semdiff base side --json-out --change-signature
      --signature-matcher`` (the two-program path): 8 ``flash_chunk``
      launches, no ``sha256``;
@@ -49,7 +54,14 @@ Phases, each fatal on failure, each printing its seconds:
      the matcher could pair deletes with adds; then the two-program path
      with 16 ``flash_chunk`` launches; the tree and notes; then the
      device compose of its op logs on the card against the CPU, and
-     timed alone.
+     timed alone;
+   - strict semmerge: ``semmerge base side stmt --inplace
+     --strict-conflicts --structured-apply --change-signature
+     --signature-matcher`` in a third work tree: no fused engine (0
+     ``sha256``), 8 ``flash_chunk`` launches (the matcher refines A as
+     in the matcher semdiff), exit 0 with no conflict, B's op log one
+     ``editStmtBlock`` per edited body, every edited body and every
+     function of side in the tree, both op logs in the notes.
 5. kernels: each kernel's wrapper on the card at the shapes the paths
    launched it with (and edge shapes), held against its plain PyTorch
    version: ``flash_chunk`` within atol/rtol 2e-3 (normalised output
@@ -69,7 +81,9 @@ Phases, each fatal on failure, each printing its seconds:
    trees, conflicts and notes (fused semmerges, one with a
    DivergentRename conflict, which runs the host cursor walk, and a
    DivergentRename merge with --change-signature that takes the
-   two-program path and its compose's host cursor walk).
+   two-program path and its compose's host cursor walk), and three
+   ``--strict-conflicts`` merges that report DeleteVsEdit,
+   ConcurrentStmtEdit and ExtractVsInline.
 
 Prints the kernels' JSON line, the card line, and last the device JSON.
 """
@@ -648,11 +662,19 @@ def synth_trees(n_files: int, decls: int, n_retyped: int):
     The other branch (B) moves every 4th file (all renamed on A) from
     ``src/`` to ``lib/``, renames AND retypes (number→boolean) the first
     function of the next ``n_retyped`` odd files that A leaves unchanged,
-    and edits line 19 of the README, so the text layer merges it."""
+    and edits line 19 of the README, so the text layer merges it.
+
+    The statement branch edits the body of the last function of every
+    3rd file, ``{ return 3; }`` → ``{ return 3 + i; }`` for file ``i``:
+    the last, because an address holds the decl's offset, and an edit to
+    an earlier body would shift the decls after it by another amount
+    than A's rename does (a DivergentMove in strict mode).
+
+    Returns (base, side, other, stmt)."""
     n_digits = 1
     while len(_SIG_TYPES) ** n_digits < n_files * decls:
         n_digits += 1
-    base, side, other = {"README.md": README}, {}, {}
+    base, side, other, stmt = {"README.md": README}, {}, {}, {"README.md": README}
     side["README.md"] = README.replace("line 2 of", "line 2 (edited on A) of")
     other["README.md"] = README.replace("line 19 of", "line 19 (edited on B) of")
     retyped = retyped_other = 0
@@ -663,6 +685,9 @@ def synth_trees(n_files: int, decls: int, n_retyped: int):
             f": number {{ return {d}; }}" for d in range(decls)) + "\n"
         base[path] = content
         other[f"lib/mod{i:05d}.ts" if i % 4 == 0 else path] = content
+        last = decls - 1
+        stmt[path] = (content.replace(f"{{ return {last}; }}\n", f"{{ return {last} + {i}; }}\n")
+                      if i % 3 == 0 else content)
         if i % 2 == 0:
             side[path] = content.replace(f"function fn{i}_0(", f"function renamed{i}_0(")
         elif i % 51 == 0:
@@ -677,7 +702,7 @@ def synth_trees(n_files: int, decls: int, n_retyped: int):
                 retyped_other += 1
     if retyped != n_retyped or retyped_other != n_retyped:
         raise ValueError(f"only {retyped} / {retyped_other} files to retype")
-    return base, side, other
+    return base, side, other, stmt
 
 
 def _reshape(content: str, name: str, new_name: str, new_return: str) -> str:
@@ -687,9 +712,11 @@ def _reshape(content: str, name: str, new_name: str, new_return: str) -> str:
     return head.replace("): number {", f"): {new_return} {{") + "\n" + rest
 
 
-def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict) -> None:
+def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict,
+              stmt: dict | None = None) -> None:
     """A git repository with branches ``base``, ``side`` and ``other``
-    (each a commit on ``base``), ``side`` checked out."""
+    (and ``stmt`` if given), each a commit on ``base``, ``side`` checked
+    out."""
     env = dict(os.environ, GIT_AUTHOR_DATE="2024-01-01T00:00:00Z",
                GIT_COMMITTER_DATE="2024-01-02T00:00:00Z",
                GIT_AUTHOR_NAME="smoke", GIT_AUTHOR_EMAIL="smoke@example.com",
@@ -715,6 +742,9 @@ def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict) -> None:
     commit(base, "base")
     git("checkout", "-q", "-b", "other")
     commit(other, "other")
+    if stmt is not None:
+        git("checkout", "-q", "-b", "stmt", "base")
+        commit(stmt, "stmt")
     git("checkout", "-q", "-b", "side", "base")
     commit(side, "side")
 
@@ -722,12 +752,15 @@ def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict) -> None:
 def run_cli(torch, repo: pathlib.Path, argv: list):
     """Runs the port's ``semdiff`` or ``semmerge`` CLI function for
     ``argv`` in ``repo`` under a torch.profiler device trace, with the
-    launch counts and shapes set to 0 just before and read just after;
-    returns the result, the counts, the shapes, the host wall and the
-    device's busy time (union of its activities) in seconds."""
+    decl cache emptied and the launch counts and shapes set to 0 just
+    before and read just after; fails unless the native scanner scanned
+    every file the cache missed. Returns the result, the counts, the
+    shapes, the host wall and the device's busy time (union of its
+    activities) in seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     from semantic_merge_tpu_torch import cli, kernels
+    from semantic_merge_tpu_torch.frontend.declcache import global_cache
 
     args = cli.build_parser().parse_args(argv)
     run = cli.semdiff if argv[0] == "semdiff" else cli.semmerge
@@ -735,6 +768,9 @@ def run_cli(torch, repo: pathlib.Path, argv: list):
     os.chdir(repo)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # The CLI runs in this process: a cache warm from the last run
+            # would make this run's scan look free.
+            global_cache().clear()
             kernels.reset_launches()
             t0 = time.perf_counter()
             result = run(args)
@@ -748,7 +784,14 @@ def run_cli(torch, repo: pathlib.Path, argv: list):
     print(f"{' '.join(argv)}: wall {wall:.3f} s (under a torch.profiler trace); device busy "
           f"{busy:.4f} s, idle share {1 - busy / wall:.4f}; launches {launches}; launch shapes "
           f"{shapes}; phases (s) "
-          + json.dumps({k: round(v, 4) for k, v in result.phases.items()}), flush=True)
+          + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                        for k, v in result.phases.items()}), flush=True)
+    phases = result.phases
+    if phases.get("scanner") != "native":
+        fail(f"{argv[0]} scanned with {phases.get('scanner')!r}, expected the native scanner")
+    print(f"{' '.join(argv)}: scan {phases['scan']:.4f} s, native; decl cache "
+          f"{phases['decl_cache_hits']} hits, {phases['decl_cache_misses']} misses",
+          flush=True)
     return result, launches, shapes, wall, busy
 
 
@@ -891,6 +934,43 @@ def check_fused_semmerge(torch, work: pathlib.Path, merged) -> dict:
     return counts
 
 
+def check_strict_semmerge(work: pathlib.Path, side: dict, merged) -> dict:
+    """The strict merge of side and stmt: exit 0 and no conflict, taken
+    without the fused engine (build-and-diff, strict detection, device
+    compose), B's op log one ``editStmtBlock`` per edited body, every
+    edited body and every function of side (renamed, retyped, added) in
+    the merged tree, and both op logs in the notes."""
+    if merged.code != 0 or merged.conflicts:
+        fail(f"the strict semmerge exited {merged.code} with {len(merged.conflicts)} conflicts, "
+             "expected 0 and none")
+    if "fused" in merged.phases or not {"strict_detect", "compose"} <= set(merged.phases):
+        fail("the strict semmerge did not take build-and-diff, strict detection and compose")
+    left, right = merged.result.op_log_left, merged.result.op_log_right
+    counts = {"A": _counts(left), "B": _counts(right), "composed": _counts(merged.composed)}
+    print(f"strict semmerge ops by type {json.dumps(counts)}", flush=True)
+    edited = range(0, N_FILES, 3)
+    if counts["B"] != {"editStmtBlock": len(edited)}:
+        fail(f"B's op log is {counts['B']}, expected {len(edited)} editStmtBlock ops")
+    last = DECLS - 1
+    for i in edited:
+        text = (work / "src" / f"mod{i:05d}.ts").read_text()
+        if f"{{ return {last} + {i}; }}" not in text:
+            fail(f"src/mod{i:05d}.ts lacks its body edit")
+    for path, content in side.items():
+        if not path.endswith(".ts"):
+            continue
+        text = (work / path).read_text()
+        for name in re.findall(r"function (\w+)\(", content):
+            if f"function {name}(" not in text:
+                fail(f"{path} lacks side's function {name}")
+    for rev, log in (("side", left), ("stmt", right)):
+        note = json.loads(_note(work, rev))
+        types = [o["type"] for o in note]
+        if {t: types.count(t) for t in set(types)} != _counts(log):
+            fail(f"the semmerge note on {rev} does not hold its op log")
+    return counts
+
+
 def check_compose(torch, result) -> dict:
     """The merge's two op logs composed again on the CPU must give the
     card's composed stream and conflicts; then the device compose alone,
@@ -928,12 +1008,21 @@ def check_compose(torch, result) -> dict:
 
 _SMALL_UTIL = "export function foo(n: number): number {\n  return n;\n}\n"
 _SMALL_G = "export function g(a: boolean, b: boolean): void {}\n"
-#: name → (flags, extra files {path: (base and other, side)}, other's
-#: tree, exit code, path taken); the side renames foo to bar and edits
-#: line 2 of the README. In the last case the side also retypes g, a
-#: delete+add pair of one (file, name, kind) that --change-signature
-#: could fold, so the merge leaves the fused result for the two-program
-#: path, whose compose walks the DivergentRename on the host.
+_SMALL_H = "export function h(s: string): string {\n  return s;\n}\n"
+_BLOCK = "{ return s.trim(); }"
+_BIG = "export function big(s: string): string "
+_CALLER = "export function caller(s: string, n: number, b: boolean): string "
+_HELPER = "export function helper(s: string, n: number): string "
+#: name → (flags, extra files {path: (base, side, other)}, other's tree,
+#: exit code, path taken). The side renames foo to bar and edits line 2
+#: of the README; an extra file's None is no file. In the third case the
+#: side also retypes g, a delete+add pair of one (file, name, kind) that
+#: --change-signature could fold, so the merge leaves the fused result
+#: for the two-program path, whose compose walks the DivergentRename on
+#: the host. The strict cases run no fused engine: build-and-diff, the
+#: strict detection and the compose (which finds nothing left to walk).
+#: In the last one, the side extracts big's block into a new function
+#: and the other inlines helper, whose block is the same, into caller.
 SMALL_MERGES = {
     "divergent_rename": ([], {}, {"src/util.ts": _SMALL_UTIL.replace("foo", "baz"),
                                   "README.md": README}, 1, "fused"),
@@ -941,11 +1030,36 @@ SMALL_MERGES = {
                                 "README.md": README.replace("line 19 of", "line 19 (B) of")},
                        0, "fused"),
     "divergent_rename_changesig": (
-        ["--change-signature"], {"src/g.ts": (_SMALL_G, _SMALL_G.replace("a: boolean",
-                                                                         "a: string"))},
+        ["--change-signature"],
+        {"src/g.ts": (_SMALL_G, _SMALL_G.replace("a: boolean", "a: string"), _SMALL_G)},
         {"src/util.ts": _SMALL_UTIL.replace("foo", "baz"), "README.md": README}, 1,
         "two-program"),
+    "strict_delete_vs_edit": (
+        ["--strict-conflicts"],
+        {"src/h.ts": (_SMALL_H, None, _SMALL_H.replace("return s;", "return s + s;"))},
+        {"src/util.ts": _SMALL_UTIL, "README.md": README}, 1, "strict"),
+    "strict_concurrent_stmt_edit": (
+        ["--strict-conflicts"],
+        {"src/h.ts": (_SMALL_H, _SMALL_H.replace("return s;", "return s + 'a';"),
+                      _SMALL_H.replace("return s;", "return s + 'b';"))},
+        {"src/util.ts": _SMALL_UTIL, "README.md": README}, 1, "strict"),
+    "strict_extract_vs_inline": (
+        ["--strict-conflicts"],
+        {"src/big.ts": (_BIG + _BLOCK + "\n", _BIG + "{ return ex(s, 0, 0); }\n",
+                        _BIG + _BLOCK + "\n"),
+         "src/ex.ts": (None, "export function ex(s: string, x: number, y: number): string "
+                       + _BLOCK + "\n", None),
+         "src/helper.ts": (_HELPER + _BLOCK + "\n", _HELPER + _BLOCK + "\n", None),
+         "src/caller.ts": (_CALLER + "{ return helper(s, 0); }\n",
+                           _CALLER + "{ return helper(s, 0); }\n", _CALLER + _BLOCK + "\n")},
+        {"src/util.ts": _SMALL_UTIL, "README.md": README}, 1, "strict"),
 }
+#: Path taken → (fused engine runs, two-program composes, host walks).
+SMALL_PATH_CALLS = {"fused": (1, 0, 0), "two-program": (1, 1, 1), "strict": (0, 1, 0)}
+#: Conflict category each strict case must report.
+SMALL_STRICT_CATEGORY = {"strict_delete_vs_edit": "DeleteVsEdit",
+                         "strict_concurrent_stmt_edit": "ConcurrentStmtEdit",
+                         "strict_extract_vs_inline": "ExtractVsInline"}
 
 
 def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
@@ -953,9 +1067,8 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
     its repository, on the card and with ``--device cpu``: the exit
     code, the work tree (with ``.semmerge-conflicts.json``) and the notes
     on both sides must be identical. Each merge must take the path
-    ``SMALL_MERGES`` names: the fused engine runs once in every merge;
-    the two-program path is the backend's ``compose``, and there the
-    DivergentRename conflict runs the compose's host cursor walk."""
+    ``SMALL_MERGES`` names (``SMALL_PATH_CALLS``), and each strict merge
+    report its category."""
     from semantic_merge_tpu_torch import cli
     from semantic_merge_tpu_torch.backends.ts_torch import TorchTSBackend
     from semantic_merge_tpu_torch.ops import compose
@@ -966,8 +1079,11 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
         base = {"src/util.ts": _SMALL_UTIL, "README.md": README}
         side = {"src/util.ts": _SMALL_UTIL.replace("foo", "bar"),
                 "README.md": README.replace("line 2 of", "line 2 (A) of")}
-        for file, (both, side_text) in extra.items():
-            base[file], side[file], other = both, side_text, {**other, file: both}
+        other = dict(other)
+        for file, texts in extra.items():
+            for tree, text in zip((base, side, other), texts):
+                if text is not None:
+                    tree[file] = text
         origin = work / name / "origin"
         make_repo(origin, base, side, other)
         outcome = {}
@@ -985,8 +1101,9 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
                                      "--device", device, *flags])
             finally:
                 os.chdir(cwd)
-            want = (1, 1 if path == "two-program" else 0,
-                    1 if path == "two-program" and expect == 1 else 0)
+            want = SMALL_PATH_CALLS[path]
+            if path == "two-program" and expect != 1:
+                want = want[:2] + (0,)
             if (fused_runs.calls, composes.calls, walks.calls) != want:
                 fail(f"small merge {name} on {device}: the fused engine, the two-program "
                      f"compose and its host walk ran {fused_runs.calls}, {composes.calls} "
@@ -1003,6 +1120,10 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
             fail(f"small merge {name}: exit {outcome['cuda'][0]} on the card, expected {expect}")
         if outcome["cuda"] != outcome["cpu"]:
             fail(f"small merge {name}: the card's exit code, tree or notes differ from the CPU's")
+        if name in SMALL_STRICT_CATEGORY:
+            artifact = json.loads(outcome["cuda"][1][".semmerge-conflicts.json"])
+            if SMALL_STRICT_CATEGORY[name] not in [c["category"] for c in artifact]:
+                fail(f"small merge {name}: no {SMALL_STRICT_CATEGORY[name]} conflict")
         codes[name] = f"exit {expect}, {path} path"
     return codes
 
@@ -1079,23 +1200,36 @@ def main() -> int:
     from semantic_merge_tpu_torch.models.matcher import save_matcher_checkpoint
     from semantic_merge_tpu_torch.ops import fused, render
 
+    from semantic_merge_tpu_torch.errors import ParseFault
+    from semantic_merge_tpu_torch.frontend import native
+
     sass = {}
     for name, log in kernels.build_all(sorted(kernels.LAUNCHES)).items():
         report_ptxas(name, log)
         sass[name] = report_sass(kernels, name)
+    try:
+        native_s = native.build()
+    except ParseFault as exc:
+        fail(f"the native scanner did not build: {exc}")
+    print(f"native scanner: {native.library_path().relative_to(REPO)} built in "
+          f"{native_s:.3f} s (g++ {' '.join(native.CXX_FLAGS)}; 0 = already built)",
+          flush=True)
     t = phase("build", t)
 
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         repo, ckpt, fused_tree = WORK / "repo", WORK / "ckpt", WORK / "fused"
-        make_repo(repo, *synth_trees(N_FILES, DECLS, N_RETYPED))
+        strict_tree = WORK / "strict"
+        trees = synth_trees(N_FILES, DECLS, N_RETYPED)
+        make_repo(repo, *trees)
         encoder = Encoder(EncoderConfig(), generator=torch.Generator().manual_seed(0))
         save_matcher_checkpoint(ckpt, encoder.state_dict())
         config = write_config(repo, ckpt)
         print(f"repo: {N_FILES} files x {DECLS} decls and a README.md; side (A): "
               f"{(N_FILES + 1) // 2} renames, {N_RETYPED} renamed+retyped, README line 2; "
               f"other (B): {(N_FILES + 3) // 4} files moved src/ -> lib/, {N_RETYPED} other "
-              "files renamed+retyped, README line 19; matcher checkpoint: the port's "
+              f"files renamed+retyped, README line 19; stmt: {len(range(0, N_FILES, 3))} "
+              f"body edits of fn<i>_{DECLS - 1}; matcher checkpoint: the port's "
               "seeded init (seed 0), UNTRAINED random weights; .semmerge.toml: "
               + config.replace("\n", "; "), flush=True)
         t = phase("repo", t)
@@ -1163,6 +1297,21 @@ def main() -> int:
         print(f"compose: card and CPU give identical composed streams and conflicts; "
               f"alone on the card {json.dumps(compose)}", flush=True)
         t = phase("compose", t)
+
+        # The strict merge with structured apply and statement ops, in a
+        # third work tree: no fused engine, so no sha256; the matcher
+        # refines A (B only edits bodies) as in the matcher semdiff.
+        subprocess.run(["git", "worktree", "add", "-q", "--detach", str(strict_tree), "side"],
+                       cwd=repo, check=True)
+        write_config(strict_tree, ckpt)
+        merged, launches, shapes, wall, busy = run_cli(
+            torch, strict_tree, ["semmerge", "base", "side", "stmt", "--inplace",
+                                 "--strict-conflicts", "--structured-apply",
+                                 "--change-signature", "--signature-matcher"])
+        expect_launches("strict semmerge", launches, {"flash_chunk": 8, "sha256": 0})
+        check_strict_semmerge(strict_tree, trees[1], merged)
+        runs["strict_semmerge"] = (launches, shapes)
+        t = phase("strict semmerge", t)
 
         def path_shapes(kernel):
             union: dict = {}

@@ -3,11 +3,14 @@
 The counterpart of the JAX package's ``TpuTSBackend``
 (``backends/ts_tpu.py``), single device. The host scans the snapshots
 and interns them into the backend's one id space; then, as in the JAX
-package:
+package. The scan (:func:`~semantic_merge_tpu_torch.frontend.scanner.scan_snapshot`)
+runs the C++ scanner through the per-file decl cache, so the three
+snapshots of one merge scan their shared files once.
 
 - **The fused path** (the default): :meth:`diff` without
-  changeSignature, and :meth:`merge` unless the changeSignature
-  refinement could rewrite an op stream (:func:`_changesig_candidates`),
+  changeSignature, structured apply and statement ops, and :meth:`merge`
+  without the latter two and unless the changeSignature refinement could
+  rewrite an op stream (:func:`_changesig_candidates`),
   run :class:`~semantic_merge_tpu_torch.ops.fused.FusedMergeEngine` —
   the diff join, op ids by SHA-256 on the device and the compose in one
   device pass — and return columnar views
@@ -18,7 +21,9 @@ package:
   one call) decodes back into ``Diff`` records, the changeSignature
   refinement runs (with the embedding matcher, whose encoder runs on the
   device), :func:`semantic_merge_tpu_torch.core.difflift.lift` mints the
-  op logs, and a merge composes them on the device
+  op logs (with decl payloads under structured apply), the statement ops
+  follow (:func:`~semantic_merge_tpu_torch.core.difflift.lift_statements`),
+  and a merge composes them on the device
   (:mod:`semantic_merge_tpu_torch.ops.compose`). It also takes a merge
   whose fused capacity retries run out.
 
@@ -34,12 +39,14 @@ from typing import Dict, List
 
 import numpy as np
 
-from ..core.difflift import Diff, lift, refine_signature_changes, source_maps
+from ..core.difflift import (Diff, lift, lift_statements, refine_signature_changes,
+                             source_maps)
 from ..core.encode import Interner, encode_decls
 from ..core.ids import EPOCH_ISO
 from ..core.ops import Op
 from ..device import resolve_device
-from ..frontend.scanner import DeclNode, scan_snapshot_py
+from ..frontend.declcache import DeclCache
+from ..frontend.scanner import DeclNode, ScanStats, scan_snapshot
 from ..frontend.snapshot import TS_EXTENSIONS, Snapshot, filter_files
 from ..ops.compose import compose_oplogs_device
 from ..ops.fused import FusedMergeEngine
@@ -73,10 +80,15 @@ def symbol_map(nodes) -> List[dict]:
 class TorchTSBackend:
     """``device``: ``None``/``"cuda"`` for the card, ``"cpu"`` only when
     asked for. ``host_workers``: the fused path's host-tail workers
-    (``[engine] host_workers``; ``None`` = auto). ``phases`` holds the
-    seconds each phase of the last :meth:`diff` or :meth:`merge` took,
-    and ``path`` which path it took (``"fused"`` or ``"two-program"``).
-    The interner and the fused engine live as long as the backend."""
+    (``[engine] host_workers``; ``None`` = auto). ``native_scan``: scan
+    with the C++ library (the default) or, when false, the Python
+    scanner; ``decl_cache``: the decl cache to scan through (``None``,
+    the default, is the process-wide one). ``phases`` holds the seconds
+    each phase of the last :meth:`diff`, :meth:`build_and_diff` or
+    :meth:`merge` took, which scanner ran (``scanner``) and the decl
+    cache's hits and misses in that call; ``path`` says which path it
+    took (``"fused"`` or ``"two-program"``). The interner and the fused
+    engine live as long as the backend."""
 
     name = "torch"
     #: The files this backend's semantic pipeline owns; the merge's text
@@ -84,10 +96,13 @@ class TorchTSBackend:
     extensions = frozenset(TS_EXTENSIONS)
 
     def __init__(self, device: str | None = None,
-                 host_workers: int | None = None) -> None:
+                 host_workers: int | None = None, *, native_scan: bool = True,
+                 decl_cache: DeclCache | None = None) -> None:
         self.device = resolve_device(device)
         self.host_workers = host_workers
-        self.phases: Dict[str, float] = {}
+        self.native_scan = native_scan
+        self.decl_cache = decl_cache
+        self.phases: Dict[str, float | int | str] = {}
         self.path: str | None = None
         self._interner = Interner()
         self._fused: FusedMergeEngine | None = None
@@ -99,8 +114,12 @@ class TorchTSBackend:
         return self._fused
 
     def _scan_encode(self, snaps, clock):
-        nodes = [scan_snapshot_py(ts_files(snap)) for snap in snaps]
+        stats = ScanStats()
+        nodes = [scan_snapshot(ts_files(snap), cache=self.decl_cache,
+                               native=self.native_scan, stats=stats) for snap in snaps]
         clock.lap("scan")
+        self.phases.update(scanner=stats.scanner, decl_cache_hits=stats.hits,
+                           decl_cache_misses=stats.misses)
         tensors = [encode_decls(n, self._interner) for n in nodes]
         clock.lap("encode")
         return nodes, tensors
@@ -109,16 +128,19 @@ class TorchTSBackend:
              *, base_rev: str = "base", seed: str = "0",
              timestamp: str | None = None,
              change_signature: bool = False,
-             signature_matcher=None) -> List[Op]:
+             structured_apply: bool = False,
+             signature_matcher=None,
+             statement_ops: bool = False) -> List[Op]:
         """The op log from ``base`` to ``right``: the fused engine's
         :class:`~semantic_merge_tpu_torch.ops.oplog_view.OpStreamView`
-        without changeSignature, else (and when the fused capacity
+        without changeSignature, structured apply and statement ops
+        (``ts_tpu.py`` ``diff``), else (and when the fused capacity
         retries run out) a list from the two-program path."""
         ts = timestamp or EPOCH_ISO
         clock = _PhaseClock(self.phases)
         (base_nodes, right_nodes), (base_t, right_t) = self._scan_encode(
             (base, right), clock)
-        if not change_signature:
+        if not (change_signature or structured_apply or statement_ops):
             engine = self._fused_engine()
             view = engine.diff(base_t, base_nodes, right_t, right_nodes,
                                seed=seed, base_rev=base_rev, timestamp=ts)
@@ -132,34 +154,62 @@ class TorchTSBackend:
         clock.lap("device_diff")
         diffs = decode_diffs(t, base_t, right_t, base_nodes, right_nodes)
         clock.lap("decode")
+        return self._lift_side(diffs, base, right, base_nodes, right_nodes, clock, side="R",
+                               base_rev=base_rev, seed=seed, timestamp=ts,
+                               change_signature=change_signature,
+                               structured_apply=structured_apply,
+                               signature_matcher=signature_matcher,
+                               statement_ops=statement_ops)
+
+    def _lift_side(self, diffs, base, side_snap, base_nodes, side_nodes, clock, *, side,
+                   base_rev, seed, timestamp, change_signature, structured_apply,
+                   signature_matcher, statement_ops) -> List[Op]:
+        """One side's op log from its decoded diffs (``ts_tpu.py``
+        ``build_and_diff``): the changeSignature refinement, the lift
+        with seed ``seed + "/" + side`` (carrying decl payloads under
+        structured apply), then the statement ops, whose ids continue
+        the lift's index."""
+        want_sources = structured_apply or (change_signature and signature_matcher is not None)
+        files = (ts_files(base), ts_files(side_snap))
+        sources = source_maps(*files) if want_sources else None
         if change_signature:
-            sources = (source_maps(ts_files(base), ts_files(right))
-                       if signature_matcher is not None else None)
             diffs = refine_signature_changes(diffs, sources, signature_matcher)
             clock.lap("refine")
-        ops = lift(base_rev, diffs, seed=seed + "/R", timestamp=ts)
+        stmt: List[Op] = []
+        if statement_ops:
+            stmt = lift_statements(diffs, base_nodes, side_nodes, sources, files,
+                                   base_rev=base_rev, seed=seed, side=side,
+                                   timestamp=timestamp)
+            clock.lap("statements")
+        ops = lift(base_rev, diffs, seed=f"{seed}/{side}", timestamp=timestamp,
+                   sources=sources if structured_apply else None)
         clock.lap("lift")
-        return ops
+        return ops + stmt
 
     def build_and_diff(self, base: Snapshot, left: Snapshot, right: Snapshot,
                        *, base_rev: str = "base", seed: str = "0",
                        timestamp: str | None = None,
                        change_signature: bool = False,
-                       signature_matcher=None) -> BuildAndDiffResult:
+                       structured_apply: bool = False,
+                       signature_matcher=None,
+                       statement_ops: bool = False) -> BuildAndDiffResult:
         """Both sides' op logs: the three snapshots scanned and interned
-        into one id space, both diffs in one device call, each side
-        refined with the matcher, lifted with seeds ``seed + "/L"`` and
-        ``seed + "/R"``."""
+        into one id space, both diffs in one device call, then each side
+        as :meth:`_lift_side` makes it, with sides ``"L"`` and ``"R"``."""
         clock = _PhaseClock(self.phases)
         snaps = (base, left, right)
         nodes, tensors = self._scan_encode(snaps, clock)
         return self._diff_lift(snaps, nodes, tensors, clock, base_rev=base_rev, seed=seed,
                                timestamp=timestamp, change_signature=change_signature,
-                               signature_matcher=signature_matcher)
+                               structured_apply=structured_apply,
+                               signature_matcher=signature_matcher,
+                               statement_ops=statement_ops)
 
     def _diff_lift(self, snaps, nodes, tensors, clock, *, base_rev, seed, timestamp,
-                   change_signature, signature_matcher) -> BuildAndDiffResult:
+                   change_signature, structured_apply, signature_matcher,
+                   statement_ops) -> BuildAndDiffResult:
         """:meth:`build_and_diff` after the scan."""
+        self.path = "two-program"
         ts = timestamp or EPOCH_ISO
         base, left, right = snaps
         base_t, left_t, right_t = tensors
@@ -168,21 +218,17 @@ class TorchTSBackend:
         diffs_l = decode_diffs(t_l, base_t, left_t, nodes[0], nodes[1])
         diffs_r = decode_diffs(t_r, base_t, right_t, nodes[0], nodes[2])
         clock.lap("decode")
-        if change_signature:
-            want = signature_matcher is not None
-            src_l = source_maps(ts_files(base), ts_files(left)) if want else None
-            src_r = source_maps(ts_files(base), ts_files(right)) if want else None
-            diffs_l = refine_signature_changes(diffs_l, src_l, signature_matcher)
-            diffs_r = refine_signature_changes(diffs_r, src_r, signature_matcher)
-            clock.lap("refine")
-        result = BuildAndDiffResult(
-            op_log_left=lift(base_rev, diffs_l, seed=seed + "/L", timestamp=ts),
-            op_log_right=lift(base_rev, diffs_r, seed=seed + "/R", timestamp=ts),
+        kw = dict(base_rev=base_rev, seed=seed, timestamp=ts,
+                  change_signature=change_signature, structured_apply=structured_apply,
+                  signature_matcher=signature_matcher, statement_ops=statement_ops)
+        return BuildAndDiffResult(
+            op_log_left=self._lift_side(diffs_l, base, left, nodes[0], nodes[1], clock,
+                                        side="L", **kw),
+            op_log_right=self._lift_side(diffs_r, base, right, nodes[0], nodes[2], clock,
+                                         side="R", **kw),
             symbol_maps={key: symbol_map(n)
                          for key, n in zip(("base", "left", "right"), nodes)},
         )
-        clock.lap("lift")
-        return result
 
     def compose(self, delta_a: List[Op], delta_b: List[Op]):
         """The two op logs composed on the backend's device:
@@ -193,7 +239,9 @@ class TorchTSBackend:
               *, base_rev: str = "base", seed: str = "0",
               timestamp: str | None = None,
               change_signature: bool = False,
-              signature_matcher=None):
+              structured_apply: bool = False,
+              signature_matcher=None,
+              statement_ops: bool = False):
         """Full three-way merge. Returns ``(BuildAndDiffResult, composed
         ops, conflicts)``.
 
@@ -205,7 +253,8 @@ class TorchTSBackend:
         rows hold a foldable delete+add pair would be rewritten by the
         refinement, so that merge — like one whose capacity retries run
         out — takes the two-program path on the same scan: the steps of
-        :meth:`build_and_diff`, then :meth:`compose`."""
+        :meth:`build_and_diff`, then :meth:`compose`. With structured
+        apply or statement ops the fused engine does not run at all."""
         ts = timestamp or EPOCH_ISO
         clock = _PhaseClock(self.phases)
         snaps = (base, left, right)
@@ -216,12 +265,14 @@ class TorchTSBackend:
         def build_symbol_maps():
             maps.update(zip(("base", "left", "right"), map(symbol_map, nodes)))
 
-        engine = self._fused_engine()
-        fused = engine.merge(base_t, nodes[0], left_t, nodes[1], right_t, nodes[2],
-                             seed=seed, base_rev=base_rev, timestamp=ts,
-                             overlap_work=build_symbol_maps)
-        clock.lap("fused")
-        self.phases.update(engine.phases)
+        fused = None
+        if not (structured_apply or statement_ops):
+            engine = self._fused_engine()
+            fused = engine.merge(base_t, nodes[0], left_t, nodes[1], right_t, nodes[2],
+                                 seed=seed, base_rev=base_rev, timestamp=ts,
+                                 overlap_work=build_symbol_maps)
+            clock.lap("fused")
+            self.phases.update(engine.phases)
         if fused is not None:
             ops_l, ops_r, composed, conflicts = fused
             if not (change_signature
@@ -231,7 +282,9 @@ class TorchTSBackend:
                 return BuildAndDiffResult(ops_l, ops_r, maps), composed, conflicts
         result = self._diff_lift(snaps, nodes, tensors, clock, base_rev=base_rev, seed=seed,
                                  timestamp=timestamp, change_signature=change_signature,
-                                 signature_matcher=signature_matcher)
+                                 structured_apply=structured_apply,
+                                 signature_matcher=signature_matcher,
+                                 statement_ops=statement_ops)
         composed, conflicts = self.compose(result.op_log_left, result.op_log_right)
         clock.lap("compose")
         self.path = "two-program"
@@ -245,8 +298,9 @@ class _PhaseClock:
         self._t = time.perf_counter()
 
     def lap(self, name: str) -> None:
+        """Adds the seconds since the last lap to phase ``name``."""
         now = time.perf_counter()
-        self._phases[name] = now - self._t
+        self._phases[name] = self._phases.get(name, 0.0) + now - self._t
         self._t = now
 
 

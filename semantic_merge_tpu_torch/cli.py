@@ -1,9 +1,11 @@
 """Command line of the port: the semantic diff and the three-way merge.
 
     python -m semantic_merge_tpu_torch semdiff REV1 REV2 [--json-out]
-        [--change-signature] [--signature-matcher] [--device cuda|cpu]
+        [--change-signature] [--signature-matcher] [--statement-ops]
+        [--device cuda|cpu]
     python -m semantic_merge_tpu_torch semmerge BASE A B [--inplace]
         [--resume] [--seed SEED] [--change-signature] [--signature-matcher]
+        [--strict-conflicts] [--structured-apply] [--statement-ops]
         [--device cuda|cpu]
 
 ``semdiff`` prints the op log between two revisions of the git
@@ -15,27 +17,55 @@ records as indented JSON.
 as the JAX package's ``semmerge --backend tpu``: the exit code, the
 merged work tree (with ``--inplace``, committed crash-safely),
 ``.semmerge-conflicts.json`` and the op logs of A and B as ``semmerge``
-git notes. Exit codes: 0 merged, 1 conflicts, 2 type errors, 3 a git or
-other subprocess failed; 11 the device engine failed or there is no
-CUDA device, 13 the in-place commit failed, 15 a typecheck deadline
-expired. ``--resume`` completes (or rolls back) an interrupted
-``--inplace`` commit and exits.
+git notes. ``--resume`` completes (or rolls back) an interrupted
+``--inplace`` commit and exits. ``--strict-conflicts`` detects every
+[CFR-002] category (DivergentRename, DivergentMove,
+IncompatibleSignatureChange, DeleteVsEdit, ConcurrentStmtEdit,
+ExtractVsInline) before the compose and implies ``--statement-ops``;
+``--structured-apply`` makes ops carry decl text and spans.
 
-``.semmerge.toml`` applies as in the JAX package: ``[engine]``
-``change_signature``, ``signature_matcher``, ``signature_threshold``,
-``matcher_ckpt_dir``, ``text_fallback`` and ``formatter_scope``; ``[core]
-deterministic_seed``; ``[languages.typescript] formatter_cmd``; ``[ci]
-require_typecheck``.
+Exit codes: 0 merged, 1 conflicts, 2 type errors (and ``semdiff``
+without a CUDA device), 3 a git or other subprocess failed, 10 the scan
+failed or the native scanner could not be built, 11 the device engine
+failed or there is no CUDA device, 13 the in-place commit failed, 15 a
+typecheck deadline expired, 70 a refused setting (below).
+
+``.semmerge.toml`` applies as in the JAX package: ``[core]
+deterministic_seed``, ``memory_cap_mb`` (the decl cache's budget);
+``[engine]`` ``change_signature``, ``signature_matcher``,
+``signature_threshold``, ``matcher_ckpt_dir``, ``conflict_mode``,
+``statement_ops``, ``structured_apply``, ``text_fallback``,
+``formatter_scope``, ``host_workers``; ``[languages.typescript]
+formatter_cmd``; ``[ci] require_typecheck``.
+
+Refused, with exit 70 before a revision is read or the work tree is
+touched, because the port does not implement what they select:
+``[languages.java|csharp|cs] enabled = true`` (another language's merge
+engine); ``[engine] backend`` other than ``tpu``/``host`` (``subprocess``
+runs ``worker_cmd``, another program); ``[engine] mesh = "require"`` or
+``SEMMERGE_MESH=require`` (a device mesh); for ``semmerge``,
+``SEMMERGE_RESOLVE=auto|require`` (the resolution tier) and
+``SEMMERGE_BATCH=require`` (the batching tier).
+
+Read by the JAX package and left alone here, since they do not change
+its output: ``[engine] backend = "tpu"|"host"`` (the two give the same
+bytes), ``incremental`` (its scope is collision-safe, so the full-tree
+diff here gives the same op logs), ``mesh = "off"|"auto"`` and
+``mesh_shape`` (the sharded programs give the single-device bytes),
+``max_nodes_per_bucket`` (padding only), ``parity_mode``, ``[core]
+formatter``, ``[languages.*] project_globs``, ``[ci] require_tests``
+(read, never used), ``worker_cmd`` (used only by the refused
+``subprocess`` backend), ``[slo]`` (telemetry); ``SEMMERGE_BREAKER``
+(the degradation ladder's breakers). ``SEMMERGE_STRICT`` /
+``--no-degrade`` select failing fast, which is all the port does: it has
+no degradation ladder, so a fault exits with its code, where the JAX
+CLI without them would retry on its host backend and then merge as text.
 
 Both commands run on the CUDA card; ``--device cpu`` runs them on the
 CPU instead. Without a card and without that flag they say why and exit,
 ``semdiff`` with status 2 and ``semmerge`` with 11, before reading any
 revision or touching the work tree. There is no fallback to another
 backend or to a text-only merge: a failure exits non-zero.
-
-The JAX CLI's incremental scope (diffing only the files that changed)
-is collision-safe by construction, so the full-tree diff here gives the
-same op logs.
 """
 from __future__ import annotations
 
@@ -51,11 +81,13 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
 
 from .backends.ts_torch import BuildAndDiffResult, TorchTSBackend
-from .config import load_config
+from .config import load_config, refused_settings
 from .core.conflict import conflicts_payload
+from .core.strict_conflicts import detect_conflicts_strict
 from .core.ops import Op, OpLog
 from .device import DeviceUnavailable
-from .errors import KernelFault, MergeFault
+from .errors import KernelFault, MergeFault, UnsupportedSetting
+from .frontend.declcache import configure as configure_decl_cache
 from .runtime.applier import _normalize_relpath, apply_ops, touched_paths
 from .runtime.emitter import PRETTIER_EXTENSIONS, emit_files
 from .runtime.git import (archive_bytes, commit_timestamp_iso, resolve_rev,
@@ -81,6 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
     p_diff.add_argument("rev2")
     p_diff.add_argument("--json-out", action="store_true",
                         help="Emit JSON instead of a pretty listing")
+    p_diff.add_argument("--statement-ops", action="store_true",
+                        help="Extract editStmtBlock ops for body-only decl "
+                             "edits (also [engine].statement_ops)")
     p_merge = sub.add_parser("semmerge", help="Semantic merge base A B into working tree")
     p_merge.add_argument("base", nargs="?", default=None)
     p_merge.add_argument("a", nargs="?", default=None)
@@ -92,6 +127,17 @@ def build_parser() -> argparse.ArgumentParser:
                          help="Complete (or roll back) an interrupted --inplace "
                               "commit in the current directory, then exit")
     p_merge.add_argument("--seed", default=None, help="Deterministic id seed override")
+    p_merge.add_argument("--strict-conflicts", action="store_true",
+                         help="Detect all [CFR-002] conflict categories via a "
+                              "full symbol join (also [engine].conflict_mode)")
+    p_merge.add_argument("--structured-apply", action="store_true",
+                         help="Ops carry decl text/spans so add/delete/"
+                              "changeSignature materialize structurally "
+                              "(also [engine].structured_apply)")
+    p_merge.add_argument("--statement-ops", action="store_true",
+                         help="Extract editStmtBlock ops for body-only decl "
+                              "edits (also [engine].statement_ops; implied "
+                              "by --strict-conflicts)")
     for p in (p_diff, p_merge):
         p.add_argument("--change-signature", action="store_true",
                        help="Detect changeSignature ops instead of delete+add "
@@ -122,9 +168,23 @@ class SemdiffResult:
     phases: Dict[str, float] = field(default_factory=dict)
 
 
+def _load_config(command: str):
+    """The ``.semmerge.toml`` in force, with the decl cache's budget
+    applied; raises :class:`UnsupportedSetting` on a refused setting."""
+    config = load_config()
+    refused = refused_settings(config, command)
+    if refused:
+        raise UnsupportedSetting(
+            f"{', '.join(refused)}: not implemented by this port (it would change the "
+            "JAX package's output); unset it or use python -m semantic_merge_tpu",
+            stage="config")
+    configure_decl_cache(config.core.memory_cap_mb)
+    return config
+
+
 def semdiff(args: argparse.Namespace) -> SemdiffResult:
     """Run ``semdiff`` for parsed ``args`` in the working directory."""
-    config = load_config().engine
+    config = _load_config("semdiff").engine
     backend = TorchTSBackend(device=args.device, host_workers=config.host_workers)
     change_sig = args.change_signature or config.change_signature
     matcher = _signature_matcher(args, config, change_sig, backend.device)
@@ -136,7 +196,8 @@ def semdiff(args: argparse.Namespace) -> SemdiffResult:
                        base_rev=resolve_rev(args.rev1),
                        timestamp=commit_timestamp_iso(args.rev2),
                        change_signature=change_sig,
-                       signature_matcher=matcher)
+                       signature_matcher=matcher,
+                       statement_ops=args.statement_ops or config.statement_ops)
     phases.update(backend.phases)
     return SemdiffResult(ops=ops, matcher=matcher, phases=phases)
 
@@ -171,8 +232,11 @@ def _write_conflict_reports(conflicts) -> None:
 def semmerge(args: argparse.Namespace) -> SemmergeResult:
     """Run ``semmerge`` for parsed ``args`` in the working directory.
 
-    The body of the JAX package's ``cli._semantic_attempt`` (non-strict
-    branch), without its degradation ladder and resolution tier."""
+    The body of the JAX package's ``cli._semantic_attempt``, without its
+    degradation ladder and resolution tier. In strict conflict mode the
+    op logs come from :meth:`TorchTSBackend.build_and_diff`, the strict
+    detection drops the conflicting ops from both, and the device
+    compose merges the rest, its conflicts appended to the strict ones."""
     backend = TorchTSBackend(device=args.device)  # no device: raises here
     if args.resume:
         with repo_lock():
@@ -184,15 +248,20 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
         print("error: semmerge requires BASE A B revisions (or --resume)",
               file=sys.stderr)
         return SemmergeResult(code=2)
+    config = _load_config("semmerge")
     if args.inplace:
         # A journal/stage left by an interrupted --inplace commit is
         # resolved before this merge touches anything.
         with repo_lock():
             recover()
-    config = load_config()
     engine = config.engine
     backend.host_workers = engine.host_workers
     change_sig = args.change_signature or engine.change_signature
+    structured = args.structured_apply or engine.structured_apply
+    strict = args.strict_conflicts or engine.conflict_mode == "strict"
+    # Strict mode implies statement ops: the ConcurrentStmtEdit
+    # category has no inputs without editStmtBlock extraction.
+    stmt_ops = args.statement_ops or engine.statement_ops or strict
     out = SemmergeResult(code=0, matcher=_signature_matcher(
         args, engine, change_sig, backend.device))
     phases = out.phases
@@ -212,13 +281,27 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
         seed = base_rev
     timestamp = commit_timestamp_iso(args.base)
     lap("snapshot")
+    kw = dict(base_rev=base_rev, seed=seed, timestamp=timestamp,
+              change_signature=change_sig, structured_apply=structured,
+              signature_matcher=out.matcher, statement_ops=stmt_ops)
     try:
-        out.result, out.composed, out.conflicts = backend.merge(
-            *snaps, base_rev=base_rev, seed=seed, timestamp=timestamp,
-            change_signature=change_sig, signature_matcher=out.matcher)
+        if strict:
+            out.result = backend.build_and_diff(*snaps, **kw)
+            phases.update(backend.phases)
+            t = time.perf_counter()
+            ops_left, ops_right, out.conflicts = detect_conflicts_strict(
+                out.result.op_log_left, out.result.op_log_right)
+            lap("strict_detect")
+            out.composed, walk_conflicts = backend.compose(ops_left, ops_right)
+            out.conflicts.extend(walk_conflicts)
+            lap("compose")
+        else:
+            out.result, out.composed, out.conflicts = backend.merge(*snaps, **kw)
+            phases.update(backend.phases)
+    except MergeFault:
+        raise
     except Exception as exc:  # the device engine's failure is the merge's
         raise KernelFault(f"{type(exc).__name__}: {exc}", stage="merge") from exc
-    phases.update(backend.phases)
     t = time.perf_counter()
     if out.conflicts:
         _write_conflict_reports(out.conflicts)
@@ -291,6 +374,10 @@ def main(argv: Sequence[str] | None = None) -> int:
         cmd = exc.cmd if isinstance(exc.cmd, str) else " ".join(map(str, exc.cmd))
         print(f"error: subprocess failed ({cmd}): exit {exc.returncode}", file=sys.stderr)
         return 3
+    except UnsupportedSetting as fault:
+        print(f"{args.command}: {fault.describe()} (exit {fault.exit_code})",
+              file=sys.stderr)
+        return fault.exit_code
     except MergeFault as fault:
         traceback.print_exception(fault, file=sys.stderr)
         print(f"{args.command}: {fault.describe()} (exit {fault.exit_code})",

@@ -1,7 +1,10 @@
 """Diff records, changeSignature refinement and op lifting.
 
-A copy of the JAX package's ``core/difflift.py`` (the slice's part of
-it: the join itself runs on the device, :mod:`semantic_merge_tpu_torch.ops.diff`).
+A copy of the JAX package's ``core/difflift.py``: the join itself runs
+on the device (:mod:`semantic_merge_tpu_torch.ops.diff`); the statement
+ops (:func:`lift_statements`: ``editStmtBlock`` and the
+``extractMethod`` / ``inlineMethod`` markers) run here on the host, as
+they do there.
 Together with the device join it reproduces the reference worker's
 diff/lift stage exactly
 (reference ``workers/ts/src/diff.ts:5-31`` and
@@ -28,7 +31,7 @@ from dataclasses import dataclass
 from typing import Dict, List
 
 from ..frontend.scanner import DeclNode
-from .ids import EPOCH_ISO, deterministic_op_id
+from .ids import EPOCH_ISO, deterministic_op_id, stable_hash_hex
 from .ops import Op, Target
 
 
@@ -244,6 +247,250 @@ def lift(base_rev: str, diffs: List[Diff], *, seed: str = "0",
                 op_id=_op_id(seed, base_rev, idx, "deleteDecl", d),
             ))
     return ops
+
+
+def statement_edits(base_nodes: List[DeclNode], side_nodes: List[DeclNode],
+                    sources, *, base_rev: str, seed: str,
+                    timestamp: str = EPOCH_ISO, start_idx: int = 0) -> List[Op]:
+    """``editStmtBlock`` ops: identity-stable decls whose body changed.
+
+    The reference *schemas* statement-level edits (its requirements
+    gate two [CFR-002] conflict categories on them, reference
+    ``requirements.md:97-98``; design sketch at
+    ``architecture.md:160``) but extracts none. This pass implements
+    the capability: a declaration present in base and side under the
+    same ``(symbolId, name, file)`` key whose full-span source text
+    (``pos..end``, leading trivia included per the full-start span
+    contract) differs emits one ``editStmtBlock`` op carrying old/new
+    body text + 64-bit body hashes — enough for the applier to splice
+    and for ``semrebase`` to replay. Matching by name+file (not
+    addressId) tolerates the position shifts earlier edits in the same
+    file cause; a decl that was renamed or moved AND body-edited stays
+    outside this pass's reach (the rename/move op already records the
+    change). Key collisions (same signature, name, file) keep the last
+    occurrence, matching the differ's JS-``Map`` semantics.
+
+    Op ids continue the lift stream's index sequence (``start_idx`` =
+    number of lifted ops), so ids stay deterministic functions of
+    (seed, rev, stream position, content). Opt-in: parity mode must
+    keep the reference's observable op vocabulary, so this runs only
+    under ``--statement-ops`` / ``[engine] statement_ops`` / strict
+    conflict mode.
+    """
+    base_map, side_map = sources
+    by_key: Dict[tuple, DeclNode] = {}
+    for n in base_nodes:
+        by_key[(n.symbolId, n.name, n.file)] = n  # last wins, Map quirk
+    ops: List[Op] = []
+    idx = start_idx
+    prov = {"rev": base_rev, "timestamp": timestamp}
+    for b in side_nodes:
+        a = by_key.get((b.symbolId, b.name, b.file))
+        if a is None:
+            continue
+        src_a = base_map.get(a.file)
+        src_b = side_map.get(b.file)
+        if src_a is None or src_b is None:
+            continue
+        old = src_a[a.pos:a.end]
+        new = src_b[b.pos:b.end]
+        if old == new:
+            continue
+        ops.append(Op.new(
+            "editStmtBlock",
+            Target(symbolId=a.symbolId, addressId=a.addressId),
+            params={"file": b.file,
+                    "oldBodyHash": stable_hash_hex(old, n_hex=16),
+                    "newBodyHash": stable_hash_hex(new, n_hex=16),
+                    "oldBody": old, "newBody": new},
+            guards={"exists": True, "addressMatch": a.addressId},
+            effects={"summary": f"edit body of {a.name}"},
+            provenance=prov,
+            op_id=deterministic_op_id(seed, base_rev, idx, "editStmtBlock",
+                                      a.symbolId, a.addressId, b.addressId),
+        ))
+        idx += 1
+    return ops
+
+
+def _decl_block(text: str) -> str:
+    """The whitespace-normalized statement block of a declaration's
+    source text: everything between the first ``{`` and the last ``}``,
+    collapsed to single spaces. Empty when the decl has no braced body
+    (``declare``/arrow-less vars) or the block is blank — callers skip
+    those."""
+    lo = text.find("{")
+    hi = text.rfind("}")
+    if lo < 0 or hi <= lo:
+        return ""
+    return " ".join(text[lo + 1:hi].split())
+
+
+_IDENT_CHARS = frozenset(
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789_$")
+
+#: Minimum normalized-block size for motion evidence: at least this
+#: many statements (``;`` count) or strictly more characters. A
+#: trivial shared block — the bare ``return null;`` class — occurs in
+#: unrelated declarations by coincidence, and since ``blockHash`` is
+#: content-only, opposite-side trivial "motions" join into a false
+#: ExtractVsInline strict-mode abort of a clean merge.
+_MIN_MOTION_STMTS = 2
+_MIN_MOTION_CHARS = 15
+
+
+def _block_significant(block: str) -> bool:
+    """Whether a normalized block is big enough to be motion evidence."""
+    return (len(block) > _MIN_MOTION_CHARS
+            or block.count(";") >= _MIN_MOTION_STMTS)
+
+
+def _block_in(block: str, text: str) -> bool:
+    """True when ``block`` occurs in ``text`` at identifier boundaries:
+    a raw substring check would let ``x + 1;`` "match" inside
+    ``max + 1;`` and mint a motion for code that never moved. Both
+    strings are already whitespace-normalized."""
+    start = 0
+    while True:
+        i = text.find(block, start)
+        if i < 0:
+            return False
+        before_ok = i == 0 or (text[i - 1] not in _IDENT_CHARS
+                               or block[0] not in _IDENT_CHARS)
+        j = i + len(block)
+        after_ok = j >= len(text) or (text[j] not in _IDENT_CHARS
+                                      or block[-1] not in _IDENT_CHARS)
+        if before_ok and after_ok:
+            return True
+        start = i + 1
+
+
+def body_motions(diffs, stmt_ops: List[Op], sources,
+                 *, base_rev: str, seed: str,
+                 timestamp: str = EPOCH_ISO, start_idx: int = 0) -> List[Op]:
+    """``extractMethod`` / ``inlineMethod`` ops: statement-block motion
+    between declarations.
+
+    The reference names extract/inline in its op vocabulary and gates a
+    [CFR-002] conflict category on them (reference
+    ``requirements.md:52,98``) but its worker emits neither. This pass
+    detects the motions from the already-lifted evidence:
+
+    - **extract** — an added declaration N whose braced body appears
+      (whitespace-normalized) in the OLD body of a body-edited
+      declaration D but not in its NEW body: N's statements left D.
+    - **inline** — a deleted declaration N whose body appears in a
+      body-edited D's NEW body but not its OLD body: N's statements
+      landed in D.
+
+    Emitted ops are *markers*: the companion ``editStmtBlock`` /
+    ``addDecl`` / ``deleteDecl`` ops still carry the text-level change
+    (the applier skips unknown-to-it types by contract), so the markers
+    add the semantic identity of the motion — the join key
+    (``blockHash`` over the normalized block) the strict conflict
+    detector and [RES-004] dedup need — without double-applying
+    anything. One motion per added/deleted decl (first matching edit in
+    stream order wins); ids continue the statement stream's index
+    sequence, keeping the whole op stream a deterministic function of
+    (seed, rev, content).
+
+    Blocks below the minimum size (:func:`_block_significant`) are not
+    motion evidence; and the edit bodies are pre-indexed by a cheap
+    fingerprint — each body normalized exactly once, a length bucket
+    (a block cannot occur in a body shorter than itself), and one
+    NUL-joined haystack of every body so the common no-motion candidate
+    is rejected by a single C-speed substring scan instead of
+    per-edit boundary-aware scans (O(adds×edits×body) before)."""
+    base_map, side_map = sources
+    edits = [op for op in stmt_ops if op.type == "editStmtBlock"]
+    ops: List[Op] = []
+    idx = start_idx
+    if not edits:
+        return ops
+    prov = {"rev": base_rev, "timestamp": timestamp}
+    norm_old = [" ".join(str(e.params.get("oldBody", "")).split())
+                for e in edits]
+    norm_new = [" ".join(str(e.params.get("newBody", "")).split())
+                for e in edits]
+    max_body = max(map(len, norm_old + norm_new))
+    # '\x00' never survives whitespace normalization of source text, so
+    # a block cannot falsely match across two bodies' boundary.
+    haystack = "\x00".join(norm_old + norm_new)
+    for d in diffs:
+        if d.kind == "add" and d.b is not None:
+            node, src = d.b, side_map.get(d.b.file)
+        elif d.kind == "delete" and d.a is not None:
+            node, src = d.a, base_map.get(d.a.file)
+        else:
+            continue
+        if src is None:
+            continue
+        block = _decl_block(src[node.pos:node.end])
+        if not block or not _block_significant(block):
+            continue
+        if len(block) > max_body or block not in haystack:
+            continue  # no body contains the block — no scan needed
+        for e, old, new in zip(edits, norm_old, norm_new):
+            if d.kind == "add" and _block_in(block, old) \
+                    and not _block_in(block, new):
+                ops.append(Op.new(
+                    "extractMethod",
+                    Target(symbolId=e.target.symbolId,
+                           addressId=e.target.addressId),
+                    params={"file": node.file, "newName": node.name,
+                            "newAddress": node.addressId,
+                            "newSymbol": node.symbolId,
+                            "fromFile": str(e.params.get("file", "")),
+                            "blockHash": stable_hash_hex(block, n_hex=16)},
+                    guards={"exists": True},
+                    effects={"summary": f"extract {node.name}"},
+                    provenance=prov,
+                    op_id=deterministic_op_id(
+                        seed, base_rev, idx, "extractMethod",
+                        e.target.symbolId, node.addressId, block),
+                ))
+            elif d.kind == "delete" and _block_in(block, new) \
+                    and not _block_in(block, old):
+                ops.append(Op.new(
+                    "inlineMethod",
+                    Target(symbolId=e.target.symbolId,
+                           addressId=e.target.addressId),
+                    params={"file": str(e.params.get("file", "")),
+                            "methodName": node.name,
+                            "oldAddress": node.addressId,
+                            "oldSymbol": node.symbolId,
+                            "blockHash": stable_hash_hex(block, n_hex=16)},
+                    guards={"exists": True},
+                    effects={"summary": f"inline {node.name}"},
+                    provenance=prov,
+                    op_id=deterministic_op_id(
+                        seed, base_rev, idx, "inlineMethod",
+                        e.target.symbolId, node.addressId, block),
+                ))
+            else:
+                continue
+            idx += 1
+            break
+    return ops
+
+
+def lift_statements(diffs, base_nodes, side_nodes, sources, files_pair,
+                    *, base_rev: str, seed: str, side: str,
+                    timestamp: str = EPOCH_ISO) -> List[Op]:
+    """The statement-op tail of one side's lifted stream — the single
+    place that owns the seed/side and start-index conventions every
+    backend must share (op ids continue the lift sequence, so a
+    convention drift would silently fork ids between backends).
+    ``sources`` reuses an already-built :func:`source_maps` pair;
+    ``files_pair`` builds one lazily otherwise."""
+    sm = sources or source_maps(*files_pair)
+    stmt = statement_edits(base_nodes, side_nodes, sm, base_rev=base_rev,
+                           seed=f"{seed}/{side}", timestamp=timestamp,
+                           start_idx=len(diffs))
+    return stmt + body_motions(diffs, stmt, sm,
+                               base_rev=base_rev, seed=f"{seed}/{side}",
+                               timestamp=timestamp,
+                               start_idx=len(diffs) + len(stmt))
 
 
 def _op_id(seed: str, rev: str, idx: int, op_type: str, d: Diff) -> str:

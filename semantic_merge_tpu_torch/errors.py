@@ -22,6 +22,20 @@ class MergeFault(RuntimeError):
         return f"{type(self).__name__}[stage={self.stage}{cause}]: {self}"
 
 
+class UnsupportedSetting(MergeFault):
+    """A setting that would change the JAX package's output and that the
+    port does not implement: refused before any revision is read."""
+
+    exit_code = 70
+
+
+class ParseFault(MergeFault):
+    """The snapshot scan failed, or the native scanner could not be
+    built or loaded."""
+
+    exit_code = 10
+
+
 class KernelFault(MergeFault):
     """The device engine failed, or there is no device to run it on."""
 

@@ -1,8 +1,11 @@
 """TypeScript/JavaScript declaration scanner (parse + index).
 
-The pure-Python scan of the JAX package's ``frontend/scanner.py``, the
-semantic oracle there: node lists are identical by construction. The
-native library and the per-file decl cache are not part of this port.
+The JAX package's ``frontend/scanner.py``: :func:`scan_snapshot_py`,
+the pure-Python scan and semantic oracle, and :func:`scan_snapshot` /
+:func:`scan_snapshot_keyed`, which scan with the C++ library
+(:mod:`semantic_merge_tpu_torch.frontend.native`) through the per-file
+decl cache (:mod:`semantic_merge_tpu_torch.frontend.declcache`). Node
+lists are identical by construction.
 
 This replaces the reference's Node.js worker parse/index stage
 (reference ``workers/ts/src/sast.ts``) with a dependency-free host
@@ -40,10 +43,13 @@ Missing annotations are ``any`` (reference ``workers/ts/src/sast.ts:78,82``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import TYPE_CHECKING, Dict, Hashable, List, Sequence
 
 from ..core.ids import symbol_id_from_signature
 from .tokenizer import IDENT, PUNCT, Token, tokenize
+
+if TYPE_CHECKING:
+    from .declcache import DeclCache
 
 KIND_FUNCTION = "FunctionDeclaration"
 KIND_CLASS = "ClassDeclaration"
@@ -107,6 +113,177 @@ def normalize_path(p: str) -> str:
     if p.startswith("/"):
         p = p[1:]
     return p
+
+
+@dataclass
+class ScanStats:
+    """What the scans of one call did: the files whose decl nodes the
+    C++ library and the Python scanner produced, and the decl cache's
+    hits and misses (types and decls lookups alike)."""
+
+    native_files: int = 0
+    python_files: int = 0
+    hits: int = 0
+    misses: int = 0
+
+    @property
+    def scanner(self) -> str:
+        """``"native"``, ``"python"``, both joined by ``+``, or
+        ``"cache"`` when every file came from the cache."""
+        ran = [name for name, n in (("native", self.native_files),
+                                    ("python", self.python_files)) if n]
+        return "+".join(ran) or "cache"
+
+
+def scan_snapshot(files: Sequence[dict], **kwargs) -> List[DeclNode]:
+    """Index every file of a snapshot (``[{path, content}, ...]``):
+    :func:`scan_snapshot_keyed`'s nodes, flattened in file order."""
+    return [n for _, nodes in scan_snapshot_keyed(files, **kwargs) for n in nodes]
+
+
+def scan_snapshot_keyed(files: Sequence[dict], *, cache: DeclCache | None = None,
+                        native: bool = True, stats: ScanStats | None = None
+                        ) -> List[tuple[Hashable, List[DeclNode]]]:
+    """The snapshot's decl nodes grouped per file, each group tagged
+    with its decl-cache key ``("decls", path, content-hash,
+    declared-set-hash)``.
+
+    Two passes, as :func:`scan_snapshot_py`: the type names declared
+    anywhere in the snapshot, then each file against that set, both
+    through ``cache`` (a
+    :class:`~semantic_merge_tpu_torch.frontend.declcache.DeclCache`;
+    ``None`` is the process-wide one). With ``native`` the C++ library
+    scans every file the cache misses, unless the snapshot is not
+    ASCII-safe; without it the Python scanner does. ``stats`` collects
+    what ran. A failure is a
+    :class:`~semantic_merge_tpu_torch.errors.ParseFault`, a native
+    library that cannot be built included."""
+    from ..errors import ParseFault
+    from .declcache import global_cache
+    cache = global_cache() if cache is None else cache
+    stats = stats if stats is not None else ScanStats()
+    hits0, misses0 = cache.hits, cache.misses
+    try:
+        keyed = _scan_snapshot_cached(files, cache, native, stats)
+    except ParseFault:
+        raise
+    except Exception as exc:
+        raise ParseFault(f"snapshot scan failed: {exc}", stage="scan",
+                         cause=type(exc).__name__) from exc
+    stats.hits += cache.hits - hits0
+    stats.misses += cache.misses - misses0
+    return keyed
+
+
+# A file path that cannot collide with real snapshot paths carries the
+# synthetic type declarations when a cache-miss subset scans natively
+# (its nodes are filtered out of the result).
+_SYNTH_PATH = "__semmerge_synthetic_decls__.d.ts"
+
+
+def _scan_snapshot_cached(files: Sequence[dict], cache, native: bool, stats: ScanStats
+                          ) -> List[tuple[Hashable, List[DeclNode]]]:
+    from . import native as native_lib
+    from .declcache import content_hash, declared_hash
+
+    # Pass 1: the global declared-type-name set, from per-file cached
+    # name sets (key: the content hash alone; names do not depend on
+    # other files). Misses go through the native tokenizer in one batch.
+    hashes: List[str] = []
+    toks_for: Dict[int, List[Token]] = {}
+    name_sets: List[frozenset | None] = []
+    type_miss: List[int] = []
+    for idx, f in enumerate(files):
+        h = content_hash(f["content"])
+        hashes.append(h)
+        names = cache.get(("types", h))
+        if names is None:
+            type_miss.append(idx)
+        name_sets.append(names)
+
+    if native and files and len(type_miss) == len(files):
+        # Fully cold (nothing cached for any content): one combined
+        # native pass yields names and nodes together, with no second
+        # tokenize and no synthetic-decls file.
+        combined = native_lib.try_scan_with_names(files)
+        if combined is not None:
+            per_file_names, nodes = combined
+            stats.native_files += len(files)
+            declared = set().union(*per_file_names) if per_file_names else set()
+            dh = declared_hash(declared)
+            by_file: Dict[str, List[DeclNode]] = {}
+            for n in nodes:
+                by_file.setdefault(n.file, []).append(n)
+            keyed = []
+            for idx, f in enumerate(files):
+                path = normalize_path(f["path"])
+                key = ("decls", path, hashes[idx], dh)
+                cache.put(("types", hashes[idx]), per_file_names[idx])
+                cache.put(key, by_file.get(path, []))
+                keyed.append((key, by_file.get(path, [])))
+            return keyed
+
+    if type_miss:
+        native_names = (native_lib.try_type_names([files[i] for i in type_miss])
+                        if native else None)
+        for j, idx in enumerate(type_miss):
+            if native_names is not None:
+                names = native_names[j]
+            else:
+                toks = tokenize(files[idx]["content"])
+                toks_for[idx] = toks
+                names = frozenset(_collect_type_names(toks))
+            cache.put(("types", hashes[idx]), names)
+            name_sets[idx] = names
+    declared: set[str] = set().union(*name_sets) if name_sets else set()
+    dh = declared_hash(declared)
+
+    # Pass 2: per-file decl nodes keyed by (path, content, declared set).
+    get = cache.get
+    keys = [("decls", normalize_path(f["path"]), h, dh) for f, h in zip(files, hashes)]
+    out_slots: List[List[DeclNode] | None] = [get(k) for k in keys]
+    miss_idx = [i for i, v in enumerate(out_slots) if v is None]
+
+    if miss_idx:
+        scanned = _scan_subset([files[i] for i in miss_idx], declared,
+                               [toks_for.get(i) for i in miss_idx], native, stats)
+        for slot, nodes in zip(miss_idx, scanned):
+            out_slots[slot] = nodes
+            cache.put(keys[slot], nodes)
+
+    return [(k, v or []) for k, v in zip(keys, out_slots)]
+
+
+def _scan_subset(files: Sequence[dict], declared: set[str],
+                 toks: Sequence[List[Token] | None], native: bool,
+                 stats: ScanStats) -> List[List[DeclNode]]:
+    """Scan a subset of a snapshot against a *global* declared set;
+    returns per-file node lists in input order."""
+    # Native path: prepend a synthetic file declaring every global type
+    # name, so the library's internally computed declared set equals the
+    # full snapshot's; its nodes are dropped from the result.
+    if native and not any(normalize_path(f["path"]) == _SYNTH_PATH for f in files):
+        from . import native as native_lib
+        synth_names = sorted(n for n in declared if n.isascii())
+        if len(synth_names) == len(declared):
+            synth = {"path": _SYNTH_PATH,
+                     "content": "".join(f"interface {n} {{}}\n" for n in synth_names)}
+            nodes = native_lib.try_scan_snapshot([synth, *files])
+            if nodes is not None:
+                stats.native_files += len(files)
+                by_file: Dict[str, List[DeclNode]] = {}
+                for n in nodes:
+                    if n.file != _SYNTH_PATH:
+                        by_file.setdefault(n.file, []).append(n)
+                return [by_file.get(normalize_path(f["path"]), []) for f in files]
+
+    stats.python_files += len(files)
+    out: List[List[DeclNode]] = []
+    for f, t in zip(files, toks):
+        if t is None:
+            t = tokenize(f["content"])
+        out.append(_scan_tokens(normalize_path(f["path"]), t, declared))
+    return out
 
 
 def scan_snapshot_py(files: Sequence[dict]) -> List[DeclNode]:

@@ -5,6 +5,9 @@
   (checked on the syntax tree, so imports inside functions count).
 - Importing every module of the port leaves ``jax`` and the JAX package
   out of ``sys.modules``.
+- The strict, statement-op and native-scan modules are among them; the
+  native scanner is the port's own build of its own copy of the C++
+  source, never the JAX package's ``native/`` library.
 - Without a CUDA device the CLI (without ``--device cpu``) and
   ``chip_smoke.py`` exit non-zero and say why; neither carries on on
   the CPU, ``semmerge`` leaves the work tree as it was, and the smoke
@@ -56,6 +59,41 @@ def test_fused_modules_are_checked_and_stand_alone(module):
     roots = _imported_roots(path)
     assert not roots & set(FORBIDDEN), roots
     assert (PORT / "kernels" / "sha256.cu").is_file()
+
+
+#: The modules of the strict, statement-op and native-scan slice: each
+#: checked above, the C++ scanner's source beside them.
+STRICT_SCAN_MODULES = ("core/strict_conflicts.py", "core/difflift.py", "core/conflict.py",
+                       "frontend/native.py", "frontend/declcache.py", "frontend/scanner.py")
+
+
+@pytest.mark.parametrize("module", STRICT_SCAN_MODULES)
+def test_strict_and_scan_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+    assert (PORT / "frontend" / "semmerge_native.cpp").is_file()
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no C++ compiler (g++) on PATH")
+def test_native_library_comes_from_the_port_build_dir():
+    # The JAX package's own library (native/) may sit built beside it;
+    # the port must load the one it built from its own copy.
+    code = ("import pathlib\n"
+            "from semantic_merge_tpu_torch.frontend import native, scanner\n"
+            "scanner.scan_snapshot([{'path': 'a.ts', 'content': 'function f() {}'}])\n"
+            "maps = pathlib.Path('/proc/self/maps').read_text()\n"
+            "libs = sorted({l.split()[-1] for l in maps.splitlines() if 'semmerge' in l})\n"
+            "print(native._lib._name); print(native.library_path()); print(libs)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO_ROOT,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded, expected, libs = out.stdout.splitlines()
+    build_dir = PORT / "frontend" / "_build"
+    assert loaded == expected and pathlib.Path(loaded).parent == build_dir
+    assert libs == repr([loaded])
+    assert "native/" not in libs
 
 
 def _env(**extra):
