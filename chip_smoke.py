@@ -24,8 +24,12 @@ Phases, each fatal on failure, each printing its seconds:
    functions in every even file and renames AND retypes the first
    function of 256 other files, the other branch moves every 4th file
    to ``lib/``, the stmt branch edits the body of the last function of
-   every 3rd file; a matcher checkpoint from the port's seeded
-   (untrained) initializer.
+   every 3rd file, the drv branch renames the last function of every
+   20th file (500), and
+   rsv_base gives the last function of every 10th file (1,000) a
+   three-line body whose first line rsv_a edits and whose second rsv_b
+   edits; a matcher checkpoint from the port's seeded (untrained)
+   initializer.
 4. Five runs of the port's CLI functions, each under a torch.profiler
    trace (wall, phases, device busy time and idle share), with the decl
    cache emptied and the launch counts and shapes set to 0 just before
@@ -76,14 +80,39 @@ Phases, each fatal on failure, each printing its seconds:
    only); the bound from this run's shapes. Then the fused merge and
    diff programs and the render program, on the inputs the fused paths
    gave them: device time, kernels and host time per call.
-6. reference: small inputs on the card and on the CPU must give
+6. driver merge (not in-process): ``git merge --no-ff drv`` on side in
+   a clone, with ``python -m semantic_merge_tpu_torch.driver %O %A %B
+   %P`` registered as ``merge.semmerge.driver`` for ``*.ts`` in
+   ``.git/info/attributes`` and the default engine settings (the fused
+   engine): git exits 0 without degrading, the merge commit's tree is
+   side's with drv's 500 renames, the work tree differs from it in
+   exactly the files that side retyped or added a function to (the
+   engine's in-place tree, as the JAX driver leaves it), the latch
+   exists, notes sit on both heads (drv's: 500 renames and their 500
+   moves), git started the driver 500 times (its trace2 log, required),
+   and a process other than this one held the card during the merge
+   (the CLI child: the card's used memory up by 100 MiB or more);
+   prints git's wall, the child's and the other starts'.
+7. resolve semmerge, in-process and traced as in phase 4: ``semmerge
+   rsv_base rsv_a rsv_b --inplace --strict-conflicts --resolve auto``
+   in a fourth work tree: exit 0,
+   1,000 ConcurrentStmtEdit conflicts each ``accepted`` in
+   ``.semmerge-conflicts.json`` with its four gates passed, both edits
+   in every such file, no ``sha256`` or ``flash_chunk`` launch (strict
+   mode skips the fused engine); prints the resolve phase and each
+   gate's ms.
+8. reference: small inputs on the card and on the CPU must give
    identical op logs (a matcher semdiff) and identical exit codes,
    trees, conflicts and notes (fused semmerges, one with a
    DivergentRename conflict, which runs the host cursor walk, and a
    DivergentRename merge with --change-signature that takes the
    two-program path and its compose's host cursor walk), and three
    ``--strict-conflicts`` merges that report DeleteVsEdit,
-   ConcurrentStmtEdit and ExtractVsInline.
+   ConcurrentStmtEdit and ExtractVsInline, and three ``--resolve auto``
+   merges: a DivergentRename resolved for the side with a reference, a
+   symmetric rename that ties (exit 1), and disjoint edits of one body
+   under ``--strict-conflicts`` merged line by line (the gates' wall
+   times masked in the comparison).
 
 Prints the kernels' JSON line, the card line, and last the device JSON.
 """
@@ -705,6 +734,54 @@ def synth_trees(n_files: int, decls: int, n_retyped: int):
     return base, side, other, stmt
 
 
+#: The driver merge's branch edits every 20th file, the resolve merge's
+#: branches every 10th.
+DRV_EVERY, RSV_EVERY = 20, 10
+
+
+#: The body ``rsv_base`` gives the last function of every 10th file, and
+#: the two disjoint edits of it on ``rsv_a`` (line 1) and ``rsv_b``
+#: (line 2).
+RSV_BODY = "{\n  n = n + 1;\n  n = n * 2;\n  return n;\n}\n"
+
+
+def extra_branches(base: dict) -> dict:
+    """Four more branches, each as (start, {path: content} of the files
+    it changes):
+
+    - ``drv`` (on base) renames the last function of every 20th file,
+      ``fn<i>_3`` -> ``drv<i>_3`` (each such file is even, so side
+      renames its first function: git starts the merge driver for every
+      one of them). A rename and not a body edit: with the default
+      engine settings a body edit is no op and the merge drops it, in
+      the JAX package as in the port (``tests/test_torch_driver.py``);
+    - ``rsv_base`` (on base) gives the last function of every 10th file
+      a three-line body (:data:`RSV_BODY`); on it ``rsv_a`` edits its
+      first line (``n = n + i;``) and ``rsv_b`` its second (``n = n *
+      4;``): a ConcurrentStmtEdit per file under ``--strict-conflicts``,
+      which the resolution tier merges line by line."""
+    last = DECLS - 1
+    branches = {"drv": ("base", {}), "rsv_base": ("base", {}),
+                "rsv_a": ("rsv_base", {}), "rsv_b": ("rsv_base", {})}
+    for i in range(N_FILES):
+        path = f"src/mod{i:05d}.ts"
+        content = base[path]
+        if i % DRV_EVERY == 0:
+            branches["drv"][1][path] = drv_rename(content, i)
+        if i % RSV_EVERY == 0:
+            body = content.replace(f"{{ return {last}; }}\n", RSV_BODY)
+            branches["rsv_base"][1][path] = body
+            branches["rsv_a"][1][path] = body.replace("n = n + 1;", f"n = n + {i};")
+            branches["rsv_b"][1][path] = body.replace("n = n * 2;", "n = n * 4;")
+    return branches
+
+
+def drv_rename(content: str, i: int) -> str:
+    """The drv branch's change to file ``i``: its last function renamed."""
+    last = DECLS - 1
+    return content.replace(f"function fn{i}_{last}(", f"function drv{i}_{last}(")
+
+
 def _reshape(content: str, name: str, new_name: str, new_return: str) -> str:
     """Renames the file's first function and changes its return type."""
     head, rest = content.split("\n", 1)
@@ -713,10 +790,12 @@ def _reshape(content: str, name: str, new_name: str, new_return: str) -> str:
 
 
 def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict,
-              stmt: dict | None = None) -> None:
+              stmt: dict | None = None, extras: dict | None = None) -> None:
     """A git repository with branches ``base``, ``side`` and ``other``
     (and ``stmt`` if given), each a commit on ``base``, ``side`` checked
-    out."""
+    out. ``extras`` ({branch: (start, {path: content})}, in order) adds
+    a commit per branch on its start that writes only those files, with
+    one ``git fast-import`` (no work tree is written for them)."""
     env = dict(os.environ, GIT_AUTHOR_DATE="2024-01-01T00:00:00Z",
                GIT_COMMITTER_DATE="2024-01-02T00:00:00Z",
                GIT_AUTHOR_NAME="smoke", GIT_AUTHOR_EMAIL="smoke@example.com",
@@ -745,6 +824,23 @@ def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict,
     if stmt is not None:
         git("checkout", "-q", "-b", "stmt", "base")
         commit(stmt, "stmt")
+    if extras:
+        stream = bytearray()
+
+        def data(payload: bytes) -> None:
+            stream.extend(b"data %d\n" % len(payload) + payload + b"\n")
+
+        for name, (start, files) in extras.items():
+            stream.extend(f"commit refs/heads/{name}\n"
+                          "author smoke <smoke@example.com> 1704067200 +0000\n"
+                          "committer smoke <smoke@example.com> 1704153600 +0000\n".encode())
+            data(name.encode())
+            stream.extend(f"from refs/heads/{start}\n".encode())
+            for path, text in files.items():
+                stream.extend(f"M 100644 inline {path}\n".encode())
+                data(text.encode())
+        subprocess.run(["git", "fast-import", "--quiet"], cwd=root, env=env, check=True,
+                       input=bytes(stream), stdout=subprocess.DEVNULL)
     git("checkout", "-q", "-b", "side", "base")
     commit(side, "side")
 
@@ -1006,6 +1102,197 @@ def check_compose(torch, result) -> dict:
             "sort_share": sort_ms / device_ms if device_ms else None}
 
 
+class GpuSampler:
+    """Samples the card's used memory (``cudaMemGetInfo``, the whole
+    device) every ``every`` seconds in a thread, from ``__enter__`` to
+    ``__exit__``: ``rise_mib`` is the most it rose above its level at the
+    start while this process allocated nothing. (``nvidia-smi``'s list of
+    compute processes cannot tell this process from another in a
+    container whose processes it lists as pid 1.)"""
+
+    def __init__(self, every: float = 0.5) -> None:
+        self.every, self.samples, self.rise_mib = every, 0, 0.0
+
+    def _used_mib(self) -> float:
+        import torch
+        free, total = torch.cuda.mem_get_info(0)
+        return (total - free) / 2**20
+
+    def __enter__(self):
+        import threading
+        self.baseline_mib = self._used_mib()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(self.every):
+                self.rise_mib = max(self.rise_mib, self._used_mib() - self.baseline_mib)
+                self.samples += 1
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def driver_starts(trace: pathlib.Path) -> list:
+    """Seconds each start of the port's driver took, from git's trace2
+    event log (``child_start`` / ``child_exit`` of ``git merge``)."""
+    started, seconds = {}, []
+    for line in trace.read_text().splitlines() if trace.is_file() else []:
+        event = json.loads(line)
+        key = (event.get("sid"), event.get("child_id"))
+        if event.get("event") == "child_start" and \
+                "semantic_merge_tpu_torch.driver" in " ".join(event.get("argv", [])):
+            started[key] = True
+        elif event.get("event") == "child_exit" and key in started:
+            seconds.append(float(event["t_rel"]))
+    return seconds
+
+
+#: The least rise of the card's used memory that counts as another
+#: process's CUDA context (a context takes several hundred MiB).
+CONTEXT_MIB = 100
+
+
+def run_driver_merge(repo: pathlib.Path, clone: pathlib.Path, ckpt: pathlib.Path,
+                     expected: dict, dirty: set, n_drv: int) -> dict:
+    """``git merge --no-ff drv`` on ``side`` in a clone of ``repo`` with
+    the port's merge driver registered for ``*.ts`` (in
+    ``.git/info/attributes``, so no tree changes) and the default engine
+    settings: git starts the driver once per file both branches changed,
+    and the first start runs the whole merge through the CLI
+    (``semmerge base side drv --inplace --git``: the fused engine).
+    Fails unless git exits 0 without degrading, the merge commit's tree
+    is ``expected`` ({path: content}), the work tree differs from it in
+    the paths ``dirty`` and no other (the engine writes its whole merged
+    tree in place, git commits its own merge of the files one side
+    changed), the driver's latch exists, the notes sit on both heads
+    (drv's: ``n_drv`` renames and their moves), git's trace2 log holds
+    ``n_drv`` starts of the driver, and a process other than this one
+    held a context on the card during the merge: the card's used memory
+    rose by at least :data:`CONTEXT_MIB` while this process allocated
+    nothing."""
+    subprocess.run(["git", "clone", "-q", "--shared", str(repo), str(clone)], check=True)
+
+    def git(*args, env=None):
+        return subprocess.run(["git", *args], cwd=clone, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+
+    git("checkout", "-q", "side")
+    git("branch", "-q", "drv", "origin/drv")
+    git("config", "user.email", "smoke@example.com")
+    git("config", "user.name", "smoke")
+    git("config", "merge.semmerge.driver", " ".join(
+        [sys.executable, "-m", "semantic_merge_tpu_torch.driver", "%O", "%A", "%B", "%P"]))
+    (clone / ".git" / "info").mkdir(exist_ok=True)
+    (clone / ".git" / "info" / "attributes").write_text("*.ts merge=semmerge\n")
+    write_config(clone, ckpt)
+    trace = clone.parent / "driver-trace2.jsonl"
+    trace.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO), GIT_TRACE2_EVENT=str(trace),
+               GIT_AUTHOR_DATE="2024-01-03T00:00:00Z", GIT_COMMITTER_DATE="2024-01-03T00:00:00Z")
+    heads = [git("rev-parse", rev).stdout.strip() for rev in ("side", "drv")]
+    t0 = time.perf_counter()
+    with GpuSampler() as sampler:
+        proc = git("merge", "--no-ff", "drv", "-m", "driver merge", env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"git merge through the driver exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    if "merge degrading" in proc.stderr:
+        fail(f"the driver's merge degraded to the text rung:\n{proc.stderr[-3000:]}")
+    parents = git("rev-list", "--parents", "-n", "1", "HEAD").stdout.split()[1:]
+    if parents != heads:
+        fail(f"HEAD is not the merge of side and drv (parents {parents})")
+    committed = _tree_blobs(clone, "HEAD")
+    if set(committed) != set(expected):
+        fail(f"the merge commit holds {len(committed)} files, expected {len(expected)}")
+    wrong = [p for p in sorted(expected) if committed[p] != expected[p].encode()]
+    if wrong:
+        fail(f"{len(wrong)} files of the merge commit differ from side's tree with drv's "
+             f"renames, e.g. {wrong[:3]}")
+    unlike_head = set(git("diff", "--name-only", "HEAD").stdout.split())
+    if unlike_head != dirty:
+        fail(f"{len(unlike_head)} work-tree files differ from the merge commit, expected the "
+             f"{len(dirty)} side retyped or added to; e.g. {sorted(unlike_head ^ dirty)[:3]}")
+    if not (clone / ".git" / ".semmerge.lock").is_file():
+        fail("the driver's latch .git/.semmerge.lock is missing")
+    note_ops = {}
+    for rev, sha in zip(("side", "drv"), heads):
+        note = git("notes", "--ref", "semmerge", "show", sha)
+        if note.returncode != 0:
+            fail(f"no semmerge note on {rev}")
+        note_ops[rev] = _counts_json(json.loads(note.stdout))
+    if note_ops["drv"] != {"moveDecl": n_drv, "renameSymbol": n_drv}:
+        fail(f"the note on drv holds {note_ops['drv']}, expected {n_drv} renames and moves")
+    starts = driver_starts(trace)
+    if len(starts) != n_drv:
+        fail(f"git's trace2 log holds {len(starts)} starts of the driver, expected {n_drv}")
+    out = {"git_wall_s": wall, "driver_starts": len(starts), "child_wall_s": max(starts),
+           "other_starts_s": sum(starts) - max(starts), "notes": note_ops,
+           "work_tree_files_unlike_head": len(unlike_head),
+           "card_used_rise_mib": sampler.rise_mib, "samples": sampler.samples}
+    if sampler.rise_mib < CONTEXT_MIB:
+        fail(f"no process other than this one held the card during the driver's merge: "
+             f"{json.dumps(out)}")
+    return out
+
+
+def _tree_blobs(root: pathlib.Path, rev: str) -> dict:
+    """{path: bytes} of every file of ``rev``'s tree, read with one
+    ``git cat-file --batch``."""
+    entries = [line.split("\t", 1) for line in subprocess.run(
+        ["git", "ls-tree", "-r", rev], cwd=root, check=True, stdout=subprocess.PIPE,
+        text=True).stdout.splitlines()]
+    shas = [meta.split()[2] for meta, _ in entries]
+    raw = subprocess.run(["git", "cat-file", "--batch"], cwd=root, check=True,
+                         input="\n".join(shas).encode() + b"\n",
+                         stdout=subprocess.PIPE).stdout
+    out, pos = {}, 0
+    for (_, path), sha in zip(entries, shas):
+        header_end = raw.index(b"\n", pos)
+        size = int(raw[pos:header_end].split()[2])
+        out[path] = raw[header_end + 1:header_end + 1 + size]
+        pos = header_end + 1 + size + 1
+    return out
+
+
+def _counts_json(ops) -> dict:
+    counts: dict = {}
+    for op in ops:
+        counts[op["type"]] = counts.get(op["type"], 0) + 1
+    return dict(sorted(counts.items()))
+
+
+def check_resolve_semmerge(work: pathlib.Path, merged, n_rsv: int) -> dict:
+    """The resolve merge of rsv_a and rsv_b: exit 0, one
+    ConcurrentStmtEdit per file both edited, each ``accepted``
+    (``merged3way``) in ``.semmerge-conflicts.json`` with every gate
+    passed, and both edits in every such file. Returns the gates' ms."""
+    if merged.code != 0:
+        fail(f"the resolve semmerge exited {merged.code}, expected 0")
+    payload = json.loads((work / ".semmerge-conflicts.json").read_text())
+    records = payload.get("resolutions", []) if isinstance(payload, dict) else []
+    if (len(payload.get("conflicts", [])) != n_rsv or len(records) != n_rsv
+            or {r["status"] for r in records} != {"accepted"}
+            or {r["category"] for r in records} != {"ConcurrentStmtEdit"}
+            or {r["candidate"]["id"] for r in records} != {"merged3way"}):
+        fail(f"expected {n_rsv} accepted ConcurrentStmtEdit resolutions, got "
+             f"{len(records)} records: {records[:1]}")
+    gates = records[0]["gates"]
+    if [g["gate"] for g in gates] != ["recompose", "parity", "typecheck", "format"] or \
+            not all(g["ok"] for g in gates):
+        fail(f"the verify gates did not all pass: {gates}")
+    for i in range(0, N_FILES, RSV_EVERY):
+        text = (work / "src" / f"mod{i:05d}.ts").read_text()
+        if f"n = n + {i};" not in text or "n = n * 4;" not in text:
+            fail(f"src/mod{i:05d}.ts does not hold both sides' edits")
+    return {g["gate"]: g["ms"] for g in gates}
+
+
 _SMALL_UTIL = "export function foo(n: number): number {\n  return n;\n}\n"
 _SMALL_G = "export function g(a: boolean, b: boolean): void {}\n"
 _SMALL_H = "export function h(s: string): string {\n  return s;\n}\n"
@@ -1013,6 +1300,9 @@ _BLOCK = "{ return s.trim(); }"
 _BIG = "export function big(s: string): string "
 _CALLER = "export function caller(s: string, n: number, b: boolean): string "
 _HELPER = "export function helper(s: string, n: number): string "
+_SMALL_USE = "export function use(s: string): number {{\n  return {}(s.length);\n}}\n"
+_SMALL_CALC = ("export function calc(n: number): number {\n  n = n + 1;\n  n = n * 2;\n"
+               "  return n;\n}\n")
 #: name → (flags, extra files {path: (base, side, other)}, other's tree,
 #: exit code, path taken). The side renames foo to bar and edits line 2
 #: of the README; an extra file's None is no file. In the third case the
@@ -1021,8 +1311,12 @@ _HELPER = "export function helper(s: string, n: number): string "
 #: for the two-program path, whose compose walks the DivergentRename on
 #: the host. The strict cases run no fused engine: build-and-diff, the
 #: strict detection and the compose (which finds nothing left to walk).
-#: In the last one, the side extracts big's block into a new function
-#: and the other inlines helper, whose block is the same, into caller.
+#: In the last strict one, the side extracts big's block into a new
+#: function and the other inlines helper, whose block is the same, into
+#: caller. The resolve cases run the resolution tier: the side's rename
+#: has a reference beside it and wins (2 references against 1), the same
+#: renames without it tie (exit 1), and disjoint edits of one body merge
+#: line by line under --strict-conflicts.
 SMALL_MERGES = {
     "divergent_rename": ([], {}, {"src/util.ts": _SMALL_UTIL.replace("foo", "baz"),
                                   "README.md": README}, 1, "fused"),
@@ -1053,6 +1347,19 @@ SMALL_MERGES = {
          "src/caller.ts": (_CALLER + "{ return helper(s, 0); }\n",
                            _CALLER + "{ return helper(s, 0); }\n", _CALLER + _BLOCK + "\n")},
         {"src/util.ts": _SMALL_UTIL, "README.md": README}, 1, "strict"),
+    "resolve_divergent_rename": (
+        ["--resolve", "auto"],
+        {"src/use.ts": (_SMALL_USE.format("foo"), _SMALL_USE.format("bar"),
+                        _SMALL_USE.format("foo"))},
+        {"src/util.ts": _SMALL_UTIL.replace("foo", "baz"), "README.md": README}, 0, "fused"),
+    "resolve_symmetric_tie": (
+        ["--resolve", "auto"], {},
+        {"src/util.ts": _SMALL_UTIL.replace("foo", "baz"), "README.md": README}, 1, "fused"),
+    "resolve_strict_stmt_edit": (
+        ["--strict-conflicts", "--resolve", "auto"],
+        {"src/calc.ts": (_SMALL_CALC, _SMALL_CALC.replace("n + 1;", "n + 3;"),
+                         _SMALL_CALC.replace("n * 2;", "n * 4;"))},
+        {"src/util.ts": _SMALL_UTIL, "README.md": README}, 0, "strict"),
 }
 #: Path taken → (fused engine runs, two-program composes, host walks).
 SMALL_PATH_CALLS = {"fused": (1, 0, 0), "two-program": (1, 1, 1), "strict": (0, 1, 0)}
@@ -1060,6 +1367,23 @@ SMALL_PATH_CALLS = {"fused": (1, 0, 0), "two-program": (1, 1, 1), "strict": (0, 
 SMALL_STRICT_CATEGORY = {"strict_delete_vs_edit": "DeleteVsEdit",
                          "strict_concurrent_stmt_edit": "ConcurrentStmtEdit",
                          "strict_extract_vs_inline": "ExtractVsInline"}
+#: Each resolve case's one resolution record: (category, status, cause).
+SMALL_RESOLVE = {"resolve_divergent_rename": ("DivergentRename", "accepted", None),
+                 "resolve_symmetric_tie": ("DivergentRename", "rejected", "tie"),
+                 "resolve_strict_stmt_edit": ("ConcurrentStmtEdit", "accepted", None)}
+
+
+def _gate_ms_masked(tree: dict) -> dict:
+    """``tree`` with the verify gates' wall times in its conflicts
+    artifact set to 0 (they differ between any two runs)."""
+    raw = tree.get(".semmerge-conflicts.json")
+    payload = json.loads(raw) if raw is not None else None
+    if not isinstance(payload, dict):
+        return tree
+    for rec in payload.get("resolutions", []):
+        for gate in rec.get("gates", []):
+            gate["ms"] = 0
+    return dict(tree, **{".semmerge-conflicts.json": json.dumps(payload).encode()})
 
 
 def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
@@ -1067,8 +1391,9 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
     its repository, on the card and with ``--device cpu``: the exit
     code, the work tree (with ``.semmerge-conflicts.json``) and the notes
     on both sides must be identical. Each merge must take the path
-    ``SMALL_MERGES`` names (``SMALL_PATH_CALLS``), and each strict merge
-    report its category."""
+    ``SMALL_MERGES`` names (``SMALL_PATH_CALLS``), each strict merge
+    report its category and each resolve merge its resolution (the
+    gates' wall times masked in the comparison)."""
     from semantic_merge_tpu_torch import cli
     from semantic_merge_tpu_torch.backends.ts_torch import TorchTSBackend
     from semantic_merge_tpu_torch.ops import compose
@@ -1115,7 +1440,7 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
                                     cwd=copy, stdout=subprocess.PIPE,
                                     stderr=subprocess.DEVNULL).stdout
                      for rev in ("side", "other")]
-            outcome[device] = (code, tree, notes)
+            outcome[device] = (code, _gate_ms_masked(tree), notes)
         if outcome["cuda"][0] != expect:
             fail(f"small merge {name}: exit {outcome['cuda'][0]} on the card, expected {expect}")
         if outcome["cuda"] != outcome["cpu"]:
@@ -1124,6 +1449,13 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
             artifact = json.loads(outcome["cuda"][1][".semmerge-conflicts.json"])
             if SMALL_STRICT_CATEGORY[name] not in [c["category"] for c in artifact]:
                 fail(f"small merge {name}: no {SMALL_STRICT_CATEGORY[name]} conflict")
+        if name in SMALL_RESOLVE:
+            artifact = json.loads(outcome["cuda"][1][".semmerge-conflicts.json"])
+            records = [(r["category"], r["status"], r["cause"])
+                       for r in artifact["resolutions"]]
+            if records != [SMALL_RESOLVE[name]]:
+                fail(f"small merge {name}: resolutions {records}, expected "
+                     f"[{SMALL_RESOLVE[name]}]")
         codes[name] = f"exit {expect}, {path} path"
     return codes
 
@@ -1219,9 +1551,10 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         repo, ckpt, fused_tree = WORK / "repo", WORK / "ckpt", WORK / "fused"
-        strict_tree = WORK / "strict"
+        strict_tree, rsv_tree = WORK / "strict", WORK / "resolve"
         trees = synth_trees(N_FILES, DECLS, N_RETYPED)
-        make_repo(repo, *trees)
+        extras = extra_branches(trees[0])
+        make_repo(repo, *trees, extras=extras)
         encoder = Encoder(EncoderConfig(), generator=torch.Generator().manual_seed(0))
         save_matcher_checkpoint(ckpt, encoder.state_dict())
         config = write_config(repo, ckpt)
@@ -1229,7 +1562,11 @@ def main() -> int:
               f"{(N_FILES + 1) // 2} renames, {N_RETYPED} renamed+retyped, README line 2; "
               f"other (B): {(N_FILES + 3) // 4} files moved src/ -> lib/, {N_RETYPED} other "
               f"files renamed+retyped, README line 19; stmt: {len(range(0, N_FILES, 3))} "
-              f"body edits of fn<i>_{DECLS - 1}; matcher checkpoint: the port's "
+              f"body edits of fn<i>_{DECLS - 1}; drv: {len(extras['drv'][1])} renames of "
+              f"fn<i>_{DECLS - 1} (every {DRV_EVERY}th file); rsv_base: "
+              f"{len(extras['rsv_base'][1])} three-line bodies of fn<i>_{DECLS - 1} (every "
+              f"{RSV_EVERY}th file), rsv_a / rsv_b: an edit of line 1 / line 2 of each; "
+              "matcher checkpoint: the port's "
               "seeded init (seed 0), UNTRAINED random weights; .semmerge.toml: "
               + config.replace("\n", "; "), flush=True)
         t = phase("repo", t)
@@ -1320,6 +1657,9 @@ def main() -> int:
                     union[shape] = union.get(shape, 0) + n
             return union
 
+        # Timed before the driver's and the resolve merges: after longer
+        # traced runs torch.profiler kept no kernel records (PERF.md §6).
+        # Neither of those merges launches a hand kernel in this process.
         rows = [check_kernels(torch, path_shapes("flash_chunk")),
                 check_sha256(torch, path_shapes("sha256"), clock_mhz * 1e6,
                              sass["sha256"])]
@@ -1330,6 +1670,43 @@ def main() -> int:
                               "fused diff program": diff_program.last,
                               "render program (A)": render_program.first})
         t = phase("kernels", t)
+
+        # The merge driver: git merge in a clone; the driver's first start
+        # runs the CLI in a child process on the card.
+        expected = dict(trees[1])
+        for path in extras["drv"][1]:
+            expected[path] = drv_rename(expected[path], int(path[len("src/mod"):-len(".ts")]))
+        dirty = {path for path, text in trees[1].items()
+                 if "function added" in text or "function reshaped" in text}
+        drv = run_driver_merge(repo, WORK / "driver", ckpt, expected, dirty,
+                               len(extras["drv"][1]))
+        print(f"driver merge: git merge --no-ff drv on side, {drv['driver_starts']} driver "
+              f"starts, git wall {drv['git_wall_s']:.3f} s, the CLI child's start "
+              f"{drv['child_wall_s']} s, the other starts {drv['other_starts_s']} s in all; "
+              f"{json.dumps(drv)}", flush=True)
+        t = phase("driver merge", t)
+
+        # The resolution tier, in a fourth work tree: one ConcurrentStmtEdit
+        # per file both rsv branches edited, each merged line by line.
+        # (Strict mode: the parity compose's cursor walk reports only the
+        # divergent renames whose heads meet, so a merge of many of them
+        # cannot resolve; see PERF.md.) No fused engine, so no sha256.
+        subprocess.run(["git", "worktree", "add", "-q", "--detach", str(rsv_tree), "rsv_a"],
+                       cwd=repo, check=True)
+        write_config(rsv_tree, ckpt)
+        merged, launches, shapes, wall, busy = run_cli(
+            torch, rsv_tree, ["semmerge", "rsv_base", "rsv_a", "rsv_b", "--inplace",
+                              "--strict-conflicts", "--resolve", "auto"])
+        expect_launches("resolve semmerge", launches, {"flash_chunk": 0, "sha256": 0})
+        n_rsv = len(extras["rsv_a"][1])
+        gates = check_resolve_semmerge(rsv_tree, merged, n_rsv)
+        print(f"resolve semmerge: {n_rsv} ConcurrentStmtEdit conflicts, each accepted "
+              f"(merged3way); resolve phase {merged.phases['resolve']:.4f} s; gates (ms) "
+              f"{json.dumps(gates)}; launches {launches}", flush=True)
+        runs["resolve_semmerge"] = (launches, shapes)
+        for row in rows:
+            row["launches"]["resolve_semmerge"] = launches.get(row["name"], 0)
+        t = phase("resolve semmerge", t)
 
         emb_err = check_reference(torch, ckpt)
         print(f"reference: small-input op log identical on card and CPU; "

@@ -32,7 +32,8 @@ does:
 
 It also reads three keys only to refuse values it does not implement
 (:func:`refused_settings`): ``[engine] backend``, ``[engine] mesh`` and
-``[languages.<name>] enabled``. Every other key leaves the output
+``[languages.<name>] enabled``, and refuses the environment postures
+of :func:`refused_environment`. Every other key leaves the output
 unchanged; ``cli.py``'s docstring says why for each.
 """
 from __future__ import annotations
@@ -160,12 +161,20 @@ def refused_settings(config: Config, command: str) -> List[str]:
         refused.append("SEMMERGE_MESH=require")
     elif not mesh_env and config.engine.mesh == "require":
         refused.append('[engine] mesh = "require"')
-    if command == "semmerge":
-        resolve = (os.environ.get("SEMMERGE_RESOLVE") or "").strip().lower()
-        if resolve in ("auto", "require"):
-            refused.append(f"SEMMERGE_RESOLVE={resolve}")
-        if (os.environ.get("SEMMERGE_BATCH") or "").strip().lower() == "require":
-            refused.append("SEMMERGE_BATCH=require")
+    return refused + refused_environment(command)
+
+
+def refused_environment(command: str) -> List[str]:
+    """The environment postures the port cannot honour for ``command``
+    (``semdiff``, ``semmerge`` or ``semrebase``): ``SEMMERGE_DAEMON=require``
+    (there is no merge service daemon; ``off`` and ``auto`` run
+    one-shot) and, for ``semmerge``, ``SEMMERGE_BATCH=require``."""
+    refused = []
+    if (os.environ.get("SEMMERGE_DAEMON") or "").strip().lower() == "require":
+        refused.append("SEMMERGE_DAEMON=require")
+    if command == "semmerge" and \
+            (os.environ.get("SEMMERGE_BATCH") or "").strip().lower() == "require":
+        refused.append("SEMMERGE_BATCH=require")
     return refused
 
 

@@ -11,17 +11,35 @@ conflict record lives here too.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from .ids import stable_hash_hex
 from .ops import Op
 
 
-def conflicts_payload(conflicts: Sequence) -> List[Dict[str, Any]]:
-    """The JSON payload of ``.semmerge-conflicts.json``: the bare array
-    of conflict records (the JAX package's form when its resolution
-    tier did not run, byte-identical to the reference's)."""
-    return [c.to_dict() if hasattr(c, "to_dict") else c for c in conflicts]
+#: Version of the structured ``.semmerge-conflicts.json`` shape (the
+#: object form carrying a ``resolutions`` audit block). The bare array,
+#: written whenever the resolution tier did not run, is implicitly
+#: version 1 and stays byte-identical to the reference's.
+CONFLICTS_SCHEMA_VERSION = 2
+
+
+def conflicts_payload(conflicts: Sequence,
+                      resolutions: Optional[Sequence[dict]] = None):
+    """The JSON payload of ``.semmerge-conflicts.json``.
+
+    ``resolutions=None`` (the tier never ran) keeps the bare array of
+    conflict records; when the tier ran, the versioned object form with
+    the audit trail, rejected proposals included (the JAX package's
+    ``core/conflict.py::conflicts_payload``)."""
+    rows = [c.to_dict() if hasattr(c, "to_dict") else c for c in conflicts]
+    if resolutions is None:
+        return rows
+    return {
+        "schema_version": CONFLICTS_SCHEMA_VERSION,
+        "conflicts": rows,
+        "resolutions": list(resolutions),
+    }
 
 
 @dataclass

@@ -25,6 +25,7 @@ Differences from the reference, by design:
 """
 from __future__ import annotations
 
+import copy
 import json
 import uuid
 from dataclasses import dataclass, field
@@ -161,6 +162,11 @@ class Op:
 
     def pretty(self) -> str:
         return f"{self.type} {self.target.symbolId} {self.params}"
+
+    def clone(self) -> "Op":
+        """An independent deep copy, safe to mutate (the resolution
+        tier's rewritten ops)."""
+        return copy.deepcopy(self)
 
     def sort_key(self) -> tuple[int, str, str]:
         """The canonical composition sort key

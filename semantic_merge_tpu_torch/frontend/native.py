@@ -17,7 +17,8 @@ it) into ``_build/``, named by a hash of the source and the flags; the
 compiler writes a temporary name that is then renamed, so processes
 that build at once never load a half-written library. A library that
 cannot be built or loaded, or whose ABI differs, raises
-:class:`~semantic_merge_tpu_torch.errors.ParseFault`: the scan never
+:class:`~semantic_merge_tpu_torch.errors.NativeBuildFault` (a
+``ParseFault``, exit 10, that the CLI never degrades): the scan never
 falls back to Python because the library is missing.
 """
 from __future__ import annotations
@@ -33,7 +34,7 @@ import threading
 import time
 from typing import List, Optional, Sequence
 
-from ..errors import ParseFault
+from ..errors import NativeBuildFault, ParseFault
 from .scanner import DeclNode
 
 FRONTEND_DIR = pathlib.Path(__file__).resolve().parent
@@ -57,14 +58,14 @@ def library_path() -> pathlib.Path:
 def build() -> float:
     """Compile the library unless the current one exists; returns the
     seconds the compile took (0.0 when nothing was built). Raises
-    :class:`ParseFault` when there is no ``g++`` or it fails."""
+    :class:`NativeBuildFault` when there is no ``g++`` or it fails."""
     out = library_path()
     if out.is_file():
         return 0.0
     cxx = shutil.which("g++")
     if cxx is None:
-        raise ParseFault("native scanner: no C++ compiler (g++) on PATH", stage="scan",
-                         cause="no-compiler")
+        raise NativeBuildFault("native scanner: no C++ compiler (g++) on PATH",
+                               stage="scan", cause="no-compiler")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
@@ -73,12 +74,12 @@ def build() -> float:
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True, timeout=300)
         if proc.returncode != 0:
-            raise ParseFault(f"native scanner: g++ exit {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}", stage="scan", cause="build")
+            raise NativeBuildFault(f"native scanner: g++ exit {proc.returncode}\n"
+                                   f"{proc.stdout[-2000:]}", stage="scan", cause="build")
         os.replace(tmp, out)
     except (OSError, subprocess.TimeoutExpired) as exc:
-        raise ParseFault(f"native scanner: build failed: {exc}", stage="scan",
-                         cause=type(exc).__name__) from exc
+        raise NativeBuildFault(f"native scanner: build failed: {exc}", stage="scan",
+                               cause=type(exc).__name__) from exc
     finally:
         tmp.unlink(missing_ok=True)
     return time.perf_counter() - t0
@@ -86,26 +87,26 @@ def build() -> float:
 
 def _load() -> ctypes.CDLL:
     """The loaded library, built first if needed; a failure raises
-    :class:`ParseFault`, now and on every later call."""
+    :class:`NativeBuildFault`, now and on every later call."""
     global _lib, _error
     with _lock:
         if _lib is not None:
             return _lib
         if _error is not None:
-            raise ParseFault(_error, stage="scan", cause="native")
+            raise NativeBuildFault(_error, stage="scan", cause="native")
         try:
             build()
             lib = ctypes.CDLL(str(library_path()))
             lib.smn_abi_version.restype = ctypes.c_int
             if lib.smn_abi_version() != _ABI_VERSION:
-                raise ParseFault(f"native scanner ABI {lib.smn_abi_version()} != "
-                                 f"expected {_ABI_VERSION}", stage="scan", cause="abi")
+                raise NativeBuildFault(f"native scanner ABI {lib.smn_abi_version()} != "
+                                       f"expected {_ABI_VERSION}", stage="scan", cause="abi")
         except ParseFault as exc:
             _error = str(exc)
             raise
         except OSError as exc:
             _error = f"native scanner: load failed: {exc}"
-            raise ParseFault(_error, stage="scan", cause="load") from exc
+            raise NativeBuildFault(_error, stage="scan", cause="load") from exc
         for fn in (lib.smn_scan_snapshot, lib.smn_scan_with_names):
             fn.restype = ctypes.c_void_p
             fn.argtypes = [ctypes.POINTER(ctypes.c_char_p),

@@ -157,13 +157,17 @@ def scan_snapshot_keyed(files: Sequence[dict], *, cache: DeclCache | None = None
     ASCII-safe; without it the Python scanner does. ``stats`` collects
     what ran. A failure is a
     :class:`~semantic_merge_tpu_torch.errors.ParseFault`, a native
-    library that cannot be built included."""
+    library that cannot be built included (a
+    :class:`~semantic_merge_tpu_torch.errors.NativeBuildFault`), and so
+    is what the ``scan`` fault-injection stage raises."""
     from ..errors import ParseFault
+    from ..utils import faults
     from .declcache import global_cache
     cache = global_cache() if cache is None else cache
     stats = stats if stats is not None else ScanStats()
     hits0, misses0 = cache.hits, cache.misses
     try:
+        faults.check("scan")
         keyed = _scan_snapshot_cached(files, cache, native, stats)
     except ParseFault:
         raise

@@ -282,3 +282,15 @@ def compose_oplogs_device(delta_a: List[Op], delta_b: List[Op],
             out = _merge_and_scan(a, b, ta.n, tb.n, drop_t[:na], drop_t[na:],
                                   candidates, n_ts, n_id).cpu().numpy()
     return decode_compose_output(out, delta_a, delta_b, interner, pairs)
+
+
+def recompose_resolved(delta_a: List[Op], delta_b: List[Op],
+                       device: str | torch.device | None = None
+                       ) -> Tuple[List[Op], List[Conflict]]:
+    """Re-compose entry of the conflict-resolution tier
+    (:mod:`semantic_merge_tpu_torch.resolve.engine`): compose the two
+    op streams a resolution rewrote (conflicting ops dropped or
+    replaced). The JAX package composes them with its host composer;
+    this runs :func:`compose_oplogs_device` on ``device``, with the same
+    bytes. The streams are plain object lists at this point."""
+    return compose_oplogs_device(list(delta_a), list(delta_b), device)

@@ -61,6 +61,7 @@ from ..core.encode import (NULL_ID, PAD_ID, DeclTensor, Interner, bucket_size,
                            pad_to, shard_ranges)
 from ..core.ids import op_id_prefix_digest, value_digest10
 from ..core.ops import dumps_canonical
+from ..utils import faults
 from .compose import _PAD_PREC, _rename_candidates_cols, _seg_last_valid
 from .diff import KIND_ADD, KIND_DELETE, KIND_MOVE, KIND_RENAME, _diff_plan
 from .oplog_view import (ComposedOpView, OpStreamView, _get_fields,
@@ -581,7 +582,9 @@ class FusedMergeEngine:
         sharded (:class:`TailPlan`): chain decode and op materialization
         run per row range, pre-submitted to the worker pool when it has
         more than one worker and core. The op logs render on the device
-        when eligible (:mod:`.render`)."""
+        when eligible (:mod:`.render`). The ``kernel`` fault-injection
+        stage fires before the dispatch."""
+        faults.check("kernel")
         t0 = time.perf_counter()
         hash_tab = self.strings.sync()
         dig_l = self._digest(seed + "/L", base_rev)

@@ -39,6 +39,7 @@ from typing import Iterable, Set
 import numpy as np
 
 from ..core.ops import Op
+from ..utils import faults
 
 logger = logging.getLogger(__name__)
 
@@ -47,7 +48,9 @@ def apply_ops(base_tree: pathlib.Path, ops: Iterable[Op]) -> pathlib.Path:
     """Apply composed ops to a copy of ``base_tree``; returns the copy
     (a new temporary directory the caller removes). A column-backed
     composed view takes the columnar loop, anything else (and anything
-    under ``SEMMERGE_OBJECT_APPLY=1``) the object loop."""
+    under ``SEMMERGE_OBJECT_APPLY=1``) the object loop. The ``apply``
+    fault-injection stage fires first."""
+    faults.check("apply")
     view = _columnar_view(ops)
     if view is not None and not _object_apply_forced():
         return _apply_columnar(pathlib.Path(base_tree), view)

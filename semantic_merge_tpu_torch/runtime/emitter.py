@@ -18,6 +18,7 @@ import subprocess
 from typing import Sequence
 
 from ..errors import DeadlineFault
+from ..utils import faults
 from ..utils.procs import env_seconds, run_with_deadline
 
 logger = logging.getLogger(__name__)
@@ -63,7 +64,9 @@ def emit_files(tree_path: pathlib.Path,
     The formatter runs under a process-group deadline
     (``SEMMERGE_FORMAT_TIMEOUT`` seconds, default 300): a wedged
     prettier is killed — whole process group, npx children included —
-    and logged; per [FBK-003] even a deadline never fails the merge."""
+    and logged; per [FBK-003] even a deadline never fails the merge. The
+    ``emit`` fault-injection stage fires first."""
+    faults.check("emit")
     tree_path = pathlib.Path(tree_path)
     base_cmd = list(formatter_cmd) if formatter_cmd else list(DEFAULT_FORMATTER)
     if paths is not None:

@@ -70,6 +70,12 @@ def temp_tree(tar_bytes: bytes) -> Iterator[pathlib.Path]:
         shutil.rmtree(tmpdir, ignore_errors=True)
 
 
+def checkout_tree_to_temp(rev: str, cwd: pathlib.Path | None = None) -> pathlib.Path:
+    """Materialize ``rev`` into a new temporary directory (the caller
+    removes it): ``semrebase`` replays an op log onto it."""
+    return extract_tree_to_temp(archive_bytes(rev, cwd=cwd))
+
+
 def snapshot_from_bytes(tar_bytes: bytes) -> Snapshot:
     """Parse archive bytes into a Snapshot of the source files, sorted
     by path."""

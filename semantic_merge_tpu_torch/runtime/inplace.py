@@ -55,6 +55,7 @@ import time
 from typing import Iterable, Iterator, List, Tuple
 
 from ..errors import ApplyFault
+from ..utils import faults
 from ..utils.procs import env_seconds
 
 logger = logging.getLogger(__name__)
@@ -183,7 +184,8 @@ def _safe_rel(rel: str) -> pathlib.PurePosixPath:
 
 def commit_tree_inplace(tree: pathlib.Path, deletes: Iterable[str] = (),
                         root: pathlib.Path | None = None) -> None:
-    """Publish ``tree`` into ``root`` (default cwd) crash-safely."""
+    """Publish ``tree`` into ``root`` (default cwd) crash-safely. The
+    ``commit`` fault-injection stage fires once the journal is written."""
     tree = pathlib.Path(tree)
     root = pathlib.Path(root) if root is not None else pathlib.Path.cwd()
     stage = root / STAGE_DIR
@@ -206,6 +208,7 @@ def commit_tree_inplace(tree: pathlib.Path, deletes: Iterable[str] = (),
                            for d in deletes}),
     }
     _write_journal(root, journal)
+    faults.check("commit")
     _roll_forward(root, journal)
 
 

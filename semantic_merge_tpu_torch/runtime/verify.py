@@ -1,6 +1,8 @@
 """Post-merge verification (reference ``semmerge/verify.py``).
 
-The port's copy of the JAX package's ``runtime/verify.py::typecheck_ts``.
+The port's copy of the JAX package's ``runtime/verify.py``:
+``typecheck_ts`` and the resolution tier's parity audit
+``untouched_parity``.
 
 Type-checks the merged tree with ``tsc --noEmit``. A missing toolchain
 passes vacuously — the documented graceful-degradation contract
@@ -24,7 +26,7 @@ import logging
 import pathlib
 import re
 import subprocess
-from typing import List, Optional, Tuple
+from typing import FrozenSet, List, Optional, Set, Tuple
 
 from ..utils.procs import env_seconds, run_with_deadline
 
@@ -62,3 +64,31 @@ def typecheck_ts(tree_path: pathlib.Path, *,
         return True, []
     return False, lines
 
+
+def _file_set(tree: pathlib.Path) -> Set[str]:
+    return {p.relative_to(tree).as_posix()
+            for p in tree.rglob("*") if p.is_file()}
+
+
+def untouched_parity(tree_a: pathlib.Path, tree_b: pathlib.Path, *,
+                     exclude: FrozenSet[str] | Set[str] = frozenset(),
+                     ) -> List[str]:
+    """Byte-parity audit of two trees outside an excluded footprint —
+    the resolution tier's never-worse gate: everything a resolution did
+    *not* claim to touch must be identical to the conflict-free merge.
+
+    Returns the sorted tree-relative (posix) paths that differ —
+    present on one side only, or byte-unequal — excluding ``exclude``;
+    an empty list means parity holds."""
+    tree_a, tree_b = pathlib.Path(tree_a), pathlib.Path(tree_b)
+    excluded = set(exclude)
+    mismatched: List[str] = []
+    for rel in sorted(_file_set(tree_a) | _file_set(tree_b)):
+        if rel in excluded:
+            continue
+        fa, fb = tree_a / rel, tree_b / rel
+        if not (fa.is_file() and fb.is_file()):
+            mismatched.append(rel)
+        elif fa.read_bytes() != fb.read_bytes():
+            mismatched.append(rel)
+    return mismatched

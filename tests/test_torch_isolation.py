@@ -5,10 +5,12 @@
   (checked on the syntax tree, so imports inside functions count).
 - Importing every module of the port leaves ``jax`` and the JAX package
   out of ``sys.modules``.
-- The strict, statement-op and native-scan modules are among them; the
+- The strict, statement-op, native-scan and git-facing modules
+  (faults, ladder, resolution tier, driver) are among them; the merge
+  driver imports the standard library only; the
   native scanner is the port's own build of its own copy of the C++
   source, never the JAX package's ``native/`` library.
-- Without a CUDA device the CLI (without ``--device cpu``) and
+- Without a CUDA device the CLI's three commands (without ``--device cpu``) and
   ``chip_smoke.py`` exit non-zero and say why; neither carries on on
   the CPU, ``semmerge`` leaves the work tree as it was, and the smoke
   test prints no result.
@@ -75,6 +77,29 @@ def test_strict_and_scan_modules_are_checked_and_stand_alone(module):
     assert (PORT / "frontend" / "semmerge_native.cpp").is_file()
 
 
+#: The modules of the git-facing slice (fault taxonomy and injection, the
+#: CLI's ladder, the resolution tier, the merge driver): each checked
+#: above.
+GIT_SLICE_MODULES = ("errors.py", "utils/faults.py", "cli.py", "driver.py",
+                     "resolve/__init__.py", "resolve/base.py", "resolve/search.py",
+                     "resolve/engine.py", "runtime/verify.py", "ops/compose.py")
+
+
+@pytest.mark.parametrize("module", GIT_SLICE_MODULES)
+def test_git_slice_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_driver_imports_the_standard_library_only():
+    # Git starts the driver once per conflicted file: no torch, no numpy.
+    roots = _imported_roots(PORT / "driver.py")
+    assert roots <= set(sys.stdlib_module_names) | {"__future__"}, roots
+    package_init = PORT / "__init__.py"
+    assert _imported_roots(package_init) <= set(sys.stdlib_module_names)
+
+
 @pytest.mark.skipif(shutil.which("g++") is None, reason="no C++ compiler (g++) on PATH")
 def test_native_library_comes_from_the_port_build_dir():
     # The JAX package's own library (native/) may sit built beside it;
@@ -121,7 +146,7 @@ def _tree_state(root):
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
-@pytest.mark.parametrize("command,code", [("semdiff", 2), ("semmerge", 11)])
+@pytest.mark.parametrize("command,code", [("semdiff", 2), ("semmerge", 11), ("semrebase", 11)])
 def test_cli_without_cuda_fails_clearly(tmp_path, command, code):
     # semmerge exits with the KernelFault code (never 2, "type errors")
     # before it reads a revision or touches the work tree.
@@ -134,7 +159,8 @@ def test_cli_without_cuda_fails_clearly(tmp_path, command, code):
         subprocess.run(["git", *args], cwd=repo, check=True)
     before = _tree_state(repo)
     argv = {"semdiff": ["HEAD", "HEAD", "--json-out"],
-            "semmerge": ["HEAD", "HEAD", "HEAD", "--inplace"]}[command]
+            "semmerge": ["HEAD", "HEAD", "HEAD", "--inplace"],
+            "semrebase": ["HEAD", "HEAD", "--inplace"]}[command]
     out = subprocess.run([sys.executable, "-m", "semantic_merge_tpu_torch", command, *argv],
                          env=_env(), cwd=repo, stdout=subprocess.PIPE,
                          stderr=subprocess.PIPE, text=True, timeout=120)

@@ -456,8 +456,10 @@ REFUSED = {
                            "[engine] backend = 'subprocess'"),
     "mesh_require": ('[engine]\nmesh = "require"\n', {}, '[engine] mesh = "require"'),
     "env_mesh_require": ("", {"SEMMERGE_MESH": "require"}, "SEMMERGE_MESH=require"),
-    "resolve_auto": ("", {"SEMMERGE_RESOLVE": "auto"}, "SEMMERGE_RESOLVE=auto"),
-    "resolve_require": ("", {"SEMMERGE_RESOLVE": "require"}, "SEMMERGE_RESOLVE=require"),
+    "daemon_require": ("", {"SEMMERGE_DAEMON": "require"}, "SEMMERGE_DAEMON=require"),
+    "daemon_require_with_resolve": ("", {"SEMMERGE_DAEMON": "require",
+                                         "SEMMERGE_RESOLVE": "auto"},
+                                    "SEMMERGE_DAEMON=require"),
     "batch_require": ("", {"SEMMERGE_BATCH": "require"}, "SEMMERGE_BATCH=require"),
 }
 
@@ -482,7 +484,7 @@ def test_refused_setting_exits_before_touching_the_tree(tmp_path, monkeypatch, c
     (repo / ".semmerge-stage" / "src").mkdir(parents=True)
     (repo / ".semmerge-stage" / "src" / "f.ts").write_text("staged\n")
     before, status = _tree_bytes(repo), _git_status(repo)
-    for key in ("SEMMERGE_MESH", "SEMMERGE_RESOLVE", "SEMMERGE_BATCH"):
+    for key in ("SEMMERGE_MESH", "SEMMERGE_RESOLVE", "SEMMERGE_BATCH", "SEMMERGE_DAEMON"):
         monkeypatch.delenv(key, raising=False)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
@@ -493,7 +495,7 @@ def test_refused_setting_exits_before_touching_the_tree(tmp_path, monkeypatch, c
     assert code == 70
     assert named in err and "UnsupportedSetting" in err
     assert _tree_bytes(repo) == before and _git_status(repo) == status
-    if not name.startswith(("resolve", "batch")):  # semdiff refuses them too
+    if not name.startswith("batch"):  # semdiff refuses them too
         assert cli.main(["semdiff", "basebr", "branch-a", "--device", "cpu"]) == 70
 
 
