@@ -25,7 +25,7 @@ Phases, each fatal on failure, each printing its seconds:
    function of 256 other files, the other branch moves every 4th file
    to ``lib/``, the stmt branch edits the body of the last function of
    every 3rd file, the drv branch renames the last function of every
-   20th file (500), and
+   40th file (250), and
    rsv_base gives the last function of every 10th file (1,000) a
    three-line body whose first line rsv_a edits and whose second rsv_b
    edits; a matcher checkpoint from the port's seeded (untrained)
@@ -80,16 +80,33 @@ Phases, each fatal on failure, each printing its seconds:
    only); the bound from this run's shapes. Then the fused merge and
    diff programs and the render program, on the inputs the fused paths
    gave them: device time, kernels and host time per call.
+5b. trace (in-process, no profiler of this script around it): ``semmerge
+   base side other --inplace --trace --profile DIR`` in a fifth work
+   tree at side: exit 0, the tree and both notes equal the untraced
+   fused semmerge's (phase 4), as many ``sha256`` launches (4, from a
+   cold engine), ``.semmerge-trace.json``, ``.semmerge-events.jsonl``
+   and ``DIR/semmerge-trace.json`` pass ``scripts/check_trace_schema.py``
+   (``validate_trace``, ``validate_events``) with ``platform`` ``gpu``
+   and the card's name in the device block, the span tree holds
+   ``fused_merge``, ``apply_columnar`` and ``inplace_commit``, the
+   profile in DIR holds one ``sha256`` kernel record per launch and a
+   ``semmerge/<phase>`` range per CLI phase, and no profiler capture
+   failed; then ``semdiff base side --json-out --change-signature
+   --signature-matcher --profile DIR2``: 8 ``flash_chunk`` launches and
+   8 records in its profile, its phase ranges, a valid
+   ``DIR2/semmerge-trace.json``. Prints the traced merge's wall beside
+   the untraced one's and each profile's size.
 6. driver merge (not in-process): ``git merge --no-ff drv`` on side in
    a clone, with ``python -m semantic_merge_tpu_torch.driver %O %A %B
    %P`` registered as ``merge.semmerge.driver`` for ``*.ts`` in
    ``.git/info/attributes`` and the default engine settings (the fused
    engine): git exits 0 without degrading, the merge commit's tree is
-   side's with drv's 500 renames, the work tree differs from it in
-   exactly the files that side retyped or added a function to (the
-   engine's in-place tree, as the JAX driver leaves it), the latch
-   exists, notes sit on both heads (drv's: 500 renames and their 500
-   moves), git started the driver 500 times (its trace2 log, required),
+   side's with drv's 250 renames, the work tree differs from it in
+   exactly the files that side retyped or added a function to (354 at
+   rung5, whatever drv renames: the engine's in-place tree, as the JAX
+   driver leaves it), the latch
+   exists, notes sit on both heads (drv's: 250 renames and their 250
+   moves), git started the driver 250 times (its trace2 log, required),
    and a process other than this one held the card during the merge
    (the CLI child: the card's used memory up by 100 MiB or more);
    prints git's wall, the child's and the other starts'.
@@ -734,9 +751,9 @@ def synth_trees(n_files: int, decls: int, n_retyped: int):
     return base, side, other, stmt
 
 
-#: The driver merge's branch edits every 20th file, the resolve merge's
-#: branches every 10th.
-DRV_EVERY, RSV_EVERY = 20, 10
+#: The driver merge's branch edits every 40th file (250 driver starts at
+#: rung5), the resolve merge's branches every 10th.
+DRV_EVERY, RSV_EVERY = 40, 10
 
 
 #: The body ``rsv_base`` gives the last function of every 10th file, and
@@ -749,7 +766,7 @@ def extra_branches(base: dict) -> dict:
     """Four more branches, each as (start, {path: content} of the files
     it changes):
 
-    - ``drv`` (on base) renames the last function of every 20th file,
+    - ``drv`` (on base) renames the last function of every 40th file,
       ``fn<i>_3`` -> ``drv<i>_3`` (each such file is even, so side
       renames its first function: git starts the merge driver for every
       one of them). A rename and not a body edit: with the default
@@ -1241,6 +1258,176 @@ def run_driver_merge(repo: pathlib.Path, clone: pathlib.Path, ckpt: pathlib.Path
     return out
 
 
+# --- the trace phase ---------------------------------------------------------
+
+def _schema_checker():
+    """``scripts/check_trace_schema.py`` (standard library only, outside
+    both packages), loaded from the checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_trace_schema", REPO / "scripts" / "check_trace_schema.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_cli_traced(repo: pathlib.Path, argv: list):
+    """Runs the port's CLI function for ``argv`` (which carries
+    ``--trace`` and/or ``--profile DIR``) in ``repo``, with no profiler
+    of this script around it (the CLI's own ``--profile`` runs one), the
+    decl cache emptied and the launch counts set to 0 just before and
+    read just after. For ``semdiff`` the tracer's artifacts are written
+    as ``main`` writes them. Returns the result, the counts and the
+    wall (s, ending in ``torch.cuda.synchronize()``)."""
+    import torch
+
+    from semantic_merge_tpu_torch import cli, kernels
+    from semantic_merge_tpu_torch.frontend.declcache import global_cache
+
+    args = cli.build_parser().parse_args(argv)
+    cwd = os.getcwd()
+    os.chdir(repo)
+    try:
+        global_cache().clear()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if argv[0] == "semdiff":
+            result = cli.semdiff(args)
+            result.tracer.write()
+        else:
+            result = cli.semmerge(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        os.chdir(cwd)
+    return result, launches, wall
+
+
+def _work_tree(root: pathlib.Path) -> dict:
+    """{path: bytes} of every file of a work tree but ``.git`` and the
+    trace artifacts."""
+    skip = {".git", ".semmerge-trace.json", ".semmerge-events.jsonl", ".semmerge-postmortem"}
+    return {p.relative_to(root).as_posix(): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file() and not skip & set(p.relative_to(root).parts)}
+
+
+def profile_records(profile_dir: pathlib.Path) -> tuple:
+    """(kernel name → records, ``semmerge/<phase>`` range names, bytes)
+    of the one torch.profiler trace in ``profile_dir``."""
+    traces = sorted(profile_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"{profile_dir} holds {len(traces)} torch.profiler traces, expected 1")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels_: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for name in ("sha256", "flash_chunk"):
+                if name in e.get("name", ""):
+                    kernels_[name] = kernels_.get(name, 0) + 1
+    ranges = {e["name"] for e in events if str(e.get("name", "")).startswith("semmerge/")}
+    return kernels_, ranges, traces[0].stat().st_size
+
+
+def check_trace_artifacts(schema, trace_path: pathlib.Path, events_path: pathlib.Path | None,
+                          card: str) -> dict:
+    """The trace (and events) pass ``validate_trace`` / ``validate_events``;
+    the device block names the card. Returns the trace."""
+    trace = json.loads(trace_path.read_text())
+    errors = schema.validate_trace(trace)
+    if events_path is not None:
+        errors += schema.validate_events(events_path.read_text().splitlines())
+    if errors:
+        fail(f"{trace_path.name}: schema errors {errors[:5]}")
+    device = trace["device"]
+    if device["platform"] != "gpu" or card not in device["device_kinds"] \
+            or device["jax_imported"] is not False:
+        fail(f"the trace's device block {json.dumps(device)} does not name the card {card!r}")
+    return trace
+
+
+def check_traced_fused_semmerge(repo: pathlib.Path, fused_tree: pathlib.Path,
+                                trace_tree: pathlib.Path, ckpt: pathlib.Path,
+                                untraced: dict, card: str) -> dict:
+    """Phase ``trace`` (a): ``semmerge base side other --inplace --trace
+    --profile DIR`` in a fresh work tree at side must leave the untraced
+    fused merge's tree and notes, launch ``sha256`` as often from a cold
+    engine, write artifacts that pass the schema script with the card in
+    the device block, a profile with one ``sha256`` record per launch and
+    a ``semmerge/<phase>`` range per CLI phase, and a span tree holding
+    ``fused_merge``, ``apply_columnar`` and ``inplace_commit``.
+    ``untraced`` holds the untraced merge's ``notes``, ``sha256``
+    launches and ``wall``."""
+    schema = _schema_checker()
+    subprocess.run(["git", "worktree", "add", "-q", "--detach", str(trace_tree), "side"],
+                   cwd=repo, check=True)
+    write_config(trace_tree, ckpt)
+    prof_dir = WORK / "profile_merge"
+    merged, launches, wall = run_cli_traced(
+        trace_tree, ["semmerge", "base", "side", "other", "--inplace", "--trace",
+                     "--profile", str(prof_dir)])
+    if merged.code != 0:
+        fail(f"the traced semmerge exited {merged.code}")
+    if launches.get("sha256") != untraced["sha256"]:
+        fail(f"the traced semmerge launched sha256 {launches.get('sha256')} times, the "
+             f"untraced one {untraced['sha256']} (both from a cold engine)")
+    if _work_tree(trace_tree) != _work_tree(fused_tree):
+        fail("the traced semmerge's tree differs from the untraced fused merge's")
+    if {rev: _note(repo, rev) for rev in ("side", "other")} != untraced["notes"]:
+        fail("the traced semmerge's notes differ from the untraced fused merge's")
+    trace = check_trace_artifacts(schema, trace_tree / ".semmerge-trace.json",
+                                  trace_tree / ".semmerge-events.jsonl", card)
+    if json.loads((prof_dir / "semmerge-trace.json").read_text())["phases"] != trace["phases"]:
+        fail("DIR/semmerge-trace.json holds other phases than .semmerge-trace.json")
+    names = {s["name"] for s in trace["spans"]}
+    missing = {"fused_merge", "apply_columnar", "inplace_commit"} - names
+    if missing:
+        fail(f"the traced semmerge's span tree lacks {sorted(missing)}")
+    records, ranges, size = profile_records(prof_dir)
+    phases = [p["name"] for p in trace["phases"]]
+    if records.get("sha256", 0) != launches["sha256"]:
+        fail(f"the profile holds {records.get('sha256', 0)} sha256 records for "
+             f"{launches['sha256']} launches")
+    if {f"semmerge/{name}" for name in phases} - ranges:
+        fail(f"the profile lacks ranges {sorted({f'semmerge/{n}' for n in phases} - ranges)}")
+    failures = trace["metrics"]["counters"].get("profiler_capture_failures_total")
+    if failures and failures["series"]:
+        fail(f"profiler capture failures: {failures['series']}")
+    return {"wall_s": wall, "untraced_wall_s": untraced["wall"],
+            "sha256_launches": launches["sha256"],
+            "sha256_records": records.get("sha256", 0), "phases": phases,
+            "ranges": sorted(ranges), "spans": len(trace["spans"]),
+            "profile_bytes": size, "trace_bytes": (trace_tree / ".semmerge-trace.json").stat().st_size,
+            "transfer_bytes": trace["device"]["transfer_bytes"],
+            "live_buffer_bytes_hwm": trace["device"]["live_buffer_bytes_hwm"],
+            "span_totals_s": {p["name"]: p["seconds"] for p in trace["phases"]}}
+
+
+def check_profiled_matcher_semdiff(repo: pathlib.Path, card: str) -> dict:
+    """Phase ``trace`` (b): ``semdiff base side --json-out
+    --change-signature --signature-matcher --profile DIR2``: its profile
+    holds one ``flash_chunk`` record per launch (8), its
+    ``DIR2/semmerge-trace.json`` passes the schema script."""
+    schema = _schema_checker()
+    prof_dir = WORK / "profile_semdiff"
+    result, launches, wall = run_cli_traced(
+        repo, ["semdiff", "base", "side", "--json-out", "--change-signature",
+               "--signature-matcher", "--profile", str(prof_dir)])
+    expect_launches("profiled matcher semdiff", launches, {"flash_chunk": 8, "sha256": 0})
+    check_trace_artifacts(schema, prof_dir / "semmerge-trace.json", None, card)
+    if (repo / ".semmerge-trace.json").exists():
+        fail("--profile without --trace wrote .semmerge-trace.json")
+    records, ranges, size = profile_records(prof_dir)
+    if records.get("flash_chunk", 0) != launches["flash_chunk"]:
+        fail(f"the profile holds {records.get('flash_chunk', 0)} flash_chunk records for "
+             f"{launches['flash_chunk']} launches")
+    if {"semmerge/snapshot", "semmerge/diff"} - ranges:
+        fail(f"the semdiff profile lacks its phase ranges: {sorted(ranges)}")
+    return {"wall_s": wall, "flash_chunk_launches": launches["flash_chunk"],
+            "flash_chunk_records": records.get("flash_chunk", 0), "ranges": sorted(ranges),
+            "profile_bytes": size, "ops": len(result.ops)}
+
+
 def _tree_blobs(root: pathlib.Path, rev: str) -> dict:
     """{path: bytes} of every file of ``rev``'s tree, read with one
     ``git cat-file --batch``."""
@@ -1612,6 +1799,8 @@ def main() -> int:
         expect_launches("fused semmerge", launches, {"flash_chunk": 0, "sha256": 4})
         check_fused_semmerge(torch, fused_tree, merged)
         runs["fused_semmerge"] = (launches, shapes)
+        untraced = {"notes": {rev: _note(repo, rev) for rev in ("side", "other")},
+                    "sha256": launches["sha256"], "wall": wall}
         t = phase("fused semmerge", t)
 
         # The matcher semmerge (two-program path), in the first work tree.
@@ -1670,6 +1859,22 @@ def main() -> int:
                               "fused diff program": diff_program.last,
                               "render program (A)": render_program.first})
         t = phase("kernels", t)
+
+        # --trace and --profile: the fused merge again, traced and profiled
+        # by the CLI, in a fifth work tree, against the untraced run's tree,
+        # notes and launches; then the matcher semdiff profiled. After the
+        # kernels phase: its short profiler sessions come first.
+        card_name = torch.cuda.get_device_name(0)
+        traced = check_traced_fused_semmerge(repo, fused_tree, WORK / "traced", ckpt,
+                                             untraced, card_name)
+        print(f"trace: semmerge base side other --inplace --trace --profile DIR: wall "
+              f"{traced['wall_s']:.3f} s (the untraced fused semmerge, under this script's "
+              f"profiler: {traced['untraced_wall_s']:.3f} s); tree and notes equal the "
+              f"untraced merge's; {json.dumps(traced)}", flush=True)
+        profiled = check_profiled_matcher_semdiff(repo, card_name)
+        print(f"trace: semdiff base side --json-out --change-signature --signature-matcher "
+              f"--profile DIR2: {json.dumps(profiled)}", flush=True)
+        t = phase("trace", t)
 
         # The merge driver: git merge in a clone; the driver's first start
         # runs the CLI in a child process on the card.

@@ -48,6 +48,8 @@ from ..device import resolve_device
 from ..frontend.declcache import DeclCache
 from ..frontend.scanner import DeclNode, ScanStats, scan_snapshot
 from ..frontend.snapshot import TS_EXTENSIONS, Snapshot, filter_files
+from ..obs import device as obs_device
+from ..obs import spans as obs_spans
 from ..ops.compose import compose_oplogs_device
 from ..ops.fused import FusedMergeEngine
 from ..ops.diff import (KIND_ADD, KIND_DELETE, KIND_MOVE, KIND_RENAME,
@@ -99,6 +101,7 @@ class TorchTSBackend:
                  host_workers: int | None = None, *, native_scan: bool = True,
                  decl_cache: DeclCache | None = None) -> None:
         self.device = resolve_device(device)
+        obs_device.note_device(self.device)
         self.host_workers = host_workers
         self.native_scan = native_scan
         self.decl_cache = decl_cache
@@ -254,11 +257,18 @@ class TorchTSBackend:
         refinement, so that merge — like one whose capacity retries run
         out — takes the two-program path on the same scan: the steps of
         :meth:`build_and_diff`, then :meth:`compose`. With structured
-        apply or statement ops the fused engine does not run at all."""
+        apply or statement ops the fused engine does not run at all.
+
+        Spans as ``ts_tpu.py`` emits them: ``scan_encode`` (layer
+        ``frontend``), ``fused_merge``, and on the two-program path
+        ``build_and_diff`` and ``compose`` (layer ``backend``). The JAX
+        backend re-scans inside its ``build_and_diff`` (decl-cache
+        hits); this one reuses the scan, so that span holds no ``scan``."""
         ts = timestamp or EPOCH_ISO
         clock = _PhaseClock(self.phases)
         snaps = (base, left, right)
-        nodes, tensors = self._scan_encode(snaps, clock)
+        with obs_spans.span("scan_encode", layer="frontend"):
+            nodes, tensors = self._scan_encode(snaps, clock)
         base_t, left_t, right_t = tensors
         maps: Dict[str, List[dict]] = {}
 
@@ -268,9 +278,10 @@ class TorchTSBackend:
         fused = None
         if not (structured_apply or statement_ops):
             engine = self._fused_engine()
-            fused = engine.merge(base_t, nodes[0], left_t, nodes[1], right_t, nodes[2],
-                                 seed=seed, base_rev=base_rev, timestamp=ts,
-                                 overlap_work=build_symbol_maps)
+            with obs_spans.span("fused_merge", layer="backend", backend=self.name):
+                fused = engine.merge(base_t, nodes[0], left_t, nodes[1], right_t, nodes[2],
+                                     seed=seed, base_rev=base_rev, timestamp=ts,
+                                     overlap_work=build_symbol_maps)
             clock.lap("fused")
             self.phases.update(engine.phases)
         if fused is not None:
@@ -280,12 +291,15 @@ class TorchTSBackend:
                          or _changesig_candidates(ops_r, signature_matcher))):
                 self.path = "fused"
                 return BuildAndDiffResult(ops_l, ops_r, maps), composed, conflicts
-        result = self._diff_lift(snaps, nodes, tensors, clock, base_rev=base_rev, seed=seed,
-                                 timestamp=timestamp, change_signature=change_signature,
-                                 structured_apply=structured_apply,
-                                 signature_matcher=signature_matcher,
-                                 statement_ops=statement_ops)
-        composed, conflicts = self.compose(result.op_log_left, result.op_log_right)
+        with obs_spans.span("build_and_diff", layer="backend", backend=self.name):
+            result = self._diff_lift(snaps, nodes, tensors, clock, base_rev=base_rev,
+                                     seed=seed, timestamp=timestamp,
+                                     change_signature=change_signature,
+                                     structured_apply=structured_apply,
+                                     signature_matcher=signature_matcher,
+                                     statement_ops=statement_ops)
+        with obs_spans.span("compose", layer="backend", backend=self.name):
+            composed, conflicts = self.compose(result.op_log_left, result.op_log_right)
         clock.lap("compose")
         self.path = "two-program"
         return result, composed, conflicts

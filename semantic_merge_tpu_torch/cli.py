@@ -3,14 +3,18 @@ the op-log replay.
 
     python -m semantic_merge_tpu_torch semdiff REV1 REV2 [--json-out]
         [--change-signature] [--signature-matcher] [--statement-ops]
-        [--device cuda|cpu]
+        [--trace] [--profile DIR] [--device cuda|cpu]
     python -m semantic_merge_tpu_torch semmerge BASE A B [--inplace]
         [--resume] [--git] [--no-degrade] [--resolve [off|auto|require]]
         [--seed SEED] [--change-signature] [--signature-matcher]
         [--strict-conflicts] [--structured-apply] [--statement-ops]
-        [--device cuda|cpu]
+        [--trace] [--profile DIR] [--device cuda|cpu]
     python -m semantic_merge_tpu_torch semrebase COMMIT ONTO [--inplace]
         [--device cuda|cpu]
+    python -m semantic_merge_tpu_torch stats [ARTIFACT] [--json | --prometheus]
+    python -m semantic_merge_tpu_torch trace analyze ARTIFACT|DIR [--json]
+        [--since DURATION]
+    python -m semantic_merge_tpu_torch trace diff A B [--json]
 
 ``semdiff`` prints the op log between two revisions of the git
 repository in the working directory, exactly as the JAX package's
@@ -104,7 +108,30 @@ formatter``, ``[languages.*] project_globs``, ``[ci] require_tests``
 ``subprocess`` backend), ``[slo]`` (telemetry); ``SEMMERGE_BREAKER``
 (the ladder's and the resolution tier's circuit breakers, a no-op
 outside the JAX package's daemon unless ``on``; not ported).
-``--trace`` / ``--profile`` are not ported yet.
+
+Telemetry (:mod:`semantic_merge_tpu_torch.obs`,
+:mod:`semantic_merge_tpu_torch.runtime.trace`), as the JAX CLI records
+it: ``--trace`` writes ``.semmerge-trace.json`` (phases, counters, the
+span tree, the device block, the metrics registry) and
+``.semmerge-events.jsonl`` into the working directory; ``--profile DIR``
+captures the run with ``torch.profiler`` (the card's kernels too, unless
+``--device cpu``), every phase a ``semmerge/<phase>`` range, and writes
+the profiler's Chrome trace and ``DIR/semmerge-trace.json``. Neither
+changes an output byte, and neither records or profiles anything
+without the flag. Every ladder transition counts in
+``merge_degradations_total{from,to,fault}``, records a ``degradation``
+span and writes a ``degradation`` postmortem bundle
+(``.semmerge-postmortem/``); a fault that ends the command counts in
+``merge_faults_total{fault,stage}``, writes a ``fault-escape`` bundle and
+ends its stderr line with ``[trace <id>]``. ``SEMMERGE_METRICS=path``
+dumps the registry at exit. ``stats`` pretty-prints a trace, events or
+metrics artifact (``--json``, ``--prometheus``), ``trace analyze`` its
+critical path (one file, or p50/p99 over a directory), ``trace diff``
+two artifacts phase by phase; their output is the JAX CLI's for the
+same artifact. Refused with exit 70 before anything is read, since they
+need the merge service or the bench records, which are not ported:
+``stats --daemon``, ``stats --fleet``, ``trace analyze --fleet``,
+``profile`` (``--daemon``) and ``perf``.
 
 The commands run on the CUDA card; ``--device cpu`` runs them on the
 CPU instead. Without a card and without that flag they say why and exit,
@@ -115,7 +142,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
 import os
 import pathlib
 import shutil
@@ -135,6 +161,10 @@ from .device import DeviceUnavailable, resolve_device
 from .errors import (KernelFault, MergeFault, UnsupportedSetting, fault_boundary,
                      is_device_fault)
 from .frontend.declcache import configure as configure_decl_cache
+from .frontend.declcache import global_cache, publish_metrics
+from .obs import flight as obs_flight
+from .obs import metrics as obs_metrics
+from .obs import spans as obs_spans
 from .runtime.applier import _normalize_relpath, apply_ops, touched_paths
 from .runtime.emitter import PRETTIER_EXTENSIONS, emit_files
 from .runtime.git import (archive_bytes, checkout_tree_to_temp, commit_timestamp_iso,
@@ -142,9 +172,10 @@ from .runtime.git import (archive_bytes, checkout_tree_to_temp, commit_timestamp
 from .runtime.inplace import commit_tree_inplace, recover, repo_lock
 from .runtime.notes import notes_get, notes_put
 from .runtime.textmerge import apply_text_fallback
+from .runtime.trace import Tracer
 from .runtime.verify import typecheck_ts
-
-logger = logging.getLogger(__name__)
+from .utils import workdir
+from .utils.loggingx import logger
 
 CONFLICTS_ARTIFACT = ".semmerge-conflicts.json"
 #: ``semmerge``'s and ``semrebase``'s exit without a device: the JAX
@@ -202,6 +233,11 @@ def build_parser() -> argparse.ArgumentParser:
                               "edits (also [engine].statement_ops; implied "
                               "by --strict-conflicts)")
     for p in (p_diff, p_merge):
+        p.add_argument("--trace", action="store_true",
+                       help="Write .semmerge-trace.json and .semmerge-events.jsonl")
+        p.add_argument("--profile", metavar="DIR", default=None,
+                       help="Capture a torch.profiler trace into DIR (phases "
+                            "annotated as semmerge/<phase> ranges)")
         p.add_argument("--change-signature", action="store_true",
                        help="Detect changeSignature ops instead of delete+add "
                             "(also [engine].change_signature in .semmerge.toml)")
@@ -216,6 +252,8 @@ def build_parser() -> argparse.ArgumentParser:
     for p in (p_diff, p_merge, p_rebase):
         p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                        help="Where to run (default: cuda; cpu only when asked)")
+    from .obs import report
+    report.add_parsers(sub)
     return parser
 
 
@@ -235,6 +273,9 @@ class SemdiffResult:
     matcher: object | None
     #: Seconds per phase: snapshot, then the backend's phases.
     phases: Dict[str, float] = field(default_factory=dict)
+    #: The run's tracer, closed; ``tracer.write()`` writes its artifacts
+    #: (``main`` does, after printing the op log, as the JAX CLI does).
+    tracer: Tracer | None = None
 
 
 def _refuse(refused: List[str]) -> None:
@@ -254,24 +295,37 @@ def _load_config(command: str):
     return config
 
 
+def _tracer(args: argparse.Namespace, device) -> Tracer:
+    """The run's tracer: ``--trace`` / ``--profile DIR``, profiling the
+    card's activity unless the run is on the CPU."""
+    return Tracer(enabled=args.trace, profile_dir=args.profile, cuda=device.type == "cuda")
+
+
 def semdiff(args: argparse.Namespace) -> SemdiffResult:
-    """Run ``semdiff`` for parsed ``args`` in the working directory."""
+    """Run ``semdiff`` for parsed ``args`` in the working directory: the
+    ``snapshot`` and ``diff`` phases of the JAX CLI's ``cmd_semdiff``."""
     config = _load_config("semdiff").engine
     backend = TorchTSBackend(device=args.device, host_workers=config.host_workers)
     change_sig = args.change_signature or config.change_signature
     matcher = _signature_matcher(args, config, change_sig, backend.device)
-    t0 = time.perf_counter()
-    base_snap = snapshot_from_bytes(archive_bytes(args.rev1))
-    right_snap = snapshot_from_bytes(archive_bytes(args.rev2))
-    phases = {"snapshot": time.perf_counter() - t0}
-    ops = backend.diff(base_snap, right_snap,
-                       base_rev=resolve_rev(args.rev1),
-                       timestamp=commit_timestamp_iso(args.rev2),
-                       change_signature=change_sig,
-                       signature_matcher=matcher,
-                       statement_ops=args.statement_ops or config.statement_ops)
+    tracer = _tracer(args, backend.device)
+    try:
+        t0 = time.perf_counter()
+        with tracer.phase("snapshot"):
+            base_snap = snapshot_from_bytes(archive_bytes(args.rev1))
+            right_snap = snapshot_from_bytes(archive_bytes(args.rev2))
+        phases = {"snapshot": time.perf_counter() - t0}
+        with tracer.phase("diff"):
+            ops = backend.diff(base_snap, right_snap,
+                               base_rev=resolve_rev(args.rev1),
+                               timestamp=commit_timestamp_iso(args.rev2),
+                               change_signature=change_sig,
+                               signature_matcher=matcher,
+                               statement_ops=args.statement_ops or config.statement_ops)
+    finally:
+        tracer.close()
     phases.update(backend.phases)
-    return SemdiffResult(ops=ops, matcher=matcher, phases=phases)
+    return SemdiffResult(ops=ops, matcher=matcher, phases=phases, tracer=tracer)
 
 
 def render(ops: Sequence[Op], json_out: bool) -> str:
@@ -298,8 +352,12 @@ class SemmergeResult:
     phases: Dict[str, float] = field(default_factory=dict)
 
 
+def _conflicts_path() -> pathlib.Path:
+    return workdir.root() / CONFLICTS_ARTIFACT
+
+
 def _write_conflict_reports(conflicts, resolutions=None) -> None:
-    (pathlib.Path.cwd() / CONFLICTS_ARTIFACT).write_text(
+    _conflicts_path().write_text(
         json.dumps(conflicts_payload(conflicts, resolutions), indent=2), encoding="utf-8")
 
 
@@ -310,26 +368,48 @@ def _strict_mode(args: argparse.Namespace) -> bool:
 
 
 def _fail_fast(fault: MergeFault, command: str = "semmerge") -> int:
-    """Report a fault that ends the command; returns its exit code."""
+    """Report a fault that ends the command; returns its exit code. It
+    counts in ``merge_faults_total{fault,stage}`` and leaves a
+    ``fault-escape`` postmortem bundle (the flight ring, the fault
+    chain, the registry) beside the repository, keyed by the trace id
+    that ends the stderr line."""
     traceback.print_exception(fault, file=sys.stderr)
-    print(f"{command}: {fault.describe()} (exit {fault.exit_code})", file=sys.stderr)
+    obs_metrics.REGISTRY.counter(
+        "merge_faults_total",
+        "Merge runs failed on a contained fault, by fault and stage",
+    ).inc(1, fault=type(fault).__name__, stage=fault.stage)
+    tid = obs_spans.trace_id() or obs_flight.default_trace_id()
+    obs_flight.dump(tid, "fault-escape", fault=fault, breakers={}, root=workdir.root())
+    print(f"{command}: {fault.describe()} (exit {fault.exit_code}) [trace {tid}]",
+          file=sys.stderr)
     return fault.exit_code
 
 
-def _record_degradation(frm: str, to: str, fault: MergeFault) -> None:
-    """One ladder rung transition: the log line."""
+def _record_degradation(frm: str, to: str, fault: MergeFault, tracer: Tracer) -> None:
+    """One ladder rung transition: the log line,
+    ``merge_degradations_total{from,to,fault}``, a ``degradation`` span,
+    a ``degradation`` postmortem bundle and the trace's
+    ``degradations`` counter. The bundle's ``breakers`` is empty, as
+    the JAX CLI's is with its breakers off (``SEMMERGE_BREAKER`` unset)."""
+    name = type(fault).__name__
     logger.warning("merge degrading %s -> %s after %s", frm, to, fault.describe())
+    obs_metrics.REGISTRY.counter(
+        "merge_degradations_total",
+        "Degradation-ladder rung transitions, by fault",
+    ).inc(1, **{"from": frm, "to": to, "fault": name})
+    obs_spans.record("degradation", 0.0, layer="cli",
+                     **{"from": frm, "to": to, "fault": name, "stage": fault.stage})
+    obs_flight.dump(obs_spans.trace_id(), "degradation", fault=fault, breakers={},
+                    root=workdir.root(), extra={"degradation": {"from": frm, "to": to}})
+    tracer.count("degradations", tracer.counters.get("degradations", 0) + 1)
 
 
 def semmerge(args: argparse.Namespace) -> SemmergeResult:
-    """Run ``semmerge`` for parsed ``args`` in the working directory:
-    the degradation ladder of the JAX package's ``cli._merge_ladder``
-    without its host rung. The semantic attempt runs first; a
-    :class:`MergeFault` from it moves the merge to the textual rung
-    unless strict mode is on or it is a device fault
-    (:func:`~semantic_merge_tpu_torch.errors.is_device_fault`), which
-    propagate (``main`` exits with the fault's code). A fault of the
-    textual rung propagates too."""
+    """Run ``semmerge`` for parsed ``args`` in the working directory (the
+    JAX CLI's ``cmd_semmerge``): recovery of an interrupted commit, then
+    the degradation ladder under the run's :class:`Tracer`, whose
+    artifacts are written on every exit path. A fault that ends the
+    merge is reported here (:func:`_fail_fast`) and its code returned."""
     backend = TorchTSBackend(device=args.device)  # no device: raises here
     if args.resume:
         with repo_lock():
@@ -342,24 +422,45 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
               file=sys.stderr)
         return SemmergeResult(code=2)
     config = _load_config("semmerge")
+    logger.info("Starting semantic merge base=%s A=%s B=%s", args.base, args.a, args.b)
     if args.inplace:
         # A journal/stage left by an interrupted --inplace commit is
         # resolved before this merge touches anything.
         with repo_lock():
             recover()
+    tracer = _tracer(args, backend.device)
     try:
-        return _semantic_attempt(args, config, backend)
+        return _merge_ladder(args, config, backend, tracer)
+    finally:
+        tracer.write()
+        publish_metrics()
+
+
+def _merge_ladder(args: argparse.Namespace, config, backend: TorchTSBackend,
+                  tracer: Tracer) -> SemmergeResult:
+    """The degradation ladder of the JAX package's ``cli._merge_ladder``
+    without its host rung. The semantic attempt runs first; a
+    :class:`MergeFault` from it moves the merge to the textual rung
+    unless strict mode is on or it is a device fault
+    (:func:`~semantic_merge_tpu_torch.errors.is_device_fault`): then the
+    merge fails fast with the fault's code, as it does when the textual
+    rung itself fails."""
+    try:
+        return _semantic_attempt(args, config, backend, tracer)
     except MergeFault as fault:
         if _strict_mode(args) or is_device_fault(fault):
-            raise
-        _record_degradation(backend.name, "text", fault)
+            return SemmergeResult(code=_fail_fast(fault))
+        _record_degradation(backend.name, "text", fault, tracer)
     t0 = time.perf_counter()
-    code = _textual_rung(args)
+    try:
+        code = _textual_rung(args, tracer)
+    except MergeFault as fault:
+        return SemmergeResult(code=_fail_fast(fault))
     return SemmergeResult(code=code, phases={"text_merge": time.perf_counter() - t0})
 
 
-def _semantic_attempt(args: argparse.Namespace, config,
-                      backend: TorchTSBackend) -> SemmergeResult:
+def _semantic_attempt(args: argparse.Namespace, config, backend: TorchTSBackend,
+                      tracer: Tracer) -> SemmergeResult:
     """The semantic rung (the JAX package's ``cli._semantic_attempt``).
     Returns the merge's result (exit 0, 1 or 2, or 17 under ``--resolve
     require``); raises :class:`MergeFault` when a stage fails, each
@@ -367,7 +468,13 @@ def _semantic_attempt(args: argparse.Namespace, config,
     that classifies its unexpected exceptions. In strict conflict mode
     the op logs come from :meth:`TorchTSBackend.build_and_diff`, the
     strict detection drops the conflicting ops from both, and the device
-    compose merges the rest, its conflicts appended to the strict ones."""
+    compose merges the rest, its conflicts appended to the strict ones.
+
+    The tracer's phases and counters are the JAX CLI's: ``snapshot``,
+    ``merge`` (or ``build_and_diff`` and ``compose``), ``resolve``,
+    ``materialize``, ``format``, ``typecheck``, ``notes``; the in-place
+    commit is its own spans. ``out.phases`` keeps the port's finer
+    split (extract, apply, text, commit) from the same clock."""
     engine = config.engine
     backend.host_workers = engine.host_workers
     change_sig = args.change_signature or engine.change_signature
@@ -387,7 +494,7 @@ def _semantic_attempt(args: argparse.Namespace, config,
         phases[name] = now - t
         t = now
 
-    with fault_boundary("snapshot"):
+    with tracer.phase("snapshot"), fault_boundary("snapshot"):
         base_tar, left_tar, right_tar = (archive_bytes(rev) for rev in (args.base, args.a, args.b))
         snaps = [snapshot_from_bytes(tar) for tar in (base_tar, left_tar, right_tar)]
     base_rev = resolve_rev(args.base)
@@ -401,20 +508,33 @@ def _semantic_attempt(args: argparse.Namespace, config,
               signature_matcher=out.matcher, statement_ops=stmt_ops)
     # The engine's stages: the scan raises its own ParseFault, anything
     # else unexpected is the device engine's (KernelFault).
-    with fault_boundary("merge"):
-        if strict:
+    if strict:
+        with tracer.phase("build_and_diff", backend=backend.name), fault_boundary("merge"):
             out.result = backend.build_and_diff(*snaps, **kw)
-            phases.update(backend.phases)
-            t = time.perf_counter()
-            ops_left, ops_right, out.conflicts = detect_conflicts_strict(
-                out.result.op_log_left, out.result.op_log_right)
+        phases.update(backend.phases)
+        t = time.perf_counter()
+        with tracer.phase("compose"), fault_boundary("merge"):
+            with obs_spans.span("strict_detect", layer="core",
+                                n_a=len(out.result.op_log_left),
+                                n_b=len(out.result.op_log_right)):
+                ops_left, ops_right, out.conflicts = detect_conflicts_strict(
+                    out.result.op_log_left, out.result.op_log_right)
             lap("strict_detect")
             out.composed, walk_conflicts = backend.compose(ops_left, ops_right)
             out.conflicts.extend(walk_conflicts)
-            lap("compose")
-        else:
+        lap("compose")
+    else:
+        with tracer.phase("merge", backend=backend.name), fault_boundary("merge"):
             out.result, out.composed, out.conflicts = backend.merge(*snaps, **kw)
-            phases.update(backend.phases)
+            _count_merge(backend.name, out)
+        phases.update(backend.phases)
+    tracer.count("ops_left", len(out.result.op_log_left))
+    tracer.count("ops_right", len(out.result.op_log_right))
+    cache = global_cache()
+    tracer.count("decl_cache_hits", cache.hits)
+    tracer.count("decl_cache_misses", cache.misses)
+    tracer.count("composed_ops", len(out.composed))
+    tracer.count("conflicts", len(out.conflicts))
     t = time.perf_counter()
 
     if out.conflicts:
@@ -427,7 +547,7 @@ def _semantic_attempt(args: argparse.Namespace, config,
             from .resolve import engine as resolve_engine
             outcome = None
             try:
-                with fault_boundary("resolve"):
+                with tracer.phase("resolve"), fault_boundary("resolve"):
                     outcome = resolve_engine.resolve_conflicts(
                         out.conflicts, list(out.result.op_log_left),
                         list(out.result.op_log_right), composed=out.composed,
@@ -460,11 +580,11 @@ def _semantic_attempt(args: argparse.Namespace, config,
     else:
         # A clean merge must not leave a stale artifact from a previous
         # conflicted run next to a success exit code.
-        (pathlib.Path.cwd() / CONFLICTS_ARTIFACT).unlink(missing_ok=True)
+        _conflicts_path().unlink(missing_ok=True)
 
     merged_tree = None
     try:
-        with fault_boundary("apply"):
+        with tracer.phase("materialize"), fault_boundary("apply"):
             with temp_tree(base_tar) as base_tree:
                 lap("extract")
                 merged_tree = apply_ops(base_tree, out.composed)
@@ -477,12 +597,13 @@ def _semantic_attempt(args: argparse.Namespace, config,
                     merged_tree, base_tar, left_tar, right_tar,
                     indexed_extensions=backend.extensions)
                 lap("text")
+                tracer.count("text_conflicts", len(text_conflicts))
                 if text_conflicts:
                     out.conflicts = text_conflicts
                     _write_conflict_reports(text_conflicts, out.resolutions)
                     out.code = 1
                     return out
-        with fault_boundary("format"):
+        with tracer.phase("format"), fault_boundary("format"):
             ts_cfg = config.languages.get("typescript")
             formatter = list(ts_cfg.formatter_cmd) if ts_cfg and ts_cfg.formatter_cmd else None
             touched = None
@@ -494,7 +615,7 @@ def _semantic_attempt(args: argparse.Namespace, config,
                                if pathlib.PurePosixPath(p).suffix.lower() in PRETTIER_EXTENSIONS)
             emit_files(merged_tree, formatter, paths=touched)
         lap("format")
-        with fault_boundary("verify"):
+        with tracer.phase("typecheck"), fault_boundary("verify"):
             ok, diagnostics = (typecheck_ts(merged_tree) if config.ci.require_typecheck
                                else (True, []))
         lap("typecheck")
@@ -508,35 +629,52 @@ def _semantic_attempt(args: argparse.Namespace, config,
                 with repo_lock():
                     commit_tree_inplace(merged_tree, deletes=deleted_paths)
             lap("commit")
-        notes_put(resolve_rev(args.a), OpLog(out.result.op_log_left))
-        notes_put(resolve_rev(args.b), OpLog(out.result.op_log_right))
+        with tracer.phase("notes"):
+            notes_put(resolve_rev(args.a), OpLog(out.result.op_log_left))
+            notes_put(resolve_rev(args.b), OpLog(out.result.op_log_right))
         lap("notes")
+        logger.info("Merge complete")
         return out
     finally:
         if merged_tree is not None:
             shutil.rmtree(merged_tree, ignore_errors=True)
 
 
-def _textual_rung(args: argparse.Namespace) -> int:
+def _count_merge(backend_name: str, out: SemmergeResult) -> None:
+    """The merge counters the JAX package's ``backends.base.run_merge``
+    records after a backend merge."""
+    reg = obs_metrics.REGISTRY
+    reg.counter("semmerge_merges_total",
+                "Three-way merges run, by backend").inc(1, backend=backend_name)
+    reg.counter("semmerge_ops_total", "Ops emitted by diff, by side").inc(
+        len(out.result.op_log_left), side="left")
+    reg.counter("semmerge_ops_total").inc(len(out.result.op_log_right), side="right")
+    reg.counter("semmerge_conflicts_total", "Merge conflicts surfaced").inc(
+        len(out.conflicts))
+
+
+def _textual_rung(args: argparse.Namespace, tracer: Tracer) -> int:
     """The ladder's floor: a whole-tree textual three-way merge — every
     file through :func:`runtime.textmerge.apply_text_fallback` with an
     EMPTY indexed set, i.e. git-equivalent three-way semantics for the
     whole tree. No semantic engine, no formatter, no typecheck, no
-    notes: "never worse than ``git merge``"."""
-    with fault_boundary("apply"):
+    notes: "never worse than ``git merge``". Its phase is ``text_merge``."""
+    with tracer.phase("text_merge"), fault_boundary("apply"):
         base_tar, left_tar, right_tar = (archive_bytes(rev) for rev in (args.base, args.a, args.b))
         with temp_tree(base_tar) as merged_tree:
             conflicts, deleted_paths, _written = apply_text_fallback(
                 merged_tree, base_tar, left_tar, right_tar,
                 indexed_extensions=frozenset())
+            tracer.count("text_conflicts", len(conflicts))
             if conflicts:
                 _write_conflict_reports(conflicts)
                 return 1
-            (pathlib.Path.cwd() / CONFLICTS_ARTIFACT).unlink(missing_ok=True)
+            _conflicts_path().unlink(missing_ok=True)
             if args.inplace:
                 with fault_boundary("commit"):
                     with repo_lock():
                         commit_tree_inplace(merged_tree, deletes=deleted_paths)
+    logger.info("Merge complete (textual fallback)")
     return 0
 
 
@@ -569,6 +707,9 @@ def semrebase(args: argparse.Namespace) -> int:
 def main(argv: Sequence[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
+        if args.command in ("stats", "trace", "profile", "perf"):
+            from .obs import report
+            return report.run(args)
         if args.command == "semmerge":
             return semmerge(args).code
         if args.command == "semrebase":
@@ -590,4 +731,5 @@ def main(argv: Sequence[str] | None = None) -> int:
     text = render(result.ops, args.json_out)
     if text:
         print(text)
+    result.tracer.write()
     return 0

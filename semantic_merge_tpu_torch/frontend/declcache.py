@@ -152,3 +152,29 @@ def configure(memory_cap_mb: int) -> None:
     once config is loaded). Half the budget goes to the decl cache; the
     rest stays headroom for snapshots and device buffers."""
     global_cache().set_cap_mb(max(1, memory_cap_mb // 2))
+
+
+_PUBLISHED = {"hits": 0, "misses": 0, "evictions": 0}
+_PUBLISH_METRICS = {"hits": "declcache_hits_total",
+                    "misses": "declcache_misses_total",
+                    "evictions": "declcache_evictions_total"}
+_PUBLISH_HELP = {"hits": "Decl-cache lookups served from cache",
+                 "misses": "Decl-cache lookups that re-scanned",
+                 "evictions": "Decl-cache entries evicted by the byte cap"}
+
+
+def publish_metrics() -> None:
+    """Delta-sync the process-wide cache's counters into the metrics
+    registry (``declcache_{hits,misses,evictions}_total``): one update
+    per merge, at its end, instead of one per lookup. Safe when the
+    cache was never touched."""
+    cache = _GLOBAL
+    if cache is None:
+        return
+    from ..obs import metrics as obs_metrics
+    for name, metric in _PUBLISH_METRICS.items():
+        current = getattr(cache, name)
+        delta = current - _PUBLISHED[name]
+        if delta > 0:
+            obs_metrics.REGISTRY.counter(metric, _PUBLISH_HELP[name]).inc(delta)
+        _PUBLISHED[name] = current

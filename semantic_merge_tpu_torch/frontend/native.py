@@ -35,6 +35,7 @@ import time
 from typing import List, Optional, Sequence
 
 from ..errors import NativeBuildFault, ParseFault
+from ..obs import device as obs_device
 from .scanner import DeclNode
 
 FRONTEND_DIR = pathlib.Path(__file__).resolve().parent
@@ -58,9 +59,12 @@ def library_path() -> pathlib.Path:
 def build() -> float:
     """Compile the library unless the current one exists; returns the
     seconds the compile took (0.0 when nothing was built). Raises
-    :class:`NativeBuildFault` when there is no ``g++`` or it fails."""
+    :class:`NativeBuildFault` when there is no ``g++`` or it fails.
+    Counted in the device block's build metrics (kernel
+    ``native_scanner``: a hit reuses the library, a miss builds it)."""
     out = library_path()
     if out.is_file():
+        obs_device.record_build("native_scanner", False)
         return 0.0
     cxx = shutil.which("g++")
     if cxx is None:
@@ -82,7 +86,9 @@ def build() -> float:
                                cause=type(exc).__name__) from exc
     finally:
         tmp.unlink(missing_ok=True)
-    return time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    obs_device.record_build("native_scanner", True, seconds)
+    return seconds
 
 
 def _load() -> ctypes.CDLL:

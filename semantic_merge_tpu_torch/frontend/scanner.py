@@ -46,6 +46,8 @@ from dataclasses import dataclass
 from typing import TYPE_CHECKING, Dict, Hashable, List, Sequence
 
 from ..core.ids import symbol_id_from_signature
+from ..obs import metrics as obs_metrics
+from ..obs import spans as obs_spans
 from .tokenizer import IDENT, PUNCT, Token, tokenize
 
 if TYPE_CHECKING:
@@ -160,7 +162,6 @@ def scan_snapshot_keyed(files: Sequence[dict], *, cache: DeclCache | None = None
     library that cannot be built included (a
     :class:`~semantic_merge_tpu_torch.errors.NativeBuildFault`), and so
     is what the ``scan`` fault-injection stage raises."""
-    from ..errors import ParseFault
     from ..utils import faults
     from .declcache import global_cache
     cache = global_cache() if cache is None else cache
@@ -168,15 +169,40 @@ def scan_snapshot_keyed(files: Sequence[dict], *, cache: DeclCache | None = None
     hits0, misses0 = cache.hits, cache.misses
     try:
         faults.check("scan")
-        keyed = _scan_snapshot_cached(files, cache, native, stats)
-    except ParseFault:
-        raise
     except Exception as exc:
-        raise ParseFault(f"snapshot scan failed: {exc}", stage="scan",
-                         cause=type(exc).__name__) from exc
+        raise _as_parse_fault(exc)
+    with obs_spans.span("scan", layer="frontend", files=len(files)):
+        try:
+            keyed = _scan_snapshot_cached(files, cache, native, stats)
+        except Exception as exc:
+            raise _as_parse_fault(exc)
     stats.hits += cache.hits - hits0
     stats.misses += cache.misses - misses0
+    reg = obs_metrics.REGISTRY
+    reg.counter("semmerge_files_scanned_total",
+                "Snapshot files handed to the decl scanner").inc(len(files))
+    reg.counter("semmerge_decls_indexed_total",
+                "Declarations indexed by the scanner").inc(
+        sum(len(nodes) for _, nodes in keyed))
+    reg.counter("semmerge_decl_cache_hits_total",
+                "Decl-cache hits during snapshot scans").inc(cache.hits - hits0)
+    reg.gauge("semmerge_decl_cache_entries",
+              "Cumulative decl-cache hit/miss counters of the "
+              "process-wide cache").set(cache.hits, kind="hits")
+    reg.gauge("semmerge_decl_cache_entries").set(cache.misses, kind="misses")
     return keyed
+
+
+def _as_parse_fault(exc: Exception):
+    """``exc`` as the scan's :class:`~semantic_merge_tpu_torch.errors.ParseFault`
+    (a ParseFault passes through)."""
+    from ..errors import ParseFault
+    if isinstance(exc, ParseFault):
+        return exc
+    fault = ParseFault(f"snapshot scan failed: {exc}", stage="scan",
+                       cause=type(exc).__name__)
+    fault.__cause__ = exc
+    return fault
 
 
 # A file path that cannot collide with real snapshot paths carries the

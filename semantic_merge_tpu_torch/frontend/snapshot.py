@@ -9,8 +9,11 @@ reference ``requirements.md:163`` [NFR-DET-001]).
 """
 from __future__ import annotations
 
+import pathlib
 from dataclasses import dataclass, field
 from typing import Dict, List
+
+from ..obs import spans as obs_spans
 
 TS_EXTENSIONS = {".ts", ".tsx", ".js", ".jsx"}
 # Everything any registered language backend can index. Snapshots carry
@@ -36,3 +39,20 @@ def filter_files(snap: Snapshot, extensions) -> List[Dict[str, str]]:
     suffixes = tuple(extensions)
     return [f for f in snap.files if f["path"].endswith(suffixes)]
 
+
+
+def snapshot_tree(root: pathlib.Path) -> Snapshot:
+    """The snapshot of a checked-out tree: every file of
+    :data:`SOURCE_EXTENSIONS` under ``root``, sorted, as the JAX
+    package's ``snapshot_tree`` reads it (the ``snapshot_tree`` span,
+    layer ``frontend``)."""
+    root = pathlib.Path(root)
+    files = []
+    with obs_spans.span("snapshot_tree", layer="frontend"):
+        for path in sorted(root.rglob("*")):
+            if path.is_file() and path.suffix in SOURCE_EXTENSIONS:
+                files.append({
+                    "path": path.relative_to(root).as_posix(),
+                    "content": path.read_text(encoding="utf-8"),
+                })
+    return Snapshot(files=files)

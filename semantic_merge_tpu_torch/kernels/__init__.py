@@ -11,7 +11,10 @@ kernel is built.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a
 wrapper adds one where it launches its kernel and nowhere else, and
-notes the launch's shape in ``LAUNCH_SHAPES``.
+notes the launch's shape in ``LAUNCH_SHAPES``. Every build lookup counts
+in the device block's build metrics
+(:func:`semantic_merge_tpu_torch.obs.device.record_build`: a hit reuses
+a library on disk, a miss runs ``nvcc``).
 """
 from __future__ import annotations
 
@@ -21,7 +24,10 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 from typing import Dict, Tuple
+
+from ..obs import device as obs_device
 
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
@@ -78,9 +84,11 @@ def build_all(names) -> Dict[str, str]:
     ``{name: what nvcc printed}`` (``""`` where nothing was built)."""
     logs: Dict[str, str] = {}
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.is_file():
+            obs_device.record_build(name, False)
             logs[name] = ""
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -96,6 +104,7 @@ def build_all(names) -> Dict[str, str]:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
+        obs_device.record_build(name, True, time.perf_counter() - t0)
         logs[name] = log
     if failed:
         raise KernelBuildError("\n".join(failed))

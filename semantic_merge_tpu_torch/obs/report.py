@@ -1,0 +1,545 @@
+"""The artifact commands of the CLI: ``stats``, ``trace analyze`` and
+``trace diff`` over the files the observability layer writes
+(``.semmerge-trace.json``, ``.semmerge-events.jsonl``, a
+``SEMMERGE_METRICS`` dump, postmortem bundles). A copy of the JAX CLI's
+file forms, printing the same bytes for the same artifact; they read
+only the file, so they work on artifacts of processes long gone.
+
+Refused with exit 70 before anything is read (the merge service and the
+bench records they need are not ported): ``stats --daemon``, ``stats
+--fleet``, ``trace analyze --fleet``, ``profile`` (a capture from a
+running daemon; one-shot runs use ``--profile DIR`` on the merge verbs)
+and ``perf``. Stdlib only.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+import time
+from typing import List
+
+from ..errors import UnsupportedSetting
+from . import anomaly as obs_anomaly
+from .metrics import render_prometheus_from_dict
+
+
+def add_parsers(sub) -> None:
+    """The ``stats``, ``trace``, ``profile`` and ``perf`` subcommands,
+    with the JAX CLI's arguments."""
+    p_stats = sub.add_parser("stats",
+                             help="Pretty-print a semmerge trace/metrics "
+                                  "artifact (.semmerge-trace.json, "
+                                  ".semmerge-events.jsonl, or a "
+                                  "SEMMERGE_METRICS dump)")
+    p_stats.add_argument("artifact", nargs="?", default=".semmerge-trace.json",
+                         help="Artifact path (default .semmerge-trace.json)")
+    p_stats.add_argument("--json", action="store_true",
+                         help="Emit the artifact back as JSON instead of "
+                              "the pretty rendering")
+    p_stats.add_argument("--prometheus", action="store_true",
+                         help="Render the artifact's metrics as Prometheus "
+                              "text exposition")
+    p_stats.add_argument("--daemon", action="store_true",
+                         help="Refused (exit 70): the merge service is not ported")
+    p_stats.add_argument("--fleet", action="store_true",
+                         help="Refused (exit 70): the fleet is not ported")
+    p_trace = sub.add_parser("trace", help="Trace-artifact tooling")
+    trace_sub = p_trace.add_subparsers(dest="trace_command", required=True)
+    p_analyze = trace_sub.add_parser(
+        "analyze",
+        help="Per-request critical-path latency attribution from a "
+             ".semmerge-trace.json or postmortem bundle (p50/p99 over a "
+             "directory of them)")
+    p_analyze.add_argument("artifact",
+                           help="Trace or postmortem artifact, or a "
+                                "directory of them")
+    p_analyze.add_argument("--json", action="store_true",
+                           help="Emit the breakdown as JSON")
+    p_analyze.add_argument("--fleet", action="store_true",
+                           help="Refused (exit 70): the fleet is not ported")
+    p_analyze.add_argument("--since", default=None, metavar="DURATION",
+                           help="Directory mode: only artifacts modified "
+                                "within DURATION (e.g. 90s, 15m, 2h, 1d)")
+    p_tdiff = trace_sub.add_parser(
+        "diff",
+        help="Phase-aligned diff of two trace artifacts (A = offender, "
+             "B = baseline): per-phase ms delta/ratio, top contributor "
+             "named suspect_phase")
+    p_tdiff.add_argument("a", help="Offender artifact (trace or postmortem bundle)")
+    p_tdiff.add_argument("b", help="Baseline artifact")
+    p_tdiff.add_argument("--json", action="store_true",
+                         help="Emit the diff as JSON")
+    p_profile = sub.add_parser(
+        "profile", help="Refused (exit 70): captures from a running merge service "
+                        "daemon are not ported (use --profile DIR on semdiff/semmerge)")
+    p_profile.add_argument("--daemon", action="store_true")
+    p_profile.add_argument("--seconds", type=float, default=1.0)
+    p_profile.add_argument("--out", default=None)
+    p_profile.add_argument("--socket", default=None)
+    p_profile.add_argument("--json", action="store_true")
+    p_perf = sub.add_parser(
+        "perf", help="Refused (exit 70): the perf-regression sentinel over bench "
+                     "records is not ported")
+    p_perf.add_argument("perf_command", choices=("record", "compare"))
+    p_perf.add_argument("rest", nargs=argparse.REMAINDER)
+
+
+def _refuse(what: str) -> None:
+    raise UnsupportedSetting(f"{what}: not implemented by this port (it needs the "
+                             "merge service or the bench records); use "
+                             "python -m semantic_merge_tpu", stage="config")
+
+
+def run(args: argparse.Namespace) -> int:
+    """Run one of the artifact commands for parsed ``args``."""
+    if args.command == "profile":
+        _refuse("profile")
+    if args.command == "perf":
+        _refuse("perf")
+    if args.command == "stats":
+        if args.daemon or args.fleet:
+            _refuse("stats --daemon" if args.daemon else "stats --fleet")
+        return cmd_stats(args)
+    if args.trace_command == "analyze":
+        if args.fleet:
+            _refuse("trace analyze --fleet")
+        return cmd_trace_analyze(args)
+    return cmd_trace_diff(args)
+
+
+def cmd_stats(args: argparse.Namespace) -> int:
+    """Pretty-print an observability artifact: a ``.semmerge-trace.json``
+    trace, a ``.semmerge-events.jsonl`` span/event stream, or a metrics
+    registry dump (``SEMMERGE_METRICS=path``)."""
+    path = pathlib.Path(args.artifact)
+    if not path.is_file():
+        print(f"error: no artifact at {path} (run `semmerge ... --trace` "
+              f"or set SEMMERGE_METRICS=path first)", file=sys.stderr)
+        return 1
+    text = path.read_text(encoding="utf-8")
+    if path.suffix == ".jsonl":
+        rows = [json.loads(line) for line in text.splitlines() if line.strip()]
+        data = {"events_jsonl": rows}
+    else:
+        data = json.loads(text)
+    if args.json:
+        print(json.dumps(data, indent=2))
+        return 0
+    if args.prometheus:
+        metrics = data.get("metrics") if "metrics" in data else data
+        if not isinstance(metrics, dict) or not any(
+                k in metrics for k in ("counters", "gauges", "histograms")):
+            print("error: artifact carries no metrics section", file=sys.stderr)
+            return 1
+        print(render_prometheus_from_dict(metrics), end="")
+        return 0
+    try:
+        for line in _render_stats(data):
+            print(line)
+    except BrokenPipeError:  # stats | head is a normal way to read it
+        try:
+            sys.stdout.close()
+        except OSError:
+            pass
+    return 0
+
+
+def _render_stats(data: dict) -> List[str]:
+    out: List[str] = []
+
+    def _spans_table(rows) -> None:
+        agg: dict = {}
+        for r in rows:
+            key = (r.get("layer") or "-", r["name"])
+            n, total = agg.get(key, (0, 0.0))
+            agg[key] = (n + 1, total + float(r.get("seconds", 0.0)))
+        out.append(f"{'layer':<10} {'span':<24} {'count':>5} {'total ms':>10}")
+        for (layer, name), (n, total) in sorted(
+                agg.items(), key=lambda kv: -kv[1][1]):
+            out.append(f"{layer:<10} {name:<24} {n:>5} {total * 1e3:>10.1f}")
+
+    if "events_jsonl" in data:  # .semmerge-events.jsonl
+        rows = data["events_jsonl"]
+        spans = [r for r in rows if r.get("type") == "span"]
+        events = [r for r in rows if r.get("type") == "event"]
+        out.append(f"events stream: {len(spans)} spans, {len(events)} events")
+        _spans_table(spans)
+        for e in events:
+            out.append(f"event {e.get('name')} @{e.get('t_start')}s "
+                       f"{e.get('fields', {})}")
+        return out
+
+    if "phases" in data:  # .semmerge-trace.json
+        out.append(f"trace (schema {data.get('schema', 0)}): "
+                   f"total {data.get('total_seconds', 0.0) * 1e3:.1f} ms")
+        out.append(f"{'phase':<24} {'ms':>10}  meta")
+        for p in data["phases"]:
+            out.append(f"{p['name']:<24} {p['seconds'] * 1e3:>10.1f}  "
+                       f"{p.get('meta', '')}")
+        counters = data.get("counters", {})
+        if counters:
+            out.append("counters: " + "  ".join(
+                f"{k}={v}" for k, v in sorted(counters.items())))
+        spans = data.get("spans")
+        if spans:
+            out.append(f"spans ({len(spans)}):")
+            _spans_table(spans)
+        device = data.get("device")
+        if isinstance(device, dict):
+            out.append("device: " + "  ".join(
+                f"{k}={device[k]}" for k in sorted(device)
+                if not isinstance(device[k], (dict, list))))
+            for k in ("transfer_bytes", "transfer_count",
+                      "compile_cache_events"):
+                if device.get(k):
+                    out.append(f"device.{k}: " + "  ".join(
+                        f"{kk}={vv}" for kk, vv in sorted(device[k].items())))
+        return out
+
+    if any(k in data for k in ("counters", "gauges", "histograms")):
+        # SEMMERGE_METRICS registry dump.
+        for kind in ("counters", "gauges"):
+            for name, m in sorted(data.get(kind, {}).items()):
+                for s in m.get("series", []):
+                    labels = ",".join(f"{k}={v}" for k, v in
+                                      sorted(s.get("labels", {}).items()))
+                    out.append(f"{name}{{{labels}}} {s['value']}")
+        for name, m in sorted(data.get("histograms", {}).items()):
+            for s in m.get("series", []):
+                labels = ",".join(f"{k}={v}" for k, v in
+                                  sorted(s.get("labels", {}).items()))
+                out.append(f"{name}{{{labels}}} count={s['count']} "
+                           f"sum={s['sum']:.6f}")
+        return out
+
+    out.append("unrecognized artifact shape; try --json")
+    return out
+
+
+#: Critical-path buckets of ``semmerge trace analyze`` — where one
+#: request's wall time went, in pipeline order.
+CRITICAL_PATH_BUCKETS = ("queue_wait", "batch_window", "pack", "kernel",
+                         "host_tail", "apply")
+
+def _bucket_span(name: str, layer) -> str | None:
+    """Map one span to its critical-path bucket (None = unattributed).
+    Nested double counting is avoided by bucketing only the leaf phase
+    splits (fused-engine records, batch spans, the CLI apply phase),
+    never the wrapper spans that contain them."""
+    if name == "service.queue_wait":
+        return "queue_wait"
+    if name == "batch.window":
+        return "batch_window"
+    if name == "batch.pack":
+        return "pack"
+    if name in ("kernel", "batch.dispatch", "h2d"):
+        return "kernel"
+    if name in ("fetch", "compose_decode", "chain_decode",
+                "materialize_overlap", "batch.scatter") or \
+            (name == "materialize" and layer != "cli"):
+        return "host_tail"
+    if name == "materialize" and layer == "cli":
+        return "apply"
+    return None
+
+
+def _load_span_artifact(path: pathlib.Path) -> tuple[dict | None, int]:
+    """Load one span-shaped artifact: ``(data, corrupt_lines)``.
+
+    ``.jsonl`` artifacts (``.semmerge-events.jsonl`` and other span
+    logs) are salvaged line by line — a truncated tail or a corrupt row
+    skips that row and counts it instead of sinking the whole file, so
+    ``trace analyze`` keeps working on exactly the artifacts written
+    while something was going wrong."""
+    if path.suffix == ".jsonl":
+        try:
+            text = path.read_text(encoding="utf-8")
+        except (OSError, UnicodeDecodeError):
+            return None, 0
+        rows, bad = [], 0
+        for line in text.splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                row = json.loads(line)
+            except json.JSONDecodeError:
+                bad += 1
+                continue
+            if isinstance(row, dict):
+                rows.append(row)
+        if not rows:
+            return None, bad
+        return {"spans": rows, "trace_id": None}, bad
+    try:
+        data = json.loads(path.read_text(encoding="utf-8"))
+    except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+        return None, 0
+    return data, 0
+
+
+def _parse_duration(raw: str) -> float:
+    """``90s`` / ``15m`` / ``2h`` / ``1d`` (bare numbers = seconds) →
+    seconds. Raises ValueError on nonsense."""
+    text = str(raw).strip().lower()
+    scale = 1.0
+    if text and text[-1] in "smhd":
+        scale = {"s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}[text[-1]]
+        text = text[:-1]
+    value = float(text)
+    if value < 0:
+        raise ValueError(f"negative duration {raw!r}")
+    return value * scale
+
+
+def _analyze_artifact(path: pathlib.Path) -> dict | None:
+    """One artifact's critical-path breakdown, or None when the file is
+    not span-shaped (trace artifact or postmortem bundle)."""
+    data, corrupt = _load_span_artifact(path)
+    if not isinstance(data, dict) or not isinstance(data.get("spans"), list):
+        return None
+    buckets = {b: 0.0 for b in CRITICAL_PATH_BUCKETS}
+    cli_total = 0.0
+    for row in data["spans"]:
+        if not isinstance(row, dict):
+            continue
+        name = row.get("name") or ""
+        layer = row.get("layer")
+        try:
+            secs = float(row.get("seconds") or 0.0)
+        except (TypeError, ValueError):
+            continue
+        if layer == "cli":
+            cli_total += secs
+        b = _bucket_span(name, layer)
+        if b is not None:
+            buckets[b] += secs
+    # Wall estimate: the CLI phases cover the merge itself; queue wait
+    # and the batch window happen before/around them. Engine-level
+    # buckets (pack/kernel/host_tail) nest INSIDE the CLI merge phase,
+    # so they attribute rather than extend the total.
+    total = cli_total + buckets["queue_wait"] + buckets["batch_window"]
+    accounted = sum(buckets.values())
+    result = {
+        "artifact": str(path),
+        "trace_id": data.get("trace_id"),
+        "reason": data.get("reason"),
+        "total_seconds": round(total, 6),
+        "buckets": {b: round(v, 6) for b, v in buckets.items()},
+        "other_seconds": round(max(total - accounted, 0.0), 6),
+    }
+    if corrupt:
+        result["corrupt_lines"] = corrupt
+    return result
+
+
+def _pctl(values: List[float], q: float) -> float:
+    if not values:
+        return 0.0
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, int(round(q * (len(vals) - 1))))]
+
+
+def cmd_trace_analyze(args: argparse.Namespace) -> int:
+    """Per-request latency attribution from trace/postmortem artifacts:
+    one file → its critical-path breakdown; a directory → p50/p99 per
+    bucket over every span-shaped artifact in it."""
+    analyze = _analyze_artifact
+    order = CRITICAL_PATH_BUCKETS
+    path = pathlib.Path(args.artifact)
+    since_s = None
+    if getattr(args, "since", None):
+        try:
+            since_s = _parse_duration(args.since)
+        except (ValueError, KeyError):
+            print(f"error: bad --since duration {args.since!r} "
+                  f"(want e.g. 90s, 15m, 2h, 1d)", file=sys.stderr)
+            return 2
+    if path.is_dir():
+        candidates = sorted(list(path.glob("*.json"))
+                            + list(path.glob("*.jsonl")))
+        if since_s is not None:
+            cutoff = time.time() - since_s
+            aged = len(candidates)
+            candidates = [p for p in candidates
+                          if p.stat().st_mtime >= cutoff]
+            aged -= len(candidates)
+        else:
+            aged = 0
+        results, skipped, corrupt_lines = [], 0, 0
+        for p in candidates:
+            r = analyze(p)
+            if r is None:
+                skipped += 1
+                continue
+            corrupt_lines += int(r.pop("corrupt_lines", 0) or 0)
+            results.append(r)
+        if skipped or corrupt_lines:
+            # Rotated/chaos-era dirs legitimately hold truncated or
+            # corrupt artifacts; report what was passed over instead
+            # of crashing on it or hiding it.
+            parts = []
+            if skipped:
+                parts.append(f"{skipped} corrupt/non-span artifact(s)")
+            if corrupt_lines:
+                parts.append(f"{corrupt_lines} corrupt JSONL line(s)")
+            print(f"note: skipped {', '.join(parts)} under {path}",
+                  file=sys.stderr)
+        if not results:
+            print(f"error: no span-shaped artifacts under {path}"
+                  + (f" within the last {args.since}" if since_s is not None
+                     and aged else ""),
+                  file=sys.stderr)
+            return 1
+        summary = {
+            "requests": len(results),
+            "skipped": skipped,
+            "corrupt_lines": corrupt_lines,
+            "p50": {}, "p99": {},
+            "results": results,
+        }
+        for bucket in order + ("other_seconds", "total_seconds"):
+            vals = [r["buckets"].get(bucket, r.get(bucket, 0.0))
+                    if bucket in order else r.get(bucket, 0.0)
+                    for r in results]
+            summary["p50"][bucket] = round(_pctl(vals, 0.50), 6)
+            summary["p99"][bucket] = round(_pctl(vals, 0.99), 6)
+        if args.json:
+            print(json.dumps(summary, indent=2))
+            return 0
+        print(f"critical path over {len(results)} request artifact(s):")
+        print(f"{'bucket':<14} {'p50 ms':>10} {'p99 ms':>10}")
+        for bucket in order + ("other_seconds", "total_seconds"):
+            label = bucket.replace("_seconds", "")
+            print(f"{label:<14} {summary['p50'][bucket] * 1e3:>10.1f} "
+                  f"{summary['p99'][bucket] * 1e3:>10.1f}")
+        return 0
+    if not path.is_file():
+        print(f"error: no artifact at {path}", file=sys.stderr)
+        return 1
+    result = analyze(path)
+    if result is None:
+        print(f"error: {path} is not a span-shaped trace or postmortem "
+              f"artifact", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(result, indent=2))
+        return 0
+    tid = result.get("trace_id") or "-"
+    print(f"trace {tid}: total {result['total_seconds'] * 1e3:.1f} ms")
+    print(f"{'bucket':<14} {'ms':>10} {'share':>7}")
+    total = result["total_seconds"] or 1.0
+    for bucket in order:
+        v = result["buckets"][bucket]
+        print(f"{bucket:<14} {v * 1e3:>10.1f} {v / total:>6.1%}")
+    v = result["other_seconds"]
+    print(f"{'other':<14} {v * 1e3:>10.1f} {v / total:>6.1%}")
+    return 0
+
+
+def _artifact_phases(path: pathlib.Path) -> tuple[dict | None, str]:
+    """Per-phase wall seconds of one artifact, plus its display id.
+    Accepts span-shaped artifacts (traces, postmortem bundles) and
+    the JAX package's triage bundles (whose ``offender.phases_ms`` is
+    already a phase map)."""
+    data, _corrupt = _load_span_artifact(path)
+    if not isinstance(data, dict):
+        return None, "-"
+    tid = str(data.get("trace_id") or "-")
+    triage = data.get("triage")
+    if isinstance(triage, dict) and isinstance(
+            triage.get("offender"), dict):
+        phases_ms = triage["offender"].get("phases_ms") or {}
+        return ({str(k): float(v) / 1000.0 for k, v in phases_ms.items()},
+                str(triage["offender"].get("trace_id") or tid))
+    spans = data.get("spans")
+    if not isinstance(spans, list):
+        return None, tid
+    phases: dict = {}
+    for row in spans:
+        if not isinstance(row, dict):
+            continue
+        name = str(row.get("name") or "?")
+        try:
+            phases[name] = phases.get(name, 0.0) + \
+                float(row.get("seconds") or 0.0)
+        except (TypeError, ValueError):
+            continue
+    return phases, tid
+
+
+def cmd_trace_diff(args: argparse.Namespace) -> int:
+    """Phase-aligned diff of two artifacts — the manual-attribution
+    twin of the anomaly auto-triage bundle (same diff rows, same
+    suspect_phase semantics, via :func:`obs.anomaly.phase_diff`)."""
+    from .obs import anomaly as obs_anomaly
+    path_a, path_b = pathlib.Path(args.a), pathlib.Path(args.b)
+    for path in (path_a, path_b):
+        if not path.is_file():
+            print(f"error: no artifact at {path}", file=sys.stderr)
+            return 1
+    a_phases, a_id = _artifact_phases(path_a)
+    b_phases, b_id = _artifact_phases(path_b)
+    if a_phases is None or b_phases is None:
+        bad = path_a if a_phases is None else path_b
+        print(f"error: {bad} is not a span-shaped trace artifact",
+              file=sys.stderr)
+        return 1
+    diff = obs_anomaly.phase_diff(a_phases, b_phases)
+    result = {"a": {"artifact": str(path_a), "trace_id": a_id},
+              "b": {"artifact": str(path_b), "trace_id": b_id},
+              "suspect_phase": diff["suspect_phase"],
+              "phases": diff["phases"]}
+    if args.json:
+        print(json.dumps(result, indent=2))
+        return 0
+    print(f"trace diff  A={a_id}  B={b_id}")
+    print(f"{'phase':<24} {'A ms':>10} {'B ms':>10} {'delta':>10} "
+          f"{'ratio':>7}")
+    for row in diff["phases"]:
+        ratio = f"{row['ratio']:.2f}x" if row["ratio"] is not None else "-"
+        print(f"{row['phase']:<24} {row['a_ms']:>10.1f} "
+              f"{row['b_ms']:>10.1f} {row['delta_ms']:>+10.1f} "
+              f"{ratio:>7}")
+    if diff["suspect_phase"]:
+        print(f"suspect phase: {diff['suspect_phase']}")
+    return 0
+
+
+def cmd_trace_diff(args: argparse.Namespace) -> int:
+    """Phase-aligned diff of two artifacts (same diff rows and
+    suspect_phase semantics as the JAX CLI, via
+    :func:`obs.anomaly.phase_diff`)."""
+    path_a, path_b = pathlib.Path(args.a), pathlib.Path(args.b)
+    for path in (path_a, path_b):
+        if not path.is_file():
+            print(f"error: no artifact at {path}", file=sys.stderr)
+            return 1
+    a_phases, a_id = _artifact_phases(path_a)
+    b_phases, b_id = _artifact_phases(path_b)
+    if a_phases is None or b_phases is None:
+        bad = path_a if a_phases is None else path_b
+        print(f"error: {bad} is not a span-shaped trace artifact",
+              file=sys.stderr)
+        return 1
+    diff = obs_anomaly.phase_diff(a_phases, b_phases)
+    result = {"a": {"artifact": str(path_a), "trace_id": a_id},
+              "b": {"artifact": str(path_b), "trace_id": b_id},
+              "suspect_phase": diff["suspect_phase"],
+              "phases": diff["phases"]}
+    if args.json:
+        print(json.dumps(result, indent=2))
+        return 0
+    print(f"trace diff  A={a_id}  B={b_id}")
+    print(f"{'phase':<24} {'A ms':>10} {'B ms':>10} {'delta':>10} "
+          f"{'ratio':>7}")
+    for row in diff["phases"]:
+        ratio = f"{row['ratio']:.2f}x" if row["ratio"] is not None else "-"
+        print(f"{row['phase']:<24} {row['a_ms']:>10.1f} "
+              f"{row['b_ms']:>10.1f} {row['delta_ms']:>+10.1f} "
+              f"{ratio:>7}")
+    if diff["suspect_phase"]:
+        print(f"suspect phase: {diff['suspect_phase']}")
+    return 0

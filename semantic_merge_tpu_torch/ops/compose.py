@@ -55,6 +55,7 @@ from ..core.encode import (NULL_ID, OP_COLUMNS, PAD_ID, Interner, OpTensor,
                            shard_bucket)
 from ..core.ops import UNKNOWN_PRECEDENCE, Op
 from ..device import resolve_device
+from ..obs import spans as obs_spans
 from .oplog_view import _materialize_decoded, cursor_walk_conflicts_columnar
 
 _PAD_PREC = 2**30  # sorts after every real precedence
@@ -252,9 +253,18 @@ def compose_oplogs_device(delta_a: List[Op], delta_b: List[Op],
                           ) -> Tuple[List[Op], List[Conflict]]:
     """Compose two op logs on ``device`` (CUDA unless ``"cpu"`` is asked
     for). Returns ``(composed, conflicts)``, equal to the host
-    composer's."""
+    composer's. Recorded as the ``compose_device`` span (layer ``ops``)
+    unless both logs are empty."""
     if not isinstance(device, torch.device):
         device = resolve_device(device)
+    if not delta_a and not delta_b:
+        return [], []
+    with obs_spans.span("compose_device", layer="ops", n_a=len(delta_a), n_b=len(delta_b)):
+        return _compose_on(delta_a, delta_b, device)
+
+
+def _compose_on(delta_a: List[Op], delta_b: List[Op], device: torch.device
+                ) -> Tuple[List[Op], List[Conflict]]:
     if not delta_a and not delta_b:
         return [], []
     interner = Interner()
@@ -291,6 +301,13 @@ def recompose_resolved(delta_a: List[Op], delta_b: List[Op],
     (:mod:`semantic_merge_tpu_torch.resolve.engine`): compose the two
     op streams a resolution rewrote (conflicting ops dropped or
     replaced). The JAX package composes them with its host composer;
-    this runs :func:`compose_oplogs_device` on ``device``, with the same
-    bytes. The streams are plain object lists at this point."""
-    return compose_oplogs_device(list(delta_a), list(delta_b), device)
+    this runs the device compose on ``device``, with the same bytes. The
+    streams are plain object lists at this point. Spans as in the JAX
+    package: ``recompose_resolved`` around ``compose_oplogs`` (the name
+    of the composer it stands in for; layer ``ops``)."""
+    if not isinstance(device, torch.device):
+        device = resolve_device(device)
+    n = dict(n_a=len(delta_a), n_b=len(delta_b))
+    with obs_spans.span("recompose_resolved", layer="ops", **n), \
+            obs_spans.span("compose_oplogs", layer="ops", **n):
+        return _compose_on(list(delta_a), list(delta_b), device)

@@ -61,6 +61,9 @@ from ..core.encode import (NULL_ID, PAD_ID, DeclTensor, Interner, bucket_size,
                            pad_to, shard_ranges)
 from ..core.ids import op_id_prefix_digest, value_digest10
 from ..core.ops import dumps_canonical
+from ..obs import device as obs_device
+from ..obs import metrics as obs_metrics
+from ..obs import spans as obs_spans
 from ..utils import faults
 from .compose import _PAD_PREC, _rename_candidates_cols, _seg_last_valid
 from .diff import KIND_ADD, KIND_DELETE, KIND_MOVE, KIND_RENAME, _diff_plan
@@ -179,7 +182,10 @@ class TailPlan:
     and its memoized per-shard results. Driven eagerly
     (:meth:`prefetch`) or lazily (first access); a queued decode that
     has not started is cancelled and computed inline by its consumer, so
-    consumers never wait behind their own pool."""
+    consumers never wait behind their own pool. Each shard's decode and
+    materialization is recorded as a ``materialize_overlap`` span
+    (``stage`` ``decode`` / ``materialize``), in whichever thread ran
+    it."""
 
     def __init__(self, pipeline: TailPipeline, n: int, decode_fn) -> None:
         self.pipeline = pipeline
@@ -193,7 +199,14 @@ class TailPlan:
         with self._lock:
             for r in self.ranges:
                 if r not in self._decoded:
-                    self._decoded[r] = self.pipeline.submit(self._decode_fn, *r)
+                    self._decoded[r] = self.pipeline.submit(self._timed_decode, *r)
+
+    def _timed_decode(self, lo: int, hi: int):
+        t0 = time.perf_counter()
+        out = self._decode_fn(lo, hi)
+        obs_spans.record("materialize_overlap", time.perf_counter() - t0, layer="ops",
+                         t_start=t0, stage="decode", rows=hi - lo)
+        return out
 
     def shard_overrides(self, lo: int, hi: int):
         """One shard's decoded chain overrides ``(addr, file, name)``:
@@ -206,7 +219,7 @@ class TailPlan:
         if ent is not None and not ent.cancel():
             out = ent.result()
         else:
-            out = self._decode_fn(lo, hi)
+            out = self._timed_decode(lo, hi)
         with self._lock:
             self._decoded[key] = out
         return out
@@ -215,7 +228,12 @@ class TailPlan:
         """One shard's ops, ``build_fn(lo, hi, overrides)``: a pool job
         under ``eager_overlap``, else an inline thunk."""
         def run():
-            return build_fn(lo, hi, self.shard_overrides(lo, hi))
+            overrides = self.shard_overrides(lo, hi)
+            t0 = time.perf_counter()
+            ops = build_fn(lo, hi, overrides)
+            obs_spans.record("materialize_overlap", time.perf_counter() - t0,
+                             layer="ops", t_start=t0, stage="materialize", rows=hi - lo)
+            return ops
         if not self.pipeline.eager_overlap:
             return _Immediate(run)
         return self.pipeline.submit(run)
@@ -271,8 +289,11 @@ class DeviceStrings:
         self._n_hashed = max(self._n_hashed, n)
         if self._dev is None:
             self._dev = _h2d(self._host, self.device)
+            obs_device.record_transfer("h2d", self._host.nbytes)
         elif n > self._n_dev:
-            self._dev[self._n_dev:n] = _h2d(self._host[self._n_dev:n], self.device)
+            delta = self._host[self._n_dev:n]
+            self._dev[self._n_dev:n] = _h2d(delta, self.device)
+            obs_device.record_transfer("h2d", delta.nbytes)
         self._n_dev = n
         return self._dev
 
@@ -533,9 +554,10 @@ class FusedMergeEngine:
         """int32 ``[4, bucket]`` (sym, addr, name, file) on the device."""
         bucket = bucket_size(max(t.n, 1))
         null = np.int32(NULL_ID)
-        return _h2d(np.stack([pad_to(t.sym, bucket, PAD_ID), pad_to(t.addr, bucket, null),
-                              pad_to(t.name, bucket, null), pad_to(t.file, bucket, null)]),
-                    self.device)
+        stacked = np.stack([pad_to(t.sym, bucket, PAD_ID), pad_to(t.addr, bucket, null),
+                            pad_to(t.name, bucket, null), pad_to(t.file, bucket, null)])
+        obs_device.record_transfer("h2d", stacked.nbytes)
+        return _h2d(stacked, self.device)
 
     def _digest(self, seed: str, rev: str) -> torch.Tensor:
         return _h2d(np.frombuffer(op_id_prefix_digest(seed, rev), np.uint8), self.device)
@@ -553,6 +575,7 @@ class FusedMergeEngine:
         for _attempt in range(4):
             C = bucket_size(max(self._cap_hint, 8))
             flat = _fused_diff_program(dev_b, dev_s, hash_tab, dig, C).cpu().numpy()
+            obs_device.record_transfer("d2h", flat.nbytes)
             n_ops = int(flat[0])
             if not flat[1]:
                 break
@@ -583,17 +606,30 @@ class FusedMergeEngine:
         run per row range, pre-submitted to the worker pool when it has
         more than one worker and core. The op logs render on the device
         when eligible (:mod:`.render`). The ``kernel`` fault-injection
-        stage fires before the dispatch."""
+        stage fires before the dispatch.
+
+        While a detailed span recorder is active (``--trace``,
+        ``--profile``) the steps are recorded as the JAX engine records
+        them: ``h2d``, then per attempt ``kernel`` and ``fetch``, then
+        ``materialize``, ``render`` (when dispatched), ``fetch`` (mid),
+        ``compose_decode``, and ``chain_decode`` when the composed view
+        is first read (layer ``ops``). They time the host: ``kernel`` is
+        the dispatch (no synchronization is added), the fetches include
+        the wait for the card. Transfers count in the device block."""
         faults.check("kernel")
-        t0 = time.perf_counter()
+        detailed = obs_spans.detailed_active()
+        t0 = t_start = time.perf_counter()
         hash_tab = self.strings.sync()
         dig_l = self._digest(seed + "/L", base_rev)
         dig_r = self._digest(seed + "/R", base_rev)
         dev_b = self._device_decl(base_t)
         dev_l = self._device_decl(left_t)
         dev_r = self._device_decl(right_t)
+        if detailed:
+            obs_spans.record("h2d", time.perf_counter() - t0, layer="ops", t_start=t0)
         for _attempt in range(4):
             C = bucket_size(max(self._cap_hint, 8))
+            t0 = time.perf_counter()
             head_dev, mid_dev, chains_dev = _fused_merge_program(
                 dev_b, dev_l, dev_r, hash_tab, dig_l, dig_r, C)
             if overlap_work is not None:
@@ -601,7 +637,13 @@ class FusedMergeEngine:
                 overlap_work = None
                 for nodes in (base_nodes, left_nodes, right_nodes):
                     _get_fields(self._fields, nodes)
+            if detailed:
+                obs_spans.record("kernel", time.perf_counter() - t0, layer="ops", t_start=t0)
+                t0 = time.perf_counter()
             flat = head_dev.cpu().numpy()
+            obs_device.record_transfer("d2h", flat.nbytes)
+            if detailed:
+                obs_spans.record("fetch", time.perf_counter() - t0, layer="ops", t_start=t0)
             n_l, n_r = int(flat[0]), int(flat[1])
             if not flat[4]:
                 break
@@ -609,7 +651,7 @@ class FusedMergeEngine:
         else:
             return None
         n_out, has_cand = int(flat[2]), bool(flat[3])
-        self.phases = {"fused": time.perf_counter() - t0}
+        self.phases = {"fused": time.perf_counter() - t_start}
 
         t0 = time.perf_counter()
         cols = [flat[8 + i * C:8 + (i + 1) * C] for i in range(14)]
@@ -621,14 +663,22 @@ class FusedMergeEngine:
         ops_r = OpStreamView(kR[:n_r], aR[:n_r], bR[:n_r], wR[:n_r], base_nodes,
                              right_nodes, prov, field_cache=self._fields)
         materialize = time.perf_counter() - t0
+        if detailed:
+            obs_spans.record("materialize", materialize, layer="ops", t_start=t0)
 
         t0 = time.perf_counter()
-        self._dispatch_renders(ops_l, ops_r, (dev_b, dev_l, dev_r),
-                               (base_t, left_t, right_t), dumps_canonical(prov))
+        rendered = self._dispatch_renders(ops_l, ops_r, (dev_b, dev_l, dev_r),
+                                          (base_t, left_t, right_t), dumps_canonical(prov))
         self.phases["render"] = time.perf_counter() - t0
+        if detailed and rendered:
+            obs_spans.record("render", self.phases["render"], layer="ops", t_start=t0)
 
         t0 = time.perf_counter()
         fm = mid_dev.cpu().numpy()
+        obs_device.record_transfer("d2h", fm.nbytes)
+        if detailed:
+            obs_spans.record("fetch", time.perf_counter() - t0, layer="ops", t_start=t0)
+        t_decode = time.perf_counter()
         perm_l, perm_r, ref = fm[:C], fm[C:2 * C], fm[2 * C:]
         refs = ref[:n_out]
         sides = (refs >> 30).astype(np.int32)
@@ -647,8 +697,13 @@ class FusedMergeEngine:
         ctx_row_arr = np.asarray(ctx_rows, np.int64)
 
         def fetch_chains():
+            t1 = time.perf_counter()
             fc = chains_dev.cpu().numpy()
+            obs_device.record_transfer("d2h", fc.nbytes)
             tbl = interner.object_table()
+            if detailed:
+                obs_spans.record("chain_decode", time.perf_counter() - t1, layer="ops",
+                                 t_start=t1)
             return fc[:n_out], fc[2 * C:2 * C + n_out], fc[4 * C:4 * C + n_out], tbl
 
         chains_cell = _OnceCell(fetch_chains)
@@ -673,26 +728,37 @@ class FusedMergeEngine:
         if self._tail.eager_overlap:
             plan.prefetch()
         self.phases["materialize"] = materialize + time.perf_counter() - t0
+        if detailed:
+            obs_spans.record("compose_decode", time.perf_counter() - t_decode, layer="ops",
+                             t_start=t_decode)
+            obs_device.update_live_buffer_hwm()
+        reg = obs_metrics.REGISTRY
+        reg.counter("semmerge_composed_ops_total",
+                    "Composed ops emitted by the fused merge path").inc(len(sides))
+        if conflicts:
+            reg.counter("semmerge_fused_conflicts_total",
+                        "DivergentRename conflicts from the fused path").inc(len(conflicts))
         return ops_l, ops_r, composed, conflicts
 
     def _dispatch_renders(self, ops_l, ops_r, decl_dev, decl_host, prov_json: str) -> None:
         """Launch both streams' device renders (eligibility as in the
         JAX package: ``render_posture`` and at least ``_min_rows``
-        rows); a failure raises."""
+        rows); a failure raises. Returns whether they were launched."""
         from .render import DeviceRenderer, render_posture
         posture = render_posture()
         if posture == "off":
-            return
+            return False
         if self._renderer is None:
             self._renderer = DeviceRenderer(self.interner, self.device)
         if not self._renderer.eligible(max(len(ops_l), len(ops_r)), posture=posture):
-            return
+            return False
         dev_b, dev_l, dev_r = decl_dev
         base_t, left_t, right_t = decl_host
         for view, dev_s, side_t in ((ops_l, dev_l, left_t), (ops_r, dev_r, right_t)):
             view.render = self._renderer.dispatch(
                 view.kind, view.a_slot, view.b_slot, view.words, dev_b, dev_s,
                 base_t, side_t, prov_json, require=posture == "require")
+        return True
 
     def _conflict_walk(self, ops_l, ops_r, p_l, p_r, sides, idxs, decl_host):
         """The host half of a merge whose precheck found candidates: the

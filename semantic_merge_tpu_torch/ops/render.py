@@ -35,6 +35,8 @@ import torch
 from ..core.encode import Interner, bucket_size, encode_decls, pad_to
 from ..core.ops import dumps_canonical
 from ..errors import KernelFault
+from ..obs import device as obs_device
+from ..obs import spans as obs_spans
 from .oplog_view import _TMPL_ADD, _TMPL_DELETE, _TMPL_MOVE, _TMPL_RENAME, _esc_body
 
 ENV_POSTURE = "SEMMERGE_DEVICE_RENDER"
@@ -161,12 +163,16 @@ class EscapedStrings:
         if self._dev is None:
             self._dev = tuple(torch.tensor(a, device=self.device)
                               for a in (self._blob, self._offs, self._lens))
+            obs_device.record_transfer(
+                "h2d", self._blob.nbytes + self._offs.nbytes + self._lens.nbytes)
         elif n > self._n_dev:
             blob, offs, lens = self._dev
-            blob[self._blob_dev_n:self._blob_n] = torch.tensor(
-                self._blob[self._blob_dev_n:self._blob_n], device=self.device)
-            offs[self._n_dev:n] = torch.tensor(self._offs[self._n_dev:n], device=self.device)
-            lens[self._n_dev:n] = torch.tensor(self._lens[self._n_dev:n], device=self.device)
+            upd = (self._blob[self._blob_dev_n:self._blob_n], self._offs[self._n_dev:n],
+                   self._lens[self._n_dev:n])
+            blob[self._blob_dev_n:self._blob_n] = torch.tensor(upd[0], device=self.device)
+            offs[self._n_dev:n] = torch.tensor(upd[1], device=self.device)
+            lens[self._n_dev:n] = torch.tensor(upd[2], device=self.device)
+            obs_device.record_transfer("h2d", sum(a.nbytes for a in upd))
         self._n_dev, self._blob_dev_n = n, self._blob_n
         return self._dev
 
@@ -282,11 +288,13 @@ class RenderedStream:
 
     def _fetch(self) -> np.ndarray:
         if self._buf is None:
-            try:
-                self._buf = self._buf_dev.cpu().numpy()
-            except Exception as exc:
-                raise KernelFault(f"device render fetch failed: {exc}", stage="render",
-                                  cause=type(exc).__name__) from exc
+            with obs_spans.span("render.d2h", layer="ops", rows=self.n, width=self.W):
+                try:
+                    self._buf = self._buf_dev.cpu().numpy()
+                except Exception as exc:
+                    raise KernelFault(f"device render fetch failed: {exc}", stage="render",
+                                      cause=type(exc).__name__) from exc
+                obs_device.record_transfer("d2h", self._buf.nbytes)
             self._buf_dev = None
         return self._buf
 
@@ -386,6 +394,9 @@ class DeviceRenderer:
 
         w_p = np.zeros((n_pad, 4), np.int32)
         w_p[:n] = words
+        obs_device.record_transfer(
+            "h2d", 3 * n_pad * 4 + w_p.nbytes + spec.blob.nbytes + spec.sel.nbytes
+            + spec.lit.nbytes + spec.litlen.nbytes)
         buf = _render_program(
             col(kind, 3), col(a_slot, -1), col(b_slot, -1), torch.tensor(w_p, device=dev),
             bcols_dev, scols_dev, torch.tensor(spec.sel, device=dev),

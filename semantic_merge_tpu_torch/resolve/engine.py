@@ -1,6 +1,5 @@
 """The resolution engine: propose → verify → accept (the port's copy of
-the JAX package's ``resolve/engine.py``, without its circuit breakers,
-metrics and spans).
+the JAX package's ``resolve/engine.py``, without its circuit breakers).
 
 Flow per merge (called from the CLI when the compose yields conflicts
 and the posture enables the tier):
@@ -26,6 +25,13 @@ the stage that failed inside a gate); the CLI contains it under posture
 ``auto`` and exits 17 under ``require``. A device fault of the
 re-compose is a :class:`~semantic_merge_tpu_torch.errors.KernelFault`,
 which the CLI never contains.
+
+Telemetry as in the JAX package: the ``resolution.propose`` (per
+conflict) and ``resolution.verify`` spans and the ``resolution.accept``
+record (layer ``resolve``); ``resolutions_total{category,outcome}`` with
+outcomes ``no-candidates``, ``tie``, ``rejected``, ``accepted`` and
+(category ``all``) ``fault``; a ``resolver-fault`` postmortem bundle for
+an absorbed fault.
 """
 from __future__ import annotations
 
@@ -37,11 +43,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..core.ops import Op
 from ..errors import MergeFault, fault_boundary
-from ..utils import faults
+from ..obs import flight as obs_flight
+from ..obs import metrics as obs_metrics
+from ..obs import spans as obs_spans
+from ..utils import faults, workdir
 from .base import Candidate, ResolveContext, Resolver
 from .search import SearchResolver
 
 logger = logging.getLogger(__name__)
+
+_METRIC_HELP = "Conflict-resolution proposals, by category and outcome"
 
 #: Verify gates, in the order they run.
 GATES = ("recompose", "parity", "typecheck", "format")
@@ -57,10 +68,20 @@ class ResolutionOutcome:
     records: List[dict] = field(default_factory=list)
 
 
+def _count(category: str, outcome: str) -> None:
+    obs_metrics.REGISTRY.counter("resolutions_total", _METRIC_HELP).inc(
+        1, category=category, outcome=outcome)
+
+
 def record_resolver_fault(fault: MergeFault) -> None:
     """Containment bookkeeping for a resolver fault the CLI absorbed
-    (posture ``auto``): a log line."""
+    (posture ``auto``): a log line, ``resolutions_total{category="all",
+    outcome="fault"}`` and a ``resolver-fault`` postmortem bundle (its
+    ``breakers`` empty: the port runs no circuit breakers)."""
     logger.warning("conflict resolution fell back after %s", fault.describe())
+    _count("all", "fault")
+    obs_flight.dump(obs_spans.trace_id() or obs_flight.default_trace_id(),
+                    "resolver-fault", fault=fault, breakers={}, root=workdir.root())
 
 
 def resolve_conflicts(conflicts: Sequence, log_a: List[Op], log_b: List[Op],
@@ -93,19 +114,22 @@ def resolve_conflicts(conflicts: Sequence, log_a: List[Op], log_b: List[Op],
             "gates": [],
         }
         records.append(rec)
-        with fault_boundary("resolver:propose"):
+        with obs_spans.span("resolution.propose", layer="resolve", category=category), \
+                fault_boundary("resolver:propose"):
             faults.check("resolver:propose")
             cands = list(resolver.propose(cd, ctx))
         rec["candidates"] = len(cands)
         rec["scores"] = {c.id: c.score for c in cands}
         if not cands:
             rec["cause"] = "no-candidates"
+            _count(category, "no-candidates")
             continue
         best = max(c.score for c in cands)
         top = [c for c in cands if c.score == best]
         if len(top) > 1 or best <= 0:
             # Equal evidence (or none): choosing would be a guess.
             rec["cause"] = "tie"
+            _count(category, "tie")
             continue
         rec["candidate"] = top[0].audit()
         winners.append((rec, top[0]))
@@ -115,12 +139,14 @@ def resolve_conflicts(conflicts: Sequence, log_a: List[Op], log_b: List[Op],
         # conflicted merge.
         for rec, _ in winners:
             rec["cause"] = "peer-unresolved"
+            _count(rec["category"], "rejected")
         return ResolutionOutcome(False, None, records)
 
     gates: List[dict] = []
     for rec in records:
         rec["gates"] = gates  # one shared verify run covers the set
-    with fault_boundary("resolver:verify"):
+    with obs_spans.span("resolution.verify", layer="resolve", n=len(winners)), \
+            fault_boundary("resolver:verify"):
         faults.check("resolver:verify")
         composed2, failed = _verify(
             [c for _, c in winners], log_a, log_b, gates,
@@ -129,9 +155,12 @@ def resolve_conflicts(conflicts: Sequence, log_a: List[Op], log_b: List[Op],
     if failed is not None:
         for rec, _ in winners:
             rec["cause"] = f"gate:{failed}"
+            _count(rec["category"], "rejected")
         return ResolutionOutcome(False, None, records)
     for rec, _ in winners:
         rec["status"] = "accepted"
+        _count(rec["category"], "accepted")
+    obs_spans.record("resolution.accept", 0.0, layer="resolve", n=len(winners))
     return ResolutionOutcome(True, composed2, records)
 
 

@@ -39,6 +39,8 @@ from typing import Iterable, Set
 import numpy as np
 
 from ..core.ops import Op
+from ..obs import metrics as obs_metrics
+from ..obs import spans as obs_spans
 from ..utils import faults
 
 logger = logging.getLogger(__name__)
@@ -49,12 +51,26 @@ def apply_ops(base_tree: pathlib.Path, ops: Iterable[Op]) -> pathlib.Path:
     (a new temporary directory the caller removes). A column-backed
     composed view takes the columnar loop, anything else (and anything
     under ``SEMMERGE_OBJECT_APPLY=1``) the object loop. The ``apply``
-    fault-injection stage fires first."""
+    fault-injection stage fires first.
+
+    Recorded as the ``apply_ops`` span (layer ``runtime``; meta ``ops``,
+    ``device_crdt`` — always false here: the port resolves
+    ``reorderImports`` lists on the host, where the JAX package's TPU
+    backend batches them on the device — and ``columnar`` on the
+    columnar loop) and ``semmerge_ops_applied_total``."""
     faults.check("apply")
     view = _columnar_view(ops)
+    counter = obs_metrics.REGISTRY.counter(
+        "semmerge_ops_applied_total", "Composed ops handed to the tree applier")
     if view is not None and not _object_apply_forced():
-        return _apply_columnar(pathlib.Path(base_tree), view)
-    return _apply_objects(pathlib.Path(base_tree), list(ops))
+        counter.inc(len(view))
+        with obs_spans.span("apply_ops", layer="runtime", ops=len(view),
+                            device_crdt=False, columnar=True):
+            return _apply_columnar(pathlib.Path(base_tree), view)
+    ops = list(ops)
+    counter.inc(len(ops))
+    with obs_spans.span("apply_ops", layer="runtime", ops=len(ops), device_crdt=False):
+        return _apply_objects(pathlib.Path(base_tree), ops)
 
 
 def _object_apply_forced() -> bool:
@@ -189,22 +205,36 @@ def _row_order_actions(view, kind_row, is_l, idxs, file_o) -> list:
 
 
 def _apply_columnar(base_tree: pathlib.Path, view) -> pathlib.Path:
+    """The columnar loop (the ``apply_columnar`` span); counts the rows
+    it consumed by action in ``semmerge_columnar_apply_rows_total``."""
     out = pathlib.Path(tempfile.mkdtemp(prefix="semmerge_merged_"))
     shutil.copytree(base_tree, out, dirs_exist_ok=True)
-    for groups in iter_columnar_actions(view):
-        for g in groups:
-            if g[0] == "rename":
-                for f, old, new in zip(g[1], g[2], g[3]):
-                    _rename_symbol_in_file(out, f, old, new)
-            elif g[0] == "move":
-                for old, new in zip(g[1], g[2]):
-                    _move_decl_path(out, old, new)
-            else:  # ("rows", [...]): the exact row-order assembly
-                for act in g[1]:
-                    if act[0] == "rename":
-                        _rename_symbol_in_file(out, *act[1:])
-                    else:
-                        _move_decl_path(out, *act[1:])
+    renames = moves = 0
+    with obs_spans.span("apply_columnar", layer="runtime", rows=len(view)):
+        for groups in iter_columnar_actions(view):
+            for g in groups:
+                if g[0] == "rename":
+                    renames += len(g[1])
+                    for f, old, new in zip(g[1], g[2], g[3]):
+                        _rename_symbol_in_file(out, f, old, new)
+                elif g[0] == "move":
+                    moves += len(g[1])
+                    for old, new in zip(g[1], g[2]):
+                        _move_decl_path(out, old, new)
+                else:  # ("rows", [...]): the exact row-order assembly
+                    for act in g[1]:
+                        if act[0] == "rename":
+                            _rename_symbol_in_file(out, *act[1:])
+                            renames += 1
+                        else:
+                            _move_decl_path(out, *act[1:])
+                            moves += 1
+    rows = obs_metrics.REGISTRY.counter(
+        "semmerge_columnar_apply_rows_total",
+        "Composed rows consumed by the columnar applier, by action")
+    rows.inc(renames, action="rename")
+    rows.inc(moves, action="move")
+    rows.inc(len(view) - renames - moves, action="skip")
     return out
 
 

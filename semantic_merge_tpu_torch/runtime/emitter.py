@@ -18,6 +18,7 @@ import subprocess
 from typing import Sequence
 
 from ..errors import DeadlineFault
+from ..obs import spans as obs_spans
 from ..utils import faults
 from ..utils.procs import env_seconds, run_with_deadline
 
@@ -74,21 +75,24 @@ def emit_files(tree_path: pathlib.Path,
         if not existing:
             return
         cmd = base_cmd + [_escape_glob(p) for p in existing]
+        scope = len(existing)
     else:
         cmd = base_cmd + ["."]
+        scope = -1  # whole tree
     deadline = env_seconds("SEMMERGE_FORMAT_TIMEOUT", 300.0)
-    try:
-        run_with_deadline(cmd, timeout=deadline, stage="format",
-                          cwd=tree_path, check=True,
-                          stdout=subprocess.DEVNULL,
-                          stderr=subprocess.DEVNULL)
-    except FileNotFoundError:
-        logger.debug("Formatter %s not available; skipping", cmd[0])
-    except subprocess.CalledProcessError as exc:
-        logger.warning("Formatter exited with code %s", exc.returncode)
-    except DeadlineFault as exc:
-        logger.warning("Formatter killed: %s", exc.describe())
-    except OSError as exc:
-        # E2BIG on huge touched lists and friends — formatting never
-        # fails a merge ([FBK-003] posture).
-        logger.warning("Formatter could not run: %s", exc)
+    with obs_spans.span("emit_files", layer="runtime", files=scope):
+        try:
+            run_with_deadline(cmd, timeout=deadline, stage="format",
+                              cwd=tree_path, check=True,
+                              stdout=subprocess.DEVNULL,
+                              stderr=subprocess.DEVNULL)
+        except FileNotFoundError:
+            logger.debug("Formatter %s not available; skipping", cmd[0])
+        except subprocess.CalledProcessError as exc:
+            logger.warning("Formatter exited with code %s", exc.returncode)
+        except DeadlineFault as exc:
+            logger.warning("Formatter killed: %s", exc.describe())
+        except OSError as exc:
+            # E2BIG on huge touched lists and friends — formatting never
+            # fails a merge ([FBK-003] posture).
+            logger.warning("Formatter could not run: %s", exc)

@@ -55,7 +55,9 @@ import time
 from typing import Iterable, Iterator, List, Tuple
 
 from ..errors import ApplyFault
-from ..utils import faults
+from ..obs import metrics as obs_metrics
+from ..obs import spans as obs_spans
+from ..utils import faults, workdir
 from ..utils.procs import env_seconds
 
 logger = logging.getLogger(__name__)
@@ -103,6 +105,9 @@ def _break_stale_lock(path: pathlib.Path) -> bool:
             return False  # released (or re-acquired live) since the probe
         path.unlink(missing_ok=True)
         logger.warning("reclaiming stale in-place lock %s", path)
+        obs_metrics.REGISTRY.counter(
+            "semmerge_inplace_lock_stale_total",
+            "Stale repo-level in-place locks reclaimed").inc(1)
         return True
     finally:
         with contextlib.suppress(OSError):
@@ -143,11 +148,12 @@ def repo_lock(root: pathlib.Path | None = None,
     reclaiming stale locks on the way; expiry raises an
     :class:`~semantic_merge_tpu_torch.errors.ApplyFault` (exit 13) so a
     wedged peer surfaces as a fault, not a silent hang."""
-    root = pathlib.Path(root) if root is not None else pathlib.Path.cwd()
+    root = pathlib.Path(root) if root is not None else workdir.root()
     path = root / LOCKFILE
     if timeout is None:
         timeout = env_seconds("SEMMERGE_INPLACE_LOCK_TIMEOUT", 600.0)
     deadline = time.monotonic() + timeout if timeout > 0 else None
+    waited = False
     while True:
         try:
             fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY, 0o644)
@@ -161,11 +167,16 @@ def repo_lock(root: pathlib.Path | None = None,
                     f"timed out after {timeout:g}s waiting for the "
                     f"in-place lock {path}", stage="commit",
                     cause="lock-timeout")
+            waited = True
             time.sleep(0.05)
     try:
         os.write(fd, f"{os.getpid()} {int(time.time())}\n".encode("ascii"))
     finally:
         os.close(fd)
+    if waited:
+        obs_metrics.REGISTRY.counter(
+            "semmerge_inplace_lock_waits_total",
+            "In-place merges that waited for the repo lock").inc(1)
     try:
         yield path
     finally:
@@ -184,22 +195,26 @@ def _safe_rel(rel: str) -> pathlib.PurePosixPath:
 
 def commit_tree_inplace(tree: pathlib.Path, deletes: Iterable[str] = (),
                         root: pathlib.Path | None = None) -> None:
-    """Publish ``tree`` into ``root`` (default cwd) crash-safely. The
-    ``commit`` fault-injection stage fires once the journal is written."""
+    """Publish ``tree`` into ``root`` (default :func:`workdir.root`)
+    crash-safely: the ``inplace_stage`` span copies it into the stage,
+    the journal is written, the ``commit`` fault-injection stage fires,
+    and the ``inplace_commit`` span renames the stage into place
+    (``semmerge_inplace_commits_total``)."""
     tree = pathlib.Path(tree)
-    root = pathlib.Path(root) if root is not None else pathlib.Path.cwd()
+    root = pathlib.Path(root) if root is not None else workdir.root()
     stage = root / STAGE_DIR
     if stage.exists():
         shutil.rmtree(stage)
     writes: List[str] = []
-    for path in sorted(tree.rglob("*")):
-        if not path.is_file():
-            continue
-        rel = path.relative_to(tree).as_posix()
-        dst = stage / rel
-        dst.parent.mkdir(parents=True, exist_ok=True)
-        shutil.copy2(path, dst)
-        writes.append(rel)
+    with obs_spans.span("inplace_stage", layer="runtime"):
+        for path in sorted(tree.rglob("*")):
+            if not path.is_file():
+                continue
+            rel = path.relative_to(tree).as_posix()
+            dst = stage / rel
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy2(path, dst)
+            writes.append(rel)
     journal = {
         "schema": JOURNAL_SCHEMA,
         "state": "committing",
@@ -209,7 +224,12 @@ def commit_tree_inplace(tree: pathlib.Path, deletes: Iterable[str] = (),
     }
     _write_journal(root, journal)
     faults.check("commit")
-    _roll_forward(root, journal)
+    with obs_spans.span("inplace_commit", layer="runtime",
+                        writes=len(writes), deletes=len(journal["deletes"])):
+        _roll_forward(root, journal)
+    obs_metrics.REGISTRY.counter(
+        "semmerge_inplace_commits_total",
+        "Crash-safe in-place commits completed").inc(1)
 
 
 def _write_journal(root: pathlib.Path, journal: dict) -> None:
@@ -250,7 +270,7 @@ def recover(root: pathlib.Path | None = None) -> Tuple[str, int]:
     touched). A torn/unreadable journal rolls back: the journal write
     is atomic, so an unreadable one cannot have committed anything.
     """
-    root = pathlib.Path(root) if root is not None else pathlib.Path.cwd()
+    root = pathlib.Path(root) if root is not None else workdir.root()
     jpath = root / JOURNAL
     stage = root / STAGE_DIR
     if jpath.exists():
@@ -273,10 +293,18 @@ def recover(root: pathlib.Path | None = None) -> Tuple[str, int]:
             # documented ApplyFault exit, never a traversal.
             raise ApplyFault(str(exc), stage="commit",
                              cause="journal-tampered") from exc
+        _count_recovery("rolled-forward")
         return "rolled-forward", n
     if stage.exists():
         logger.warning("discarding pre-commit stage from an interrupted "
                        "merge (work tree was never touched)")
         shutil.rmtree(stage, ignore_errors=True)
+        _count_recovery("rolled-back")
         return "rolled-back", 0
     return "none", 0
+
+
+def _count_recovery(action: str) -> None:
+    obs_metrics.REGISTRY.counter(
+        "semmerge_inplace_recoveries_total",
+        "Interrupted in-place commits resolved").inc(1, action=action)

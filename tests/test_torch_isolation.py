@@ -6,8 +6,10 @@
 - Importing every module of the port leaves ``jax`` and the JAX package
   out of ``sys.modules``.
 - The strict, statement-op, native-scan and git-facing modules
-  (faults, ladder, resolution tier, driver) are among them; the merge
-  driver imports the standard library only; the
+  (faults, ladder, resolution tier, driver) and the telemetry modules
+  (``obs/``, ``runtime/trace.py``, ``utils/loggingx.py``,
+  ``utils/workdir.py``) are among them; the merge driver and ``obs/``
+  import the standard library only (and their own package); the
   native scanner is the port's own build of its own copy of the C++
   source, never the JAX package's ``native/`` library.
 - Without a CUDA device the CLI's three commands (without ``--device cpu``) and
@@ -90,6 +92,27 @@ def test_git_slice_modules_are_checked_and_stand_alone(module):
     path = PORT / module
     assert path in _port_sources()
     assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+#: The telemetry slice: the port's own copies of the JAX package's
+#: ``obs/`` (one-shot half), ``runtime/trace.py`` and the utils they use.
+TELEMETRY_MODULES = ("obs/__init__.py", "obs/metrics.py", "obs/spans.py", "obs/flight.py",
+                     "obs/device.py", "obs/anomaly.py", "obs/report.py", "runtime/trace.py",
+                     "utils/loggingx.py", "utils/workdir.py")
+
+
+@pytest.mark.parametrize("module", TELEMETRY_MODULES)
+def test_telemetry_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    roots = _imported_roots(path)
+    assert not roots & set(FORBIDDEN), roots
+    if module.startswith("obs/") or module.startswith("utils/"):
+        # Imported at module top by every layer: the standard library
+        # only (the device block asks torch inside its functions, once a
+        # backend chose a CUDA device).
+        allowed = {"torch"} if module == "obs/device.py" else set()
+        assert roots <= set(sys.stdlib_module_names) | {"__future__"} | allowed, roots
 
 
 def test_driver_imports_the_standard_library_only():

@@ -7,9 +7,9 @@ tpu`` (``JAX_PLATFORMS=cpu``) in fresh copies of one repository (the
 a file and edits ``notes.txt``, so the semantic and the textual merge
 agree) under the same ``SEMMERGE_FAULT`` and compares the exit code, the
 work tree's bytes (``.semmerge-conflicts.json`` included), ``git status
---porcelain`` and both notes. The JAX CLI's flight-recorder dumps
-(``.semmerge-postmortem/``, telemetry the port does not write yet) are
-left out of both.
+--porcelain`` and both notes. The flight-recorder bundles
+(``.semmerge-postmortem/``, with times and pids; held against each other
+in ``tests/test_torch_trace.py``) are left out of both.
 
 - ``LADDER``: scan, apply and emit × fault and raise in the default
   posture: both exit 0 on the textual rung, with the same tree, equal to
@@ -39,7 +39,7 @@ from semantic_merge_tpu_torch.utils import faults
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 
-#: Written by the JAX CLI only (its flight recorder).
+#: Flight-recorder bundles (times and pids; compared in tests/test_torch_trace.py).
 JAX_ONLY = ".semmerge-postmortem"
 
 

@@ -56,7 +56,7 @@ from test_resolve import UTIL_A_BAR, UTIL_B_BAZ, UTIL_BASE, make_repo
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARTIFACT = ".semmerge-conflicts.json"
-#: Written by the JAX CLI only (its flight recorder).
+#: Flight-recorder bundles (times and pids; compared in tests/test_torch_trace.py).
 JAX_ONLY = ".semmerge-postmortem"
 
 _FOO = "export function foo(n: number): number {\n  return n;\n}\n"
