@@ -25,11 +25,12 @@ Phases, each fatal on failure, each printing its seconds:
    function of 256 other files, the other branch moves every 4th file
    to ``lib/``, the stmt branch edits the body of the last function of
    every 3rd file, the drv branch renames the last function of every
-   40th file (250), and
+   80th file (125), and
    rsv_base gives the last function of every 10th file (1,000) a
    three-line body whose first line rsv_a edits and whose second rsv_b
    edits; a matcher checkpoint from the port's seeded (untrained)
-   initializer.
+   initializer. One ``git fast-import`` writes every branch's commit;
+   only side's tree is written to disk, by its checkout.
 4. Five runs of the port's CLI functions, each under a torch.profiler
    trace (wall, phases, device busy time and idle share), with the decl
    cache emptied and the launch counts and shapes set to 0 just before
@@ -79,7 +80,13 @@ Phases, each fatal on failure, each printing its seconds:
    one library call (``scaled_dot_product_attention``, a yardstick
    only); the bound from this run's shapes. Then the fused merge and
    diff programs and the render program, on the inputs the fused paths
-   gave them: device time, kernels and host time per call.
+   gave them: device time, kernels and host time per call. With them the
+   batched fused program (``ops/fused.py::batched_fused_program``) at
+   B=4 on the fused semmerge's captured inputs (C = 32,768, four copies
+   on the merge axis): each row byte-equal to the one-merge program's
+   one-buffer row, the same ``sha256`` launches (2, over 4C rows each)
+   and at most 1.1x the kernels of one one-merge call; its device ms,
+   kernels and host ms per call printed beside the one-merge call's.
 5b. trace (in-process, no profiler of this script around it): ``semmerge
    base side other --inplace --trace --profile DIR`` in a fifth work
    tree at side: exit 0, the tree and both notes equal the untraced
@@ -99,14 +106,16 @@ Phases, each fatal on failure, each printing its seconds:
 6. driver merge (not in-process): ``git merge --no-ff drv`` on side in
    a clone, with ``python -m semantic_merge_tpu_torch.driver %O %A %B
    %P`` registered as ``merge.semmerge.driver`` for ``*.ts`` in
-   ``.git/info/attributes`` and the default engine settings (the fused
-   engine): git exits 0 without degrading, the merge commit's tree is
-   side's with drv's 250 renames, the work tree differs from it in
+   ``.git/info/attributes``, the default engine settings (the fused
+   engine) and ``SEMMERGE_DAEMON=off`` (the driver's default, ``auto``,
+   would spawn a merge service daemon; phase 7b measures that): git
+   exits 0 without degrading, the merge commit's tree is
+   side's with drv's 125 renames, the work tree differs from it in
    exactly the files that side retyped or added a function to (354 at
    rung5, whatever drv renames: the engine's in-place tree, as the JAX
    driver leaves it), the latch
-   exists, notes sit on both heads (drv's: 250 renames and their 250
-   moves), git started the driver 250 times (its trace2 log, required),
+   exists, notes sit on both heads (drv's: 125 renames and their 125
+   moves), git started the driver 125 times (its trace2 log, required),
    and a process other than this one held the card during the merge
    (the CLI child: the card's used memory up by 100 MiB or more);
    prints git's wall, the child's and the other starts'.
@@ -118,6 +127,25 @@ Phases, each fatal on failure, each printing its seconds:
    in every such file, no ``sha256`` or ``flash_chunk`` launch (strict
    mode skips the fused engine); prints the resolve phase and each
    gate's ms.
+7b. service: ``python -m semantic_merge_tpu_torch serve --workers 4`` in
+   a child (``SEMMERGE_BATCH_WINDOW_MS=2000``): it must come up, answer
+   ``serve --status`` with the port's package and platform ``gpu``, and
+   hold the card (used memory up 100 MiB or more while it serves the
+   cold merge). Then, ``SEMMERGE_DAEMON=require``: the cold ``semmerge
+   base side other --inplace`` from a client process in a sixth work
+   tree (exit 0, tree and notes equal phase 4's fused semmerge's, 1
+   request and 4 ``sha256`` launches in the daemon's status); the warm
+   ``semdiff base side --json-out`` (op log equal to phase 4's, one
+   residency hit; its scan and encode seconds printed beside phase
+   4's); the matcher semdiff with ``--profile DIR`` (op log equal to
+   phase 4's, 8 ``flash_chunk`` records in DIR, 8 launches in the
+   daemon); four ``--inplace`` clients at once in four ``git clone
+   --local`` copies of a rung3 repository (1,000 files x 6 decls), each
+   tree equal to a one-shot merge's, co-batched (``requests_batched``
+   >= 2, ``mean_batch_size`` > 1); SIGTERM, a drain to exit 0. Prints
+   each client's wall, the batch and residency stats. (The warm and
+   matcher semdiffs go over the wire from this process, which reads the
+   daemon's reply ``meta``.)
 8. reference: small inputs on the card and on the CPU must give
    identical op logs (a matcher semdiff) and identical exit codes,
    trees, conflicts and notes (fused semmerges, one with a
@@ -131,6 +159,10 @@ Phases, each fatal on failure, each printing its seconds:
    under ``--strict-conflicts`` merged line by line (the gates' wall
    times masked in the comparison).
 
+At the end, pass or fail, every child this run started that still runs
+is stopped, and so is any process whose working directory lies in the
+run's scratch directory; no other process is matched.
+
 Prints the kernels' JSON line, the card line, and last the device JSON.
 """
 from __future__ import annotations
@@ -140,6 +172,7 @@ import os
 import pathlib
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -681,6 +714,67 @@ class Capture:
         return False
 
 
+def check_batched_program(torch, captured) -> dict:
+    """The batched fused program at B = 4 on the inputs the fused
+    semmerge gave the one-merge program (the captured call: decl
+    columns, digest table, digests and capacity, four copies stacked on
+    the merge axis): each of its 4 rows byte-equal to the one-merge
+    program's one-buffer row, exactly as many ``sha256`` launches (one
+    per side, over ``4 * C`` rows each) as one one-merge call, by the
+    wrappers' counts. Returns the batched program for :func:`time_programs`."""
+    from semantic_merge_tpu_torch import kernels
+    from semantic_merge_tpu_torch.ops import fused
+
+    _fn, args, _kwargs = captured
+    B, C = 4, args[6]
+    single_args = (*args[:7],)
+    stacked = [a.unsqueeze(0).expand(B, *a.shape).contiguous() for a in args[:6]]
+    program = fused.batched_fused_program(B, *(a.shape[-1] for a in args[:3]), C)
+    kernels.reset_launches()
+    one = fused._fused_merge_program(*single_args)
+    torch.cuda.synchronize()
+    single_sha = kernels.LAUNCHES["sha256"]
+    kernels.reset_launches()
+    rows = program(*stacked)
+    torch.cuda.synchronize()
+    batched_sha = kernels.LAUNCHES["sha256"]
+    kernels.reset_launches()
+    one_bytes = one.cpu().numpy().tobytes()
+    host = rows.cpu().numpy()
+    if host.shape != (B, 8 + 24 * C):
+        fail(f"the batched program gave {host.shape}, expected {(B, 8 + 24 * C)}")
+    for i in range(B):
+        if host[i].tobytes() != one_bytes:
+            fail(f"row {i} of the batched program differs from the one-merge program's row")
+    if batched_sha != single_sha or single_sha != 2:
+        fail(f"the batched program launched sha256 {batched_sha} times, one merge "
+             f"{single_sha} (expected 2 each: one per side)")
+    print(f"batched program: B={B}, C={C}: {B} rows byte-equal to the one-merge one-buffer "
+          f"row; sha256 launches {batched_sha} (one merge: {single_sha}; {B * C} rows each)",
+          flush=True)
+    return {f"batched merge program (B={B})": (program, stacked, {})}
+
+
+def check_batched_timing(programs: dict) -> dict:
+    """The batched program's kernels against one one-merge call's: at
+    most 1.1x, and the same ``sha256`` launches, from the profiles of
+    :func:`time_programs`."""
+    single = programs["fused merge program"]
+    batched = programs["batched merge program (B=4)"]
+    if batched["kernels"] > 1.1 * single["kernels"]:
+        fail(f"the batched program issued {batched['kernels']} kernels, one merge "
+             f"{single['kernels']} (at most 1.1x)")
+    if batched["sha256_launches"] != single["sha256_launches"]:
+        fail(f"sha256 records: batched {batched['sha256_launches']}, one merge "
+             f"{single['sha256_launches']}")
+    out = {"kernels_ratio": batched["kernels"] / single["kernels"],
+           "host_ms_batched": batched["host_ms"], "host_ms_single": single["host_ms"],
+           "host_ms_four_singles": 4 * single["host_ms"],
+           "device_ms_batched": batched["device_ms"], "device_ms_single": single["device_ms"]}
+    print(f"batched program against one merge: {json.dumps(out)}", flush=True)
+    return out
+
+
 # --- phase 3: the semantic diff end to end -----------------------------------
 
 def _unique_params(idx: int, n_digits: int) -> str:
@@ -751,12 +845,12 @@ def synth_trees(n_files: int, decls: int, n_retyped: int):
     return base, side, other, stmt
 
 
-#: The driver merge's branch edits every 40th file (250 driver starts at
-#: rung5), the resolve merge's branches every 10th.
-DRV_EVERY, RSV_EVERY = 40, 10
+#: The driver merge's branch edits every 80th file (125 driver starts at
+#: rung5), the resolve merge's branches every 20th (500 conflicts).
+DRV_EVERY, RSV_EVERY = 80, 10
 
 
-#: The body ``rsv_base`` gives the last function of every 10th file, and
+#: The body ``rsv_base`` gives the last function of every 20th file, and
 #: the two disjoint edits of it on ``rsv_a`` (line 1) and ``rsv_b``
 #: (line 2).
 RSV_BODY = "{\n  n = n + 1;\n  n = n * 2;\n  return n;\n}\n"
@@ -766,13 +860,13 @@ def extra_branches(base: dict) -> dict:
     """Four more branches, each as (start, {path: content} of the files
     it changes):
 
-    - ``drv`` (on base) renames the last function of every 40th file,
+    - ``drv`` (on base) renames the last function of every 80th file,
       ``fn<i>_3`` -> ``drv<i>_3`` (each such file is even, so side
       renames its first function: git starts the merge driver for every
       one of them). A rename and not a body edit: with the default
       engine settings a body edit is no op and the merge drops it, in
       the JAX package as in the port (``tests/test_torch_driver.py``);
-    - ``rsv_base`` (on base) gives the last function of every 10th file
+    - ``rsv_base`` (on base) gives the last function of every 20th file
       a three-line body (:data:`RSV_BODY`); on it ``rsv_a`` edits its
       first line (``n = n + i;``) and ``rsv_b`` its second (``n = n *
       4;``): a ConcurrentStmtEdit per file under ``--strict-conflicts``,
@@ -809,57 +903,49 @@ def _reshape(content: str, name: str, new_name: str, new_return: str) -> str:
 def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict,
               stmt: dict | None = None, extras: dict | None = None) -> None:
     """A git repository with branches ``base``, ``side`` and ``other``
-    (and ``stmt`` if given), each a commit on ``base``, ``side`` checked
-    out. ``extras`` ({branch: (start, {path: content})}, in order) adds
-    a commit per branch on its start that writes only those files, with
-    one ``git fast-import`` (no work tree is written for them)."""
-    env = dict(os.environ, GIT_AUTHOR_DATE="2024-01-01T00:00:00Z",
-               GIT_COMMITTER_DATE="2024-01-02T00:00:00Z",
-               GIT_AUTHOR_NAME="smoke", GIT_AUTHOR_EMAIL="smoke@example.com",
+    (and ``stmt`` if given), each a commit on ``base`` holding exactly
+    its tree, ``side`` checked out. ``extras`` ({branch: (start,
+    {path: content})}, in order) adds a commit per branch on its start
+    that writes only those files. One ``git fast-import`` writes every
+    commit (no work tree is written but ``side``'s, by the checkout)."""
+    env = dict(os.environ, GIT_AUTHOR_NAME="smoke", GIT_AUTHOR_EMAIL="smoke@example.com",
                GIT_COMMITTER_NAME="smoke", GIT_COMMITTER_EMAIL="smoke@example.com")
 
     def git(*args):
         subprocess.run(["git", *args], cwd=root, env=env, check=True,
                        stdout=subprocess.DEVNULL)
 
-    def commit(tree, message):
-        for top in ("src", "lib"):
-            shutil.rmtree(root / top, ignore_errors=True)
-        for path, text in tree.items():
-            (root / path).parent.mkdir(parents=True, exist_ok=True)
-            (root / path).write_text(text)
-        git("add", "-A")
-        git("commit", "-q", "-m", message)
-
     root.mkdir(parents=True)
     git("init", "-q", "-b", "base")
     git("config", "user.email", "smoke@example.com")  # git notes needs an identity
     git("config", "user.name", "smoke")
-    commit(base, "base")
-    git("checkout", "-q", "-b", "other")
-    commit(other, "other")
-    if stmt is not None:
-        git("checkout", "-q", "-b", "stmt", "base")
-        commit(stmt, "stmt")
-    if extras:
-        stream = bytearray()
+    stream = bytearray()
 
-        def data(payload: bytes) -> None:
-            stream.extend(b"data %d\n" % len(payload) + payload + b"\n")
+    def data(payload: bytes) -> None:
+        stream.extend(b"data %d\n" % len(payload) + payload + b"\n")
 
-        for name, (start, files) in extras.items():
-            stream.extend(f"commit refs/heads/{name}\n"
-                          "author smoke <smoke@example.com> 1704067200 +0000\n"
-                          "committer smoke <smoke@example.com> 1704153600 +0000\n".encode())
-            data(name.encode())
+    def commit(name: str, start: str | None, files: dict, whole_tree: bool) -> None:
+        stream.extend(f"commit refs/heads/{name}\n"
+                      "author smoke <smoke@example.com> 1704067200 +0000\n"
+                      "committer smoke <smoke@example.com> 1704153600 +0000\n".encode())
+        data(name.encode())
+        if start is not None:
             stream.extend(f"from refs/heads/{start}\n".encode())
-            for path, text in files.items():
-                stream.extend(f"M 100644 inline {path}\n".encode())
-                data(text.encode())
-        subprocess.run(["git", "fast-import", "--quiet"], cwd=root, env=env, check=True,
-                       input=bytes(stream), stdout=subprocess.DEVNULL)
-    git("checkout", "-q", "-b", "side", "base")
-    commit(side, "side")
+        if whole_tree:
+            stream.extend(b"deleteall\n")
+        for path, text in files.items():
+            stream.extend(f"M 100644 inline {path}\n".encode())
+            data(text.encode())
+
+    commit("base", None, base, True)
+    for name, tree in (("other", other), ("stmt", stmt), ("side", side)):
+        if tree is not None:
+            commit(name, "base", tree, True)
+    for name, (start, files) in (extras or {}).items():
+        commit(name, start, files, False)
+    subprocess.run(["git", "fast-import", "--quiet"], cwd=root, env=env, check=True,
+                   input=bytes(stream), stdout=subprocess.DEVNULL)
+    git("checkout", "-q", "-f", "side")
 
 
 def run_cli(torch, repo: pathlib.Path, argv: list):
@@ -1210,7 +1296,11 @@ def run_driver_merge(repo: pathlib.Path, clone: pathlib.Path, ckpt: pathlib.Path
     write_config(clone, ckpt)
     trace = clone.parent / "driver-trace2.jsonl"
     trace.unlink(missing_ok=True)
+    # SEMMERGE_DAEMON=off: the driver's default posture (auto) would spawn
+    # a merge service daemon on the default socket and hand it the merge;
+    # this phase measures the one-shot child, the service phase the daemon.
     env = dict(os.environ, PYTHONPATH=str(REPO), GIT_TRACE2_EVENT=str(trace),
+               SEMMERGE_DAEMON="off",
                GIT_AUTHOR_DATE="2024-01-03T00:00:00Z", GIT_COMMITTER_DATE="2024-01-03T00:00:00Z")
     heads = [git("rev-parse", rev).stdout.strip() for rev in ("side", "drv")]
     t0 = time.perf_counter()
@@ -1426,6 +1516,265 @@ def check_profiled_matcher_semdiff(repo: pathlib.Path, card: str) -> dict:
     return {"wall_s": wall, "flash_chunk_launches": launches["flash_chunk"],
             "flash_chunk_records": records.get("flash_chunk", 0), "ranges": sorted(ranges),
             "profile_bytes": size, "ops": len(result.ops)}
+
+
+# --- the service phase -------------------------------------------------------
+
+#: The concurrent leg's repository: the bench's rung3 size (1,000 files
+#: x 6 decls, ``bench.py``'s ladder), four clones merged at once.
+SVC_FILES, SVC_DECLS, SVC_CLIENTS = 1_000, 6, 4
+
+
+def _digest(text: str) -> str:
+    import hashlib
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def _svc_env(sock: pathlib.Path, **extra) -> dict:
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SEMMERGE_")}
+    env.update(PYTHONPATH=str(REPO), SEMMERGE_SERVICE_SOCKET=str(sock), **extra)
+    return env
+
+
+def _svc_status(sock: pathlib.Path) -> dict:
+    from semantic_merge_tpu_torch.service import client
+    return client.call_control("status", path=str(sock), timeout=60)
+
+
+def _svc_verb(sock: pathlib.Path, root: pathlib.Path, verb: str, argv: list) -> dict:
+    """One request on the wire, as a client process sends it (argv, cwd,
+    env): the result frame, with the daemon's ``meta`` (its queue wait
+    and the CLI's phases)."""
+    from semantic_merge_tpu_torch.service import client
+    t0 = time.perf_counter()
+    resp = client.call_verb(verb, {"argv": argv, "cwd": str(root), "env": {}},
+                            path=str(sock), timeout=900)
+    if "result" not in resp:
+        fail(f"the daemon refused {verb} {' '.join(argv)}: {resp.get('error')}")
+    resp["result"]["wall_s"] = time.perf_counter() - t0
+    return resp["result"]
+
+
+def _clone_at_side(src: pathlib.Path, dst: pathlib.Path, ckpt: pathlib.Path) -> None:
+    subprocess.run(["git", "clone", "-q", "--local", "--no-checkout", str(src), str(dst)],
+                   check=True)
+    for rev in ("base", "side", "other"):
+        if rev != "side":
+            subprocess.run(["git", "branch", "-q", rev, f"origin/{rev}"], cwd=dst, check=True)
+    subprocess.run(["git", "checkout", "-q", "-B", "side", "origin/side"], cwd=dst, check=True)
+    for key, value in (("user.email", "smoke@example.com"), ("user.name", "smoke")):
+        subprocess.run(["git", "config", key, value], cwd=dst, check=True)
+    write_config(dst, ckpt)
+
+
+def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt: pathlib.Path,
+                      untraced: dict, phase4: dict) -> dict:
+    """The merge service on the card: ``serve --workers 4`` in a child
+    (a 2 s batch window), then, from clients, the cold fused semmerge in
+    a sixth work tree (its tree and notes phase 4's), the warm fused
+    semdiff (phase 4's op log, one residency hit), the profiled matcher
+    semdiff (phase 4's op log, 8 ``flash_chunk`` records from the
+    daemon's process), four concurrent merges of four clones of a rung3
+    repository (each the one-shot tree; co-batched), and SIGTERM (a
+    drain to exit 0). Returns what it measured."""
+    from semantic_merge_tpu_torch import cli
+
+    sock = WORK / "svc.sock"
+    svc_tree = WORK / "service"
+    subprocess.run(["git", "worktree", "add", "-q", "--detach", str(svc_tree), "side"],
+                   cwd=repo, check=True)
+    write_config(svc_tree, ckpt)
+    log = open(WORK / "svc.log", "wb")
+    out: dict = {}
+    with GpuSampler() as sampler:
+        t0 = time.perf_counter()
+        daemon = started(subprocess.Popen(
+            [sys.executable, "-m", "semantic_merge_tpu_torch", "serve", "--socket", str(sock),
+             "--workers", "4", "--idle-exit", "1200"],
+            cwd=WORK, stdout=log, stderr=subprocess.STDOUT,
+            env=_svc_env(sock, SEMMERGE_BATCH_WINDOW_MS="2000")))
+        try:
+            from semantic_merge_tpu_torch.service import client
+            while client.hello(str(sock), timeout=1.0) is None:
+                if daemon.poll() is not None or time.perf_counter() - t0 > 180:
+                    fail(f"the daemon did not come up (exit {daemon.poll()}): "
+                         f"{(WORK / 'svc.log').read_text()[-3000:]}")
+                time.sleep(0.2)
+            out["daemon_start_s"] = time.perf_counter() - t0
+            st = json.loads(subprocess.run(
+                [sys.executable, "-m", "semantic_merge_tpu_torch", "serve", "--status"],
+                env=_svc_env(sock), check=True, stdout=subprocess.PIPE, text=True,
+                timeout=120).stdout)
+            if st["package"] != "semantic_merge_tpu_torch" or st["device"]["platform"] != "gpu":
+                fail(f"serve --status answers {st['package']!r} on {st['device']}")
+            # The cold merge, from a client process.
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "semantic_merge_tpu_torch", "semmerge", "base", "side",
+                 "other", "--inplace"], cwd=svc_tree, env=_svc_env(sock, SEMMERGE_DAEMON="require"),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, timeout=900)
+            out["cold_merge_client_wall_s"] = time.perf_counter() - t0
+        except BaseException:
+            daemon.kill()
+            raise
+    try:
+        if proc.returncode != 0:
+            fail(f"the daemon-served semmerge exited {proc.returncode}: {proc.stderr[-3000:]}")
+        out["card_used_rise_mib"] = sampler.rise_mib
+        if sampler.rise_mib < CONTEXT_MIB:
+            fail(f"the daemon held no context on the card: {json.dumps(out)}")
+        if _work_tree(svc_tree) != _work_tree(fused_tree):
+            fail("the daemon-served semmerge's tree differs from phase 4's fused semmerge's")
+        if {rev: _note(repo, rev) for rev in ("side", "other")} != untraced["notes"]:
+            fail("the daemon-served semmerge's notes differ from phase 4's")
+        st = _svc_status(sock)
+        if st["served_total"] != 1 or st["device"]["launches"]["sha256"] != untraced["sha256"]:
+            fail(f"after the cold merge the daemon served {st['served_total']} requests with "
+                 f"{st['device']['launches']} launches (expected 1, {untraced['sha256']} sha256)")
+        out["cold_merge_launches"] = dict(st["device"]["launches"])
+
+        # The warm semdiff: the base is resident (scan, encode, h2d skipped).
+        warm = _svc_verb(sock, svc_tree, "semdiff", ["base", "side", "--json-out"])
+        if warm["exit_code"] != 0 or _digest(warm["stdout"]) != phase4["fused_semdiff"]:
+            fail(f"the daemon-served fused semdiff's op log differs from phase 4's "
+                 f"(exit {warm['exit_code']})")
+        st = _svc_status(sock)
+        if st["residency"]["hits"] != 1:
+            fail(f"residency after the warm semdiff: {st['residency']}")
+        ph, cold = warm["meta"]["phases"], phase4["fused_semdiff_phases"]
+        out["warm_semdiff"] = {
+            "client_wall_s": warm["wall_s"], "residency_hits": ph.get("residency_hits"),
+            "scan_s": ph["scan"], "encode_s": ph["encode"],
+            "phase4_scan_s": cold["scan"], "phase4_encode_s": cold["encode"],
+            "fused_s": ph.get("fused"), "phase4_fused_s": cold.get("fused")}
+        print(f"service: warm semdiff scan {ph['scan']:.4f} s, encode {ph['encode']:.4f} s "
+              f"(phase 4, cold: scan {cold['scan']:.4f} s, encode {cold['encode']:.4f} s); "
+              f"residency {json.dumps(st['residency'])}", flush=True)
+
+        # The matcher semdiff, profiled inside the daemon.
+        prof_dir = WORK / "profile_service"
+        launched = dict(st["device"]["launches"])
+        matcher = _svc_verb(sock, svc_tree, "semdiff",
+                            ["base", "side", "--json-out", "--change-signature",
+                             "--signature-matcher", "--profile", str(prof_dir)])
+        if matcher["exit_code"] != 0 or _digest(matcher["stdout"]) != phase4["matcher_semdiff"]:
+            fail(f"the daemon-served matcher semdiff's op log differs from phase 4's "
+                 f"(exit {matcher['exit_code']})")
+        records, _ranges, _size = profile_records(prof_dir)
+        st = _svc_status(sock)
+        flash = st["device"]["launches"]["flash_chunk"] - launched["flash_chunk"]
+        if records.get("flash_chunk", 0) != 8 or flash != 8:
+            fail(f"the daemon-served matcher semdiff: {records} kernel records, {flash} "
+                 "flash_chunk launches (expected 8 and 8)")
+        out["matcher_semdiff"] = {"client_wall_s": matcher["wall_s"],
+                                  "flash_chunk_records": records.get("flash_chunk", 0)}
+
+        # The concurrent leg: four clones of a rung3 repository at once.
+        small = WORK / "svc_repo"
+        trees = synth_trees(SVC_FILES, SVC_DECLS, SVC_FILES * N_RETYPED // N_FILES)
+        make_repo(small, *trees[:3])
+        clones = [WORK / f"svc_clone{i}" for i in range(SVC_CLIENTS + 1)]
+        for clone in clones:
+            _clone_at_side(small, clone, ckpt)
+        cwd = os.getcwd()
+        os.chdir(clones[0])
+        try:
+            t0 = time.perf_counter()
+            code = cli.main(["semmerge", "base", "side", "other", "--inplace"], delegate=False)
+            out["one_shot_wall_s"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        if code != 0:
+            fail(f"the one-shot rung3 semmerge exited {code}")
+        expected = _work_tree(clones[0])
+        before = st["batch"]
+        t0 = time.perf_counter()
+        procs = [started(subprocess.Popen(
+            [sys.executable, "-m", "semantic_merge_tpu_torch", "semmerge", "base", "side",
+             "other", "--inplace"], cwd=clone, env=_svc_env(sock, SEMMERGE_DAEMON="require"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for clone in clones[1:]]
+        walls = []
+        for p in procs:
+            _o, err = p.communicate(timeout=600)
+            walls.append(time.perf_counter() - t0)
+            if p.returncode != 0:
+                fail(f"a concurrent daemon-served semmerge exited {p.returncode}: {err[-2000:]}")
+        for clone in clones[1:]:
+            if _work_tree(clone) != expected:
+                fail(f"{clone.name}'s merged tree differs from the one-shot merge's")
+        st = _svc_status(sock)
+        batch = st["batch"]
+        leg_batches = batch["batches_total"] - before["batches_total"]
+        leg_requests = batch["requests_batched"] - before["requests_batched"]
+        out["concurrent"] = {"client_walls_s": walls, "batches": leg_batches,
+                             "requests_batched": leg_requests,
+                             "mean_batch_size": leg_requests / max(leg_batches, 1)}
+        if batch["requests_batched"] < 2 or batch["mean_batch_size"] <= 1 or \
+                leg_requests <= leg_batches:
+            fail(f"the concurrent merges did not co-batch: {json.dumps(batch)}")
+        out["batch"] = batch
+        out["residency"] = st["residency"]
+        out["served_total"] = st["served_total"]
+    finally:
+        t0 = time.perf_counter()
+        daemon.send_signal(signal.SIGTERM)
+        try:
+            rc = daemon.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            rc = "killed after 180 s"
+        log.close()
+    out["drain_s"] = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"the daemon did not drain to exit 0 on SIGTERM: {rc}")
+    return out
+
+
+#: The long-lived children this run started (the daemon, its clients).
+_STARTED: list = []
+
+
+def started(proc: subprocess.Popen) -> subprocess.Popen:
+    """Register a child for :func:`stop_leftovers`."""
+    _STARTED.append(proc)
+    return proc
+
+
+def stop_leftovers() -> None:
+    """Every process this run started has ended. A registered child
+    still running, and any process whose working directory lies in this
+    run's scratch directory ``WORK`` (a descendant such as a driver's
+    CLI child or a daemon a client spawned), is named on stderr, sent
+    SIGTERM and waited for; nothing else on the machine is touched."""
+    for proc in _STARTED:
+        if proc.poll() is None:
+            print(f"chip_smoke: stopping a leftover child {proc.pid}: {proc.args}",
+                  file=sys.stderr, flush=True)
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    me, work = os.getpid(), str(WORK)
+    for entry in pathlib.Path("/proc").iterdir():
+        if not entry.name.isdigit() or int(entry.name) == me:
+            continue
+        try:
+            cwd = os.readlink(entry / "cwd").removesuffix(" (deleted)")
+            argv = (entry / "cmdline").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        if cwd != work and not cwd.startswith(work + os.sep):
+            continue
+        text = " ".join(a.decode(errors="replace") for a in argv if a)
+        print(f"chip_smoke: stopping a leftover process {entry.name} (cwd {cwd}): {text}",
+              file=sys.stderr, flush=True)
+        try:
+            os.kill(int(entry.name), signal.SIGTERM)
+        except OSError:
+            pass
 
 
 def _tree_blobs(root: pathlib.Path, rev: str) -> dict:
@@ -1768,6 +2117,8 @@ def main() -> int:
         devices = {p.device.type for p in result.matcher.encoder.parameters()}
         if devices != {"cuda"}:
             fail(f"encoder parameters on {devices}, expected cuda")
+        from semantic_merge_tpu_torch import cli
+        phase4 = {"matcher_semdiff": _digest(cli.render(result.ops, True) + "\n")}
         counts = _counts(result.ops)
         print(f"matcher semdiff ops by type {json.dumps(counts)}", flush=True)
         if counts.get("renameSymbol") != (N_FILES + 1) // 2:
@@ -1782,6 +2133,8 @@ def main() -> int:
             result, launches, shapes, wall, busy = run_cli(
                 torch, repo, ["semdiff", "base", "side", "--json-out"])
         expect_launches("fused semdiff", launches, {"flash_chunk": 0, "sha256": None})
+        phase4["fused_semdiff"] = _digest(cli.render(result.ops, True) + "\n")
+        phase4["fused_semdiff_phases"] = dict(result.phases)
         print(f"fused semdiff checks: {json.dumps(check_fused_semdiff(torch, result))}",
               flush=True)
         runs["fused_semdiff"] = (launches, shapes)
@@ -1855,9 +2208,12 @@ def main() -> int:
         for row in rows:
             row["launches"] = {path: launches_.get(row["name"], 0)
                                for path, (launches_, _) in runs.items()}
-        time_programs(torch, {"fused merge program": merge_program.last,
-                              "fused diff program": diff_program.last,
-                              "render program (A)": render_program.first})
+        batched = check_batched_program(torch, merge_program.last)
+        programs = time_programs(torch, {"fused merge program": merge_program.last,
+                                         "fused diff program": diff_program.last,
+                                         "render program (A)": render_program.first,
+                                         **batched})
+        check_batched_timing(programs)
         t = phase("kernels", t)
 
         # --trace and --profile: the fused merge again, traced and profiled
@@ -1913,6 +2269,11 @@ def main() -> int:
             row["launches"]["resolve_semmerge"] = launches.get(row["name"], 0)
         t = phase("resolve semmerge", t)
 
+        # The merge service: the same merges, served by a warm daemon.
+        svc = run_service_phase(torch, repo, fused_tree, ckpt, untraced, phase4)
+        print(f"service: {json.dumps(svc)}", flush=True)
+        t = phase("service", t)
+
         emb_err = check_reference(torch, ckpt)
         print(f"reference: small-input op log identical on card and CPU; "
               f"embedding max abs err {emb_err:.3e} (atol 2e-2)")
@@ -1921,6 +2282,7 @@ def main() -> int:
               "trees, conflicts and notes on the card and the CPU")
         t = phase("reference", t)
     finally:
+        stop_leftovers()
         shutil.rmtree(WORK, ignore_errors=True)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -30,9 +30,20 @@ snapshots of one merge scan their shared files once.
 Both paths give op logs, composed stream and conflicts byte-identical to
 the JAX package's: same scan, same enumeration order, same
 deterministic ids, same composition.
+
+Warm residency (``service/residency.py``, on inside the merge service):
+every backend of the process adopts one shared interner
+(:func:`shared_interner`), so encoded snapshots stay valid across the
+requests' backends; a snapshot annotated with its tree
+(``frontend/snapshot.py::annotate_residency``, the base of a merge or a
+diff) is served from the residency cache when resident — no scan, no
+encode — under its identity ``(interner token, per-file decl-cache
+keys)``, which also keys the fused engine's device decl columns, so a
+repeat base ships no bytes to the card either.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List
@@ -46,7 +57,7 @@ from ..core.ids import EPOCH_ISO
 from ..core.ops import Op
 from ..device import resolve_device
 from ..frontend.declcache import DeclCache
-from ..frontend.scanner import DeclNode, ScanStats, scan_snapshot
+from ..frontend.scanner import DeclNode, ScanStats, scan_snapshot_keyed
 from ..frontend.snapshot import TS_EXTENSIONS, Snapshot, filter_files
 from ..obs import device as obs_device
 from ..obs import spans as obs_spans
@@ -54,6 +65,41 @@ from ..ops.compose import compose_oplogs_device
 from ..ops.fused import FusedMergeEngine
 from ..ops.diff import (KIND_ADD, KIND_DELETE, KIND_MOVE, KIND_RENAME,
                         DiffOpsTensor, diff_lift_device, diff_lift_device_pair)
+
+
+#: The process-shared interner of warm residency (see the module
+#: docstring); replaced only by the growth guard
+#: (:meth:`TorchTSBackend._maybe_reset_interner`).
+_SHARED_INTERNER: Interner | None = None
+_SHARED_LOCK = threading.Lock()
+#: Interned strings past which a long-lived process starts a new id
+#: space (the JAX package's guard).
+INTERNER_RESET_SIZE = 4_000_000
+
+
+def shared_interner() -> Interner:
+    """The process-shared interner, made on first use."""
+    global _SHARED_INTERNER
+    with _SHARED_LOCK:
+        if _SHARED_INTERNER is None:
+            it = Interner()
+            it.shared = True
+            _SHARED_INTERNER = it
+        return _SHARED_INTERNER
+
+
+def reset_shared_interner(old: Interner | None = None) -> Interner:
+    """Replace the process-shared interner, unless ``old`` is given and
+    another caller replaced it already (the growth guard; tests), and
+    return the current one: every identity and resident entry of the
+    old one goes stale."""
+    global _SHARED_INTERNER
+    with _SHARED_LOCK:
+        if old is None or _SHARED_INTERNER is old:
+            it = Interner()
+            it.shared = True
+            _SHARED_INTERNER = it
+        return _SHARED_INTERNER
 
 
 def ts_files(snap: Snapshot):
@@ -107,24 +153,85 @@ class TorchTSBackend:
         self.decl_cache = decl_cache
         self.phases: Dict[str, float | int | str] = {}
         self.path: str | None = None
-        self._interner = Interner()
+        from ..service import residency
+        self._interner = shared_interner() if residency.residency_enabled() else Interner()
         self._fused: FusedMergeEngine | None = None
+        #: The identities of the last call's snapshots (``None`` where a
+        #: file had no stable decl-cache key).
+        self._keys: tuple = ()
 
     def _fused_engine(self) -> FusedMergeEngine:
-        if self._fused is None:
+        if self._fused is None or self._fused.interner is not self._interner:
             self._fused = FusedMergeEngine(self._interner, self.device,
                                            host_workers=self.host_workers)
         return self._fused
 
+    def _maybe_reset_interner(self) -> None:
+        """Unbounded-growth guard for long-lived processes, run between
+        calls (never between the scans of one merge, which must share an
+        id space): a new id space past :data:`INTERNER_RESET_SIZE`
+        strings; the new token makes every cached identity stale."""
+        if len(self._interner.strings) <= INTERNER_RESET_SIZE:
+            return
+        if self._interner.shared:
+            self._interner = reset_shared_interner(self._interner)
+        else:
+            self._interner = Interner()
+
     def _scan_encode(self, snaps, clock):
+        """Scan and encode ``snaps`` into the backend's id space: the
+        decl node lists and their tensors; ``self._keys`` gets their
+        identities. A snapshot resident in the warm residency cache
+        skips both (span ``residency.hit``); an annotated one that is
+        not becomes resident (span ``residency.encode_delta``). Phases
+        ``scan`` and ``encode``, ``residency_hits``."""
+        from ..service import residency
+        self._maybe_reset_interner()
+        tok = self._interner.token
+        enabled = residency.residency_enabled()
+        res_keys = [residency.resident_key(s) if enabled else None for s in snaps]
+        hits = []
+        for key in res_keys:
+            entry = None
+            if key is not None:
+                t0 = time.perf_counter()
+                entry = residency.cache().lookup(key, token=tok)
+                if entry is not None:
+                    obs_spans.record("residency.hit", time.perf_counter() - t0,
+                                     layer="frontend", t_start=t0,
+                                     repo=key[0] or "synthetic")
+            hits.append(entry)
         stats = ScanStats()
-        nodes = [scan_snapshot(ts_files(snap), cache=self.decl_cache,
-                               native=self.native_scan, stats=stats) for snap in snaps]
+        keyed = [None if hit is not None else
+                 scan_snapshot_keyed(ts_files(snap), cache=self.decl_cache,
+                                     native=self.native_scan, stats=stats)
+                 for snap, hit in zip(snaps, hits)]
         clock.lap("scan")
         self.phases.update(scanner=stats.scanner, decl_cache_hits=stats.hits,
-                           decl_cache_misses=stats.misses)
-        tensors = [encode_decls(n, self._interner) for n in nodes]
+                           decl_cache_misses=stats.misses,
+                           residency_hits=sum(h is not None for h in hits))
+        nodes, tensors, idents = [], [], []
+        for res_key, hit, kn in zip(res_keys, hits, keyed):
+            if hit is not None:
+                nodes.append(hit.nodes)
+                tensors.append(hit.t)
+                idents.append(hit.identity)
+                continue
+            t0 = time.perf_counter()
+            flat = [n for _, file_nodes in kn for n in file_nodes]
+            t = encode_decls(flat, self._interner)
+            keys = tuple(k for k, _ in kn)
+            ident = (tok, keys) if all(k is not None for k in keys) else None
+            if res_key is not None:
+                obs_spans.record("residency.encode_delta", time.perf_counter() - t0,
+                                 layer="frontend", t_start=t0,
+                                 repo=res_key[0] or "synthetic")
+                residency.cache().put(res_key, t, flat, ident)
+            nodes.append(flat)
+            tensors.append(t)
+            idents.append(ident)
         clock.lap("encode")
+        self._keys = tuple(idents)
         return nodes, tensors
 
     def diff(self, base: Snapshot, right: Snapshot,
@@ -146,7 +253,8 @@ class TorchTSBackend:
         if not (change_signature or structured_apply or statement_ops):
             engine = self._fused_engine()
             view = engine.diff(base_t, base_nodes, right_t, right_nodes,
-                               seed=seed, base_rev=base_rev, timestamp=ts)
+                               seed=seed, base_rev=base_rev, timestamp=ts,
+                               keys=self._keys)
             clock.lap("fused")
             self.phases.update(engine.phases)
             if view is not None:
@@ -281,7 +389,7 @@ class TorchTSBackend:
             with obs_spans.span("fused_merge", layer="backend", backend=self.name):
                 fused = engine.merge(base_t, nodes[0], left_t, nodes[1], right_t, nodes[2],
                                      seed=seed, base_rev=base_rev, timestamp=ts,
-                                     overlap_work=build_symbol_maps)
+                                     overlap_work=build_symbol_maps, keys=self._keys)
             clock.lap("fused")
             self.phases.update(engine.phases)
         if fused is not None:

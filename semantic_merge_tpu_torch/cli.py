@@ -11,7 +11,9 @@ the op-log replay.
         [--trace] [--profile DIR] [--device cuda|cpu]
     python -m semantic_merge_tpu_torch semrebase COMMIT ONTO [--inplace]
         [--device cuda|cpu]
-    python -m semantic_merge_tpu_torch stats [ARTIFACT] [--json | --prometheus]
+    python -m semantic_merge_tpu_torch serve [--socket PATH] [--workers N] [--queue N]
+        [--idle-exit S] [--events PATH] [--status] [--supervise] [--device cuda|cpu]
+    python -m semantic_merge_tpu_torch stats [ARTIFACT | --daemon] [--json | --prometheus]
     python -m semantic_merge_tpu_torch trace analyze ARTIFACT|DIR [--json]
         [--since DURATION]
     python -m semantic_merge_tpu_torch trace diff A B [--json]
@@ -71,12 +73,14 @@ the bytes agree. ``SEMMERGE_FAULT=stage:kind[:nth]`` injects faults
 Exit codes: 0 merged, 1 conflicts, 2 type errors (and ``semdiff``
 without a CUDA device), 3 a git or other subprocess failed, 10 the scan
 failed or the native scanner could not be built, 11 the device engine
-failed or there is no CUDA device, 13 apply or the in-place commit
-failed, 14 the formatter stage failed (fault injection), 15 a
-typecheck deadline expired, 17 the resolution tier failed under
-``--resolve require``, 70 a refused setting (below). Codes 10-17 exit a
-``semmerge`` only in strict mode, when the text rung itself fails, or
-(11, 10 for a failed build) on a device fault.
+failed or there is no CUDA device, 12 the merge service refused or
+could not serve the request, 13 apply or the in-place commit failed, 14
+the formatter stage failed (fault injection), 15 a typecheck or request
+deadline expired, 16 a batching fault under ``SEMMERGE_BATCH=require``,
+17 the resolution tier failed under ``--resolve require``, 70 a refused
+setting (below). Codes 10-17 exit a ``semmerge`` only in strict mode,
+when the text rung itself fails, or (11 and 16, 10 for a failed build)
+on a device fault.
 
 ``.semmerge.toml`` applies as in the JAX package: ``[core]
 deterministic_seed``, ``memory_cap_mb`` (the decl cache's budget);
@@ -86,16 +90,42 @@ deterministic_seed``, ``memory_cap_mb`` (the decl cache's budget);
 ``formatter_scope``, ``host_workers``; ``[languages.typescript]
 formatter_cmd``; ``[ci] require_typecheck``.
 
+The merge service (:mod:`semantic_merge_tpu_torch.service`): ``serve``
+runs a warm daemon on a unix socket (default
+``$XDG_RUNTIME_DIR/semmerge-torch.sock``, else
+``/tmp/semmerge-torch-<uid>.sock``, never the JAX package's; or
+``SEMMERGE_SERVICE_SOCKET``, or ``--socket``) on the card (``--device
+cpu`` for tests; without a card it exits 11 before it binds; a daemon
+the client spawns for a ``--device cpu`` request runs on the CPU); ``--status`` prints a running daemon's
+status, ``--supervise`` respawns a crashed daemon. With
+``SEMMERGE_DAEMON=auto|require`` the three verbs go to the daemon
+(spawned if absent): ``auto`` runs one-shot when no daemon of this
+package answers, ``require`` exits 12; a JAX daemon on the socket counts
+as none. A request runs on the device its argv names, with the client's
+``SEMMERGE_*`` settings; the daemon co-batches concurrent merges on its
+device (``SEMMERGE_BATCH=off|auto|require``, ``SEMMERGE_BATCH_WINDOW_MS``,
+``_MAX``, ``_INFLIGHT``), keeps repeat bases resident
+(``SEMMERGE_RESIDENCY_CACHE``, ``_MB``), runs the circuit breakers
+(``SEMMERGE_BREAKER``, ``_THRESHOLD``, ``_WINDOW``, ``_COOLDOWN``; on
+inside the daemon, a no-op one-shot unless ``on``), serves ``/metrics``
+and ``/healthz`` on loopback (``SEMMERGE_METRICS_PORT``) and evaluates
+``SEMMERGE_SLO`` / ``[slo]``. Its exits: 12 queue full, draining,
+overload or an open breaker under ``--no-degrade``; 15 a request past
+``SEMMERGE_SERVICE_DEADLINE``; 16 a batching fault under
+``SEMMERGE_BATCH=require`` (also a one-shot ``semmerge`` with it, before
+anything is read: no scheduler runs outside the daemon). ``stats
+--daemon`` renders the live status.
+
 Refused, with exit 70 before a revision is read or the work tree is
 touched, because the port does not implement what they select:
 ``[languages.java|csharp|cs] enabled = true`` (another language's merge
 engine); ``[engine] backend`` other than ``tpu``/``host`` (``subprocess``
 runs ``worker_cmd``, another program); ``[engine] mesh = "require"`` or
-``SEMMERGE_MESH=require`` (a device mesh); ``SEMMERGE_DAEMON=require``
-(the merge service daemon; ``off`` and ``auto`` run one-shot, as the
-JAX client's ``auto`` does when it finds no daemon, with the same
-bytes); for ``semmerge``, ``SEMMERGE_BATCH=require`` (the batching
-tier).
+``SEMMERGE_MESH=require`` (a device mesh); ``SEMMERGE_FLEET=require``
+(the fleet router; ``auto`` finds none and falls through to the daemon
+posture, as the JAX client does); ``SEMMERGE_OTLP`` (the OTLP
+exporter); ``serve --socket tcp://...``, ``--join``, ``--advertise``,
+``--capacity``, ``--member-id`` and ``--fleet`` (the fleet).
 
 Read by the JAX package and left alone here, since they do not change
 its output: ``[engine] backend = "tpu"|"host"`` (the two give the same
@@ -105,9 +135,7 @@ diff here gives the same op logs), ``mesh = "off"|"auto"`` and
 ``max_nodes_per_bucket`` (padding only), ``parity_mode``, ``[core]
 formatter``, ``[languages.*] project_globs``, ``[ci] require_tests``
 (read, never used), ``worker_cmd`` (used only by the refused
-``subprocess`` backend), ``[slo]`` (telemetry); ``SEMMERGE_BREAKER``
-(the ladder's and the resolution tier's circuit breakers, a no-op
-outside the JAX package's daemon unless ``on``; not ported).
+``subprocess`` backend).
 
 Telemetry (:mod:`semantic_merge_tpu_torch.obs`,
 :mod:`semantic_merge_tpu_torch.runtime.trace`), as the JAX CLI records
@@ -129,9 +157,9 @@ metrics artifact (``--json``, ``--prometheus``), ``trace analyze`` its
 critical path (one file, or p50/p99 over a directory), ``trace diff``
 two artifacts phase by phase; their output is the JAX CLI's for the
 same artifact. Refused with exit 70 before anything is read, since they
-need the merge service or the bench records, which are not ported:
-``stats --daemon``, ``stats --fleet``, ``trace analyze --fleet``,
-``profile`` (``--daemon``) and ``perf``.
+need the fleet, the daemon's profile capture or the bench records,
+which are not ported: ``stats --fleet``, ``trace analyze --fleet``,
+``profile`` (``--daemon``), ``perf`` and ``top``.
 
 The commands run on the CUDA card; ``--device cpu`` runs them on the
 CPU instead. Without a card and without that flag they say why and exit,
@@ -142,11 +170,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import pathlib
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from dataclasses import dataclass, field
@@ -158,8 +186,8 @@ from .core.conflict import conflicts_payload
 from .core.strict_conflicts import detect_conflicts_strict
 from .core.ops import Op, OpLog
 from .device import DeviceUnavailable, resolve_device
-from .errors import (KernelFault, MergeFault, UnsupportedSetting, fault_boundary,
-                     is_device_fault)
+from .errors import (BatchFault, KernelFault, MergeFault, UnsupportedSetting, WorkerFault,
+                     fault_boundary, is_device_fault)
 from .frontend.declcache import configure as configure_decl_cache
 from .frontend.declcache import global_cache, publish_metrics
 from .obs import flight as obs_flight
@@ -167,14 +195,17 @@ from .obs import metrics as obs_metrics
 from .obs import spans as obs_spans
 from .runtime.applier import _normalize_relpath, apply_ops, touched_paths
 from .runtime.emitter import PRETTIER_EXTENSIONS, emit_files
+from .frontend.snapshot import annotate_residency
 from .runtime.git import (archive_bytes, checkout_tree_to_temp, commit_timestamp_iso,
-                          resolve_rev, snapshot_from_bytes, temp_tree)
+                          resolve_rev, snapshot_from_bytes, temp_tree, tree_oid)
 from .runtime.inplace import commit_tree_inplace, recover, repo_lock
 from .runtime.notes import notes_get, notes_put
 from .runtime.textmerge import apply_text_fallback
 from .runtime.trace import Tracer
 from .runtime.verify import typecheck_ts
-from .utils import workdir
+from .service import residency
+from .service.resilience import breakers
+from .utils import reqenv, workdir
 from .utils.loggingx import logger
 
 CONFLICTS_ARTIFACT = ".semmerge-conflicts.json"
@@ -252,18 +283,60 @@ def build_parser() -> argparse.ArgumentParser:
     for p in (p_diff, p_merge, p_rebase):
         p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                        help="Where to run (default: cuda; cpu only when asked)")
+    p_serve = sub.add_parser("serve",
+                             help="Run the warm-state merge service daemon on a "
+                                  "unix socket")
+    p_serve.add_argument("--socket", default=None,
+                         help="Unix socket path (default: SEMMERGE_SERVICE_SOCKET, "
+                              "else $XDG_RUNTIME_DIR/semmerge-torch.sock, else "
+                              "/tmp/semmerge-torch-<uid>.sock); tcp:// is refused")
+    p_serve.add_argument("--workers", type=int, default=None,
+                         help="Executor threads (SEMMERGE_SERVICE_WORKERS, default 4)")
+    p_serve.add_argument("--queue", type=int, default=None,
+                         help="Admission queue bound (SEMMERGE_SERVICE_QUEUE, default "
+                              "16); a full queue rejects with a typed WorkerFault, "
+                              "exit 12")
+    p_serve.add_argument("--idle-exit", type=float, default=None,
+                         help="Exit after this many idle seconds "
+                              "(SEMMERGE_SERVICE_IDLE_EXIT, default 900; 0 disables)")
+    p_serve.add_argument("--events", default=None,
+                         help="Write the daemon's span/event stream to this JSONL "
+                              "path on exit")
+    p_serve.add_argument("--status", action="store_true",
+                         help="Query a running daemon's status and exit "
+                              "(does not start one)")
+    p_serve.add_argument("--supervise", action="store_true",
+                         help="Run under a supervisor that respawns a crashed "
+                              "daemon with capped backoff")
+    p_serve.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                         help="The daemon's device (default: cuda; cpu only when asked)")
+    for flag, kw in (("--join", {}), ("--advertise", {}),
+                     ("--capacity", {"type": int}), ("--member-id", {})):
+        p_serve.add_argument(flag, default=None, help="Refused (exit 70): the fleet "
+                             "is not ported", **kw)
+    p_serve.add_argument("--fleet", action="store_true",
+                         help="Refused (exit 70): the fleet is not ported")
     from .obs import report
     report.add_parsers(sub)
     return parser
 
 
+_MATCHERS: Dict[tuple, object] = {}
+
+
 def _signature_matcher(args, engine, change_sig: bool, device):
-    """The embedding matcher when enabled (CLI flag or config)."""
+    """The embedding matcher when enabled (CLI flag or config): loaded
+    once per process and setting, so the merge service keeps it warm."""
     if not (change_sig and (args.signature_matcher or engine.signature_matcher)):
         return None
-    from .models.signature import EmbeddingSignatureMatcher
-    return EmbeddingSignatureMatcher(threshold=engine.signature_threshold,
-                                     ckpt_dir=engine.matcher_ckpt_dir, device=device)
+    key = (engine.signature_threshold, engine.matcher_ckpt_dir, str(device))
+    matcher = _MATCHERS.get(key)
+    if matcher is None:
+        from .models.signature import EmbeddingSignatureMatcher
+        matcher = _MATCHERS[key] = EmbeddingSignatureMatcher(
+            threshold=engine.signature_threshold, ckpt_dir=engine.matcher_ckpt_dir,
+            device=device)
+    return matcher
 
 
 @dataclass
@@ -301,6 +374,16 @@ def _tracer(args: argparse.Namespace, device) -> Tracer:
     return Tracer(enabled=args.trace, profile_dir=args.profile, cuda=device.type == "cuda")
 
 
+def _annotate_base(snap, rev: str) -> None:
+    """Key the base snapshot into the warm residency cache (inside the
+    merge service; the JAX CLI's ``annotate_residency`` calls): the base
+    tree repeats across a repository's merges, so a daemon serving the
+    repeats skips its scan, encode and h2d copy. The enabled check
+    comes first, so one-shot runs make no extra ``rev-parse``."""
+    if residency.residency_enabled():
+        annotate_residency(snap, str(workdir.current()), tree_oid(rev))
+
+
 def semdiff(args: argparse.Namespace) -> SemdiffResult:
     """Run ``semdiff`` for parsed ``args`` in the working directory: the
     ``snapshot`` and ``diff`` phases of the JAX CLI's ``cmd_semdiff``."""
@@ -314,6 +397,7 @@ def semdiff(args: argparse.Namespace) -> SemdiffResult:
         with tracer.phase("snapshot"):
             base_snap = snapshot_from_bytes(archive_bytes(args.rev1))
             right_snap = snapshot_from_bytes(archive_bytes(args.rev2))
+            _annotate_base(base_snap, args.rev1)
         phases = {"snapshot": time.perf_counter() - t0}
         with tracer.phase("diff"):
             ops = backend.diff(base_snap, right_snap,
@@ -362,9 +446,11 @@ def _write_conflict_reports(conflicts, resolutions=None) -> None:
 
 
 def _strict_mode(args: argparse.Namespace) -> bool:
-    """Fail-fast mode: ``--no-degrade`` or ``SEMMERGE_STRICT=1``."""
+    """Fail-fast mode: ``--no-degrade`` or ``SEMMERGE_STRICT=1`` (read
+    through the request overlay, so a daemon request carries its
+    client's posture)."""
     return (getattr(args, "no_degrade", False)
-            or (os.environ.get("SEMMERGE_STRICT", "") or "").strip() == "1")
+            or (reqenv.get("SEMMERGE_STRICT", "") or "").strip() == "1")
 
 
 def _fail_fast(fault: MergeFault, command: str = "semmerge") -> int:
@@ -379,7 +465,8 @@ def _fail_fast(fault: MergeFault, command: str = "semmerge") -> int:
         "Merge runs failed on a contained fault, by fault and stage",
     ).inc(1, fault=type(fault).__name__, stage=fault.stage)
     tid = obs_spans.trace_id() or obs_flight.default_trace_id()
-    obs_flight.dump(tid, "fault-escape", fault=fault, breakers={}, root=workdir.root())
+    obs_flight.dump(tid, "fault-escape", fault=fault, breakers=breakers().snapshot(),
+                    root=workdir.root())
     print(f"{command}: {fault.describe()} (exit {fault.exit_code}) [trace {tid}]",
           file=sys.stderr)
     return fault.exit_code
@@ -389,8 +476,8 @@ def _record_degradation(frm: str, to: str, fault: MergeFault, tracer: Tracer) ->
     """One ladder rung transition: the log line,
     ``merge_degradations_total{from,to,fault}``, a ``degradation`` span,
     a ``degradation`` postmortem bundle and the trace's
-    ``degradations`` counter. The bundle's ``breakers`` is empty, as
-    the JAX CLI's is with its breakers off (``SEMMERGE_BREAKER`` unset)."""
+    ``degradations`` counter. The bundle carries the breakers' states
+    (empty with the breakers off: one-shot, ``SEMMERGE_BREAKER`` unset)."""
     name = type(fault).__name__
     logger.warning("merge degrading %s -> %s after %s", frm, to, fault.describe())
     obs_metrics.REGISTRY.counter(
@@ -399,8 +486,9 @@ def _record_degradation(frm: str, to: str, fault: MergeFault, tracer: Tracer) ->
     ).inc(1, **{"from": frm, "to": to, "fault": name})
     obs_spans.record("degradation", 0.0, layer="cli",
                      **{"from": frm, "to": to, "fault": name, "stage": fault.stage})
-    obs_flight.dump(obs_spans.trace_id(), "degradation", fault=fault, breakers={},
-                    root=workdir.root(), extra={"degradation": {"from": frm, "to": to}})
+    obs_flight.dump(obs_spans.trace_id(), "degradation", fault=fault,
+                    breakers=breakers().snapshot(), root=workdir.root(),
+                    extra={"degradation": {"from": frm, "to": to}})
     tracer.count("degradations", tracer.counters.get("degradations", 0) + 1)
 
 
@@ -411,6 +499,13 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
     artifacts are written on every exit path. A fault that ends the
     merge is reported here (:func:`_fail_fast`) and its code returned."""
     backend = TorchTSBackend(device=args.device)  # no device: raises here
+    from . import batch
+    if batch.posture() == "require" and batch.current() is None:
+        # Outside the merge service no scheduler ever runs: fail before
+        # anything is read or recovered (the JAX CLI's host rung would
+        # merge such a run; the port has no host rung).
+        raise BatchFault("SEMMERGE_BATCH=require but no batch scheduler is active "
+                         "(batching runs in the merge service: serve)", stage="batch")
     if args.resume:
         with repo_lock():
             action, n_writes = recover()
@@ -436,6 +531,12 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
         publish_metrics()
 
 
+def _breaker_open_fault(rung: str) -> MergeFault:
+    return WorkerFault(f"circuit breaker open for rung {rung!r}: "
+                       f"skipping without an attempt", stage="breaker",
+                       cause="breaker-open")
+
+
 def _merge_ladder(args: argparse.Namespace, config, backend: TorchTSBackend,
                   tracer: Tracer) -> SemmergeResult:
     """The degradation ladder of the JAX package's ``cli._merge_ladder``
@@ -444,13 +545,35 @@ def _merge_ladder(args: argparse.Namespace, config, backend: TorchTSBackend,
     unless strict mode is on or it is a device fault
     (:func:`~semantic_merge_tpu_torch.errors.is_device_fault`): then the
     merge fails fast with the fault's code, as it does when the textual
-    rung itself fails."""
-    try:
-        return _semantic_attempt(args, config, backend, tracer)
-    except MergeFault as fault:
-        if _strict_mode(args) or is_device_fault(fault):
+    rung itself fails.
+
+    The semantic rung consults its circuit breaker
+    (:mod:`semantic_merge_tpu_torch.service.resilience`; a no-op outside
+    the merge service unless ``SEMMERGE_BREAKER=on``): an open breaker
+    skips the rung without an attempt, recorded as a degradation with
+    ``cause="breaker-open"`` (exit 12 in strict mode). A result (0, 1,
+    2, 17) counts as the rung's success, a fault that degrades as its
+    failure; a device fault does not count, since it never degrades and
+    must not open a way around the device."""
+    board = breakers()
+    rung = backend.name
+    if not board.allow(rung):
+        fault = _breaker_open_fault(rung)
+        if _strict_mode(args):
             return SemmergeResult(code=_fail_fast(fault))
-        _record_degradation(backend.name, "text", fault, tracer)
+        _record_degradation(rung, "text", fault, tracer)
+    else:
+        try:
+            out = _semantic_attempt(args, config, backend, tracer)
+            board.record_success(rung)
+            return out
+        except MergeFault as fault:
+            if is_device_fault(fault):
+                return SemmergeResult(code=_fail_fast(fault))
+            board.record_failure(rung)
+            if _strict_mode(args):
+                return SemmergeResult(code=_fail_fast(fault))
+            _record_degradation(rung, "text", fault, tracer)
     t0 = time.perf_counter()
     try:
         code = _textual_rung(args, tracer)
@@ -497,6 +620,7 @@ def _semantic_attempt(args: argparse.Namespace, config, backend: TorchTSBackend,
     with tracer.phase("snapshot"), fault_boundary("snapshot"):
         base_tar, left_tar, right_tar = (archive_bytes(rev) for rev in (args.base, args.a, args.b))
         snaps = [snapshot_from_bytes(tar) for tar in (base_tar, left_tar, right_tar)]
+        _annotate_base(snaps[0], args.base)
     base_rev = resolve_rev(args.base)
     seed = args.seed or config.core.deterministic_seed
     if seed == "auto":
@@ -704,17 +828,76 @@ def semrebase(args: argparse.Namespace) -> int:
     return 0
 
 
-def main(argv: Sequence[str] | None = None) -> int:
+def serve(args: argparse.Namespace) -> int:
+    """Start (with ``--status``, query; with ``--supervise``, supervise)
+    the merge service daemon. The daemon resolves its device before it
+    binds: without a card (and without ``--device cpu``) it raises
+    :class:`DeviceUnavailable`, which :func:`main` turns into exit 11."""
+    from .service import client as service_client
+    refused = [f"serve {flag}" for flag, on in (
+        ("--socket tcp://", str(args.socket or "").startswith("tcp://")),
+        ("--join", args.join), ("--advertise", args.advertise),
+        ("--capacity", args.capacity is not None), ("--member-id", args.member_id),
+        ("--fleet", args.fleet)) if on]
+    _refuse(refused + refused_environment("serve"))
+    if args.status:
+        try:
+            status = service_client.call_control("status", path=args.socket)
+        except service_client.DaemonUnavailable as exc:
+            print(f"semmerge serve: no daemon running ({exc})", file=sys.stderr)
+            return 1
+        print(json.dumps(status, indent=2, default=str))
+        return 0
+    if args.supervise:
+        resolve_device(args.device)  # no card: exit 11 before any child starts
+        from .service.supervisor import Supervisor, serve_argv
+        return Supervisor(serve_argv(args)).run()
+    from .service.daemon import Daemon
+    daemon = Daemon(socket_path=args.socket, workers=args.workers,
+                    queue_size=args.queue, idle_exit=args.idle_exit,
+                    events_path=args.events, device=args.device)
+    return daemon.serve_forever()
+
+
+_LAST = threading.local()
+
+
+def last_phases() -> Dict[str, float] | None:
+    """The seconds per phase of the last ``semdiff`` or ``semmerge`` that
+    :func:`main` ran on this thread (``None`` if it failed or ran
+    another command): the merge service returns them with the request."""
+    return getattr(_LAST, "phases", None)
+
+
+def main(argv: Sequence[str] | None = None, *, delegate: bool = True) -> int:
+    """The CLI. With ``delegate`` (the default) a merge-shaped command
+    goes to a warm daemon first, under ``SEMMERGE_DAEMON=auto|require``
+    (:func:`semantic_merge_tpu_torch.service.client.delegate`); the
+    package's ``__main__`` delegates before importing this module and
+    passes ``delegate=False``, as does the daemon itself."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    if delegate:
+        from .service import client as service_client
+        code = service_client.delegate(argv)
+        if code is not None:
+            return code
     try:
-        if args.command in ("stats", "trace", "profile", "perf"):
+        if args.command in ("stats", "trace", "profile", "perf", "top"):
             from .obs import report
             return report.run(args)
+        if args.command == "serve":
+            return serve(args)
+        _refuse(refused_environment(args.command))
+        _LAST.phases = None
         if args.command == "semmerge":
-            return semmerge(args).code
+            merged = semmerge(args)
+            _LAST.phases = merged.phases
+            return merged.code
         if args.command == "semrebase":
             return semrebase(args)
         result = semdiff(args)
+        _LAST.phases = result.phases
     except DeviceUnavailable as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2 if args.command == "semdiff" else EXIT_NO_DEVICE_MERGE

@@ -30,6 +30,11 @@ does:
     [ci]
     require_typecheck = true
 
+    [slo]                          # the merge service's objectives
+    objectives = "merge:p99<800ms,err<1%"
+    fast_window_s = 300.0
+    slow_window_s = 3600.0
+
 It also reads three keys only to refuse values it does not implement
 (:func:`refused_settings`): ``[engine] backend``, ``[engine] mesh`` and
 ``[languages.<name>] enabled``, and refuses the environment postures
@@ -38,11 +43,12 @@ unchanged; ``cli.py``'s docstring says why for each.
 """
 from __future__ import annotations
 
-import os
 import pathlib
 import tomllib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
+
+from .utils import reqenv
 
 
 @dataclass
@@ -79,11 +85,24 @@ class CiConfig:
 
 
 @dataclass
+class SloConfig:
+    """``[slo]``: the merge service's objectives, in the grammar of
+    ``SEMMERGE_SLO`` (which overrides it), e.g. ``"merge:p99<800ms,err<1%;
+    diff:p99<200ms"``; a TOML list of objective strings is joined with
+    ``;``."""
+
+    objectives: str | None = None
+    fast_window_s: float = 300.0
+    slow_window_s: float = 3600.0
+
+
+@dataclass
 class Config:
     core: CoreConfig = field(default_factory=CoreConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
     languages: Dict[str, LanguageConfig] = field(default_factory=dict)
     ci: CiConfig = field(default_factory=CiConfig)
+    slo: SloConfig = field(default_factory=SloConfig)
 
 
 def find_config_file(start: pathlib.Path) -> pathlib.Path | None:
@@ -96,7 +115,10 @@ def find_config_file(start: pathlib.Path) -> pathlib.Path | None:
 
 
 def load_config(start: pathlib.Path | None = None) -> Config:
-    start = pathlib.Path(start) if start is not None else pathlib.Path.cwd()
+    # The scoped request root inside a merge service request, the
+    # process's working directory otherwise (utils/workdir).
+    from .utils import workdir
+    start = pathlib.Path(start) if start is not None else workdir.root()
     cfg_path = find_config_file(start)
     config = Config()
     if cfg_path is None:
@@ -135,6 +157,14 @@ def load_config(start: pathlib.Path | None = None) -> Config:
             formatter_cmd=[str(c) for c in _as_list(ldata.get("formatter_cmd", []))] or None)
     config.ci = CiConfig(require_typecheck=bool(
         ci.get("require_typecheck", config.ci.require_typecheck)))
+    slo = data.get("slo", {})
+    objectives = slo.get("objectives")
+    if isinstance(objectives, (list, tuple)):
+        objectives = ";".join(str(o) for o in objectives if o)
+    config.slo = SloConfig(
+        objectives=str(objectives) if objectives else None,
+        fast_window_s=float(slo.get("fast_window_s", config.slo.fast_window_s)),
+        slow_window_s=float(slo.get("slow_window_s", config.slo.slow_window_s)))
     return config
 
 
@@ -156,25 +186,26 @@ def refused_settings(config: Config, command: str) -> List[str]:
                if lang in config.languages and config.languages[lang].enabled]
     if config.engine.backend not in PORTED_BACKENDS:
         refused.append(f"[engine] backend = {config.engine.backend!r}")
-    mesh_env = (os.environ.get("SEMMERGE_MESH") or "").strip().lower()
-    if mesh_env == "require":
-        refused.append("SEMMERGE_MESH=require")
-    elif not mesh_env and config.engine.mesh == "require":
+    mesh_env = (reqenv.get("SEMMERGE_MESH") or "").strip().lower()
+    if not mesh_env and config.engine.mesh == "require":
         refused.append('[engine] mesh = "require"')
     return refused + refused_environment(command)
 
 
 def refused_environment(command: str) -> List[str]:
-    """The environment postures the port cannot honour for ``command``
-    (``semdiff``, ``semmerge`` or ``semrebase``): ``SEMMERGE_DAEMON=require``
-    (there is no merge service daemon; ``off`` and ``auto`` run
-    one-shot) and, for ``semmerge``, ``SEMMERGE_BATCH=require``."""
+    """The environment settings the port cannot honour for ``command``
+    (``semdiff``, ``semmerge``, ``semrebase`` or ``serve``), read
+    through the request overlay: ``SEMMERGE_FLEET=require`` (there is no
+    fleet router; ``auto`` finds none and falls through to the daemon
+    posture, as the JAX client does) and ``SEMMERGE_OTLP`` (there is no
+    OTLP exporter) — and ``SEMMERGE_MESH=require`` (a device mesh)."""
     refused = []
-    if (os.environ.get("SEMMERGE_DAEMON") or "").strip().lower() == "require":
-        refused.append("SEMMERGE_DAEMON=require")
-    if command == "semmerge" and \
-            (os.environ.get("SEMMERGE_BATCH") or "").strip().lower() == "require":
-        refused.append("SEMMERGE_BATCH=require")
+    if (reqenv.get("SEMMERGE_MESH") or "").strip().lower() == "require":
+        refused.append("SEMMERGE_MESH=require")
+    if (reqenv.get("SEMMERGE_FLEET") or "").strip().lower() == "require":
+        refused.append("SEMMERGE_FLEET=require")
+    if (reqenv.get("SEMMERGE_OTLP") or "").strip():
+        refused.append("SEMMERGE_OTLP")
     return refused
 
 

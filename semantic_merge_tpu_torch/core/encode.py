@@ -13,6 +13,7 @@ slots sort to the end.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
@@ -26,14 +27,29 @@ PAD_ID = np.int32(2**31 - 1)
 
 
 class Interner:
-    """Insertion-ordered string→int32 interner."""
+    """Insertion-ordered string→int32 interner.
+
+    ``token`` is a process-unique id for *this* instance: cache keys
+    that embed encoded ids include it, since ids mean something only
+    relative to one interner's history. Interning is thread-safe: a hit
+    is a lock-free dict read, a miss takes the lock with a re-check, and
+    the append happens before the id becomes visible. ``shared = True``
+    marks the process-shared instance of the merge service
+    (``backends/ts_torch.py::shared_interner``): :meth:`object_table`
+    then returns a copy, since another thread's later call may re-sync
+    the cached buffer under a view."""
+
+    _token_counter = itertools.count()
 
     def __init__(self) -> None:
         self._ids: Dict[str, int] = {}
         self.strings: List[str] = []
         self._obj: np.ndarray | None = None
         self._obj_n = 0
+        self.token = next(Interner._token_counter)
+        self.shared = False
         self._lock = threading.Lock()
+        self._intern_lock = threading.Lock()
 
     def intern(self, s: str | None) -> int:
         if s is None:
@@ -41,10 +57,14 @@ class Interner:
         got = self._ids.get(s)
         if got is not None:
             return got
-        new_id = len(self.strings)
-        self.strings.append(s)
-        self._ids[s] = new_id
-        return new_id
+        with self._intern_lock:
+            got = self._ids.get(s)
+            if got is not None:
+                return got
+            new_id = len(self.strings)
+            self.strings.append(s)
+            self._ids[s] = new_id
+            return new_id
 
     def object_table(self) -> np.ndarray:
         """Read-only numpy object mirror ``[*strings, None]`` (grown
@@ -65,6 +85,8 @@ class Interner:
                 self._obj_n = n
             self._obj[n] = None
             view = self._obj[:n + 1]
+            if self.shared:
+                return self._obj[:n + 1].copy()
             view.flags.writeable = False
             return view
 

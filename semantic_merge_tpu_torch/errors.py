@@ -16,9 +16,14 @@ code  meaning
       could not be built or loaded (:class:`NativeBuildFault`)
 11    ``KernelFault`` — the device engine failed, a kernel did not
       build, or there is no CUDA device
+12    ``WorkerFault`` — the merge service refused or could not serve
+      the request (queue full, draining, overload, an open circuit
+      breaker, ``SEMMERGE_DAEMON=require`` with no daemon)
 13    ``ApplyFault`` — tree materialization or in-place commit failure
 14    ``FormatFault`` — formatter failure escalated by fault injection
-15    ``DeadlineFault`` — a subprocess deadline expired
+15    ``DeadlineFault`` — a subprocess or request deadline expired
+16    ``BatchFault`` — the batched dispatch failed under
+      ``SEMMERGE_BATCH=require``, or that posture could not be met
 17    ``ResolveFault`` — the conflict-resolution tier failed under
       ``--resolve require``
 70    ``UnsupportedSetting`` — a setting the port does not implement
@@ -79,6 +84,15 @@ class KernelFault(MergeFault):
     default_stage = "kernel"
 
 
+class WorkerFault(MergeFault):
+    """The merge service could not take or serve a request (admission
+    closed, queue full, memory pressure, an injected ``service:*``
+    fault), or a ladder rung's circuit breaker is open."""
+
+    exit_code = 12
+    default_stage = "worker"
+
+
 class ApplyFault(MergeFault):
     """Tree materialization / in-place commit failure."""
 
@@ -95,10 +109,21 @@ class FormatFault(MergeFault):
 
 
 class DeadlineFault(MergeFault):
-    """A subprocess deadline expired (typecheck, formatter)."""
+    """A deadline expired: a subprocess's (typecheck, formatter) or a
+    service request's (``SEMMERGE_SERVICE_DEADLINE``)."""
 
     exit_code = 15
     default_stage = "deadline"
+
+
+class BatchFault(MergeFault):
+    """The batched fused dispatch failed, or ``SEMMERGE_BATCH=require``
+    could not be met (``batch/``). Under ``auto`` the affected request
+    degrades to the inline dispatch on the same device and this never
+    escapes; under ``require`` it is a device fault."""
+
+    exit_code = 16
+    default_stage = "batch"
 
 
 class ResolveFault(MergeFault):
@@ -127,13 +152,21 @@ STAGE_FAULTS = {
     "format": FormatFault,
     "emit": FormatFault,
     "verify": DeadlineFault,
+    "service:accept": WorkerFault,
+    "service:dispatch": WorkerFault,
+    "service:execute": WorkerFault,
+    "batch": BatchFault,
+    "batch:pack": BatchFault,
+    "batch:mesh": BatchFault,
+    "batch:dispatch": BatchFault,
+    "batch:scatter": BatchFault,
 }
 
 #: The documented fault exit codes of the port's classes, by class name
 #: (each equal to the JAX package's).
 EXIT_CODES = {cls.__name__: cls.exit_code for cls in
-              (ParseFault, KernelFault, ApplyFault, FormatFault, DeadlineFault,
-               ResolveFault)}
+              (ParseFault, KernelFault, WorkerFault, ApplyFault, FormatFault,
+               DeadlineFault, BatchFault, ResolveFault)}
 
 #: Stages whose :class:`KernelFault` is the device's.
 DEVICE_STAGES = frozenset(("merge", "kernel", "chain"))
@@ -147,10 +180,11 @@ def fault_for_stage(stage: str) -> type:
 def is_device_fault(fault: BaseException) -> bool:
     """A fault the degradation ladder must never hide: the device engine
     failed (a :class:`KernelFault` of the ``merge``, ``kernel`` or
-    ``chain`` stage, an ``nvcc`` build included), or a build of the
-    port's own C++ failed (:class:`NativeBuildFault`)."""
+    ``chain`` stage, an ``nvcc`` build included), a build of the
+    port's own C++ failed (:class:`NativeBuildFault`), or the batched
+    dispatch failed where it was required (:class:`BatchFault`)."""
     return ((isinstance(fault, KernelFault) and fault.stage in DEVICE_STAGES)
-            or isinstance(fault, NativeBuildFault))
+            or isinstance(fault, (NativeBuildFault, BatchFault)))
 
 
 class fault_boundary:

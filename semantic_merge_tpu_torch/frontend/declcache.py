@@ -24,6 +24,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import sys
+import threading
 from collections import OrderedDict
 from typing import Any, Hashable, Optional
 
@@ -31,43 +32,56 @@ DEFAULT_CAP_MB = 512
 
 
 class DeclCache:
-    """LRU cache bounded by an approximate byte budget."""
+    """LRU cache bounded by an approximate byte budget. Thread-safe: the
+    merge service's concurrent requests scan through one cache."""
 
     def __init__(self, cap_mb: int = DEFAULT_CAP_MB) -> None:
         self.cap_bytes = cap_mb * 1024 * 1024
         self._store: "OrderedDict[Hashable, tuple[Any, int]]" = OrderedDict()
         self._bytes = 0
+        self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
 
     def get(self, key: Hashable) -> Optional[Any]:
-        entry = self._store.get(key)
-        if entry is None:
-            self.misses += 1
-            return None
-        self._store.move_to_end(key)
-        self.hits += 1
-        return entry[0]
+        with self._lock:
+            entry = self._store.get(key)
+            if entry is None:
+                self.misses += 1
+                return None
+            self._store.move_to_end(key)
+            self.hits += 1
+            return entry[0]
 
     def put(self, key: Hashable, value: Any, size: int | None = None) -> None:
         size = size if size is not None else approx_size(value)
-        old = self._store.pop(key, None)
-        if old is not None:
-            self._bytes -= old[1]
-        self._store[key] = (value, size)
-        self._bytes += size
-        while self._bytes > self.cap_bytes and len(self._store) > 1:
-            _, (_, evicted_size) = self._store.popitem(last=False)
-            self._bytes -= evicted_size
-            self.evictions += 1
+        with self._lock:
+            old = self._store.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._store[key] = (value, size)
+            self._bytes += size
+            while self._bytes > self.cap_bytes and len(self._store) > 1:
+                _, (_, evicted_size) = self._store.popitem(last=False)
+                self._bytes -= evicted_size
+                self.evictions += 1
 
     def set_cap_mb(self, cap_mb: int) -> None:
         self.cap_bytes = cap_mb * 1024 * 1024
 
     def clear(self) -> None:
-        self._store.clear()
-        self._bytes = 0
+        with self._lock:
+            self._store.clear()
+            self._bytes = 0
+
+    def stats(self) -> dict:
+        """The merge service's status block: lifetime counters, entries
+        and bytes."""
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions, "entries": len(self._store),
+                    "bytes": self._bytes}
 
 
 def approx_size(value: Any) -> int:

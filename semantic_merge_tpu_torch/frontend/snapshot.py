@@ -28,6 +28,19 @@ class Snapshot:
     project: str | None = None
 
 
+def annotate_residency(snap: Snapshot, repo_root: str, tree_oid: str,
+                       scope=None) -> Snapshot:
+    """Mark a snapshot as addressable in the warm residency cache
+    (``service/residency.py``) under ``(repo_root, tree_oid, scope)``.
+    A backend seeing the annotation may serve the encoded form from
+    residency — skipping scan, encode and the decl columns' h2d copy —
+    instead of re-encoding; byte-identical either way. Returns ``snap``
+    for chaining. ``repo_root`` may be ``""`` for synthetic snapshots."""
+    from ..service import residency
+    residency.annotate(snap, repo_root, tree_oid, scope=scope)
+    return snap
+
+
 def filter_files(snap: Snapshot, extensions) -> List[Dict[str, str]]:
     """The subset of a snapshot's files a backend can index.
 

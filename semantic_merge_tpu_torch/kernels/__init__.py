@@ -24,6 +24,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Tuple
 
@@ -111,11 +112,18 @@ def build_all(names) -> Dict[str, str]:
     return logs
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed (once
+    per process, whichever thread asks first)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build(name)
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build(name)
+                lib = ctypes.CDLL(str(library_path(name)))
+                _LIBS[name] = lib
     return lib

@@ -5,11 +5,14 @@
 file forms, printing the same bytes for the same artifact; they read
 only the file, so they work on artifacts of processes long gone.
 
-Refused with exit 70 before anything is read (the merge service and the
-bench records they need are not ported): ``stats --daemon``, ``stats
---fleet``, ``trace analyze --fleet``, ``profile`` (a capture from a
-running daemon; one-shot runs use ``--profile DIR`` on the merge verbs)
-and ``perf``. Stdlib only.
+``stats --daemon`` renders the live status of the port's merge service
+daemon (``service/``) as the JAX CLI renders its daemon's.
+
+Refused with exit 70 before anything is read (the fleet, the daemon's
+profile capture and the bench records they need are not ported):
+``stats --fleet``, ``trace analyze --fleet``, ``profile`` (a capture
+from a running daemon; one-shot runs use ``--profile DIR`` on the merge
+verbs), ``perf`` and ``top``. Stdlib only.
 """
 from __future__ import annotations
 
@@ -42,7 +45,9 @@ def add_parsers(sub) -> None:
                          help="Render the artifact's metrics as Prometheus "
                               "text exposition")
     p_stats.add_argument("--daemon", action="store_true",
-                         help="Refused (exit 70): the merge service is not ported")
+                         help="Render the live status of the running merge "
+                              "service daemon (SEMMERGE_SERVICE_SOCKET or the "
+                              "default socket) instead of an artifact")
     p_stats.add_argument("--fleet", action="store_true",
                          help="Refused (exit 70): the fleet is not ported")
     p_trace = sub.add_parser("trace", help="Trace-artifact tooling")
@@ -84,29 +89,105 @@ def add_parsers(sub) -> None:
                      "records is not ported")
     p_perf.add_argument("perf_command", choices=("record", "compare"))
     p_perf.add_argument("rest", nargs=argparse.REMAINDER)
+    p_top = sub.add_parser(
+        "top", help="Refused (exit 70): the live fleet dashboard is not ported "
+                    "(use stats --daemon)")
+    p_top.add_argument("--socket", default=None)
+    p_top.add_argument("--interval", type=float, default=2.0)
+    p_top.add_argument("--once", action="store_true")
 
 
 def _refuse(what: str) -> None:
     raise UnsupportedSetting(f"{what}: not implemented by this port (it needs the "
-                             "merge service or the bench records); use "
-                             "python -m semantic_merge_tpu", stage="config")
+                             "fleet, the daemon's profile capture or the bench "
+                             "records); use python -m semantic_merge_tpu",
+                             stage="config")
 
 
 def run(args: argparse.Namespace) -> int:
     """Run one of the artifact commands for parsed ``args``."""
-    if args.command == "profile":
-        _refuse("profile")
-    if args.command == "perf":
-        _refuse("perf")
+    if args.command in ("profile", "perf", "top"):
+        _refuse(args.command)
     if args.command == "stats":
-        if args.daemon or args.fleet:
-            _refuse("stats --daemon" if args.daemon else "stats --fleet")
+        if args.fleet:
+            _refuse("stats --fleet")
+        if args.daemon:
+            return cmd_stats_daemon(args)
         return cmd_stats(args)
     if args.trace_command == "analyze":
         if args.fleet:
             _refuse("trace analyze --fleet")
         return cmd_trace_analyze(args)
     return cmd_trace_diff(args)
+
+
+def cmd_stats_daemon(args: argparse.Namespace) -> int:
+    """``stats --daemon``: the running daemon's status (``--json``), its
+    registry (``--prometheus``) or the JAX CLI's one-screen rendering."""
+    from ..service import client as service_client
+    try:
+        status = service_client.call_control("status")
+    except service_client.DaemonUnavailable as exc:
+        print(f"error: no merge service daemon reachable ({exc})", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(status, indent=2, default=str))
+        return 0
+    if args.prometheus:
+        print(render_prometheus_from_dict(status.get("metrics", {})), end="")
+        return 0
+    decl = status.get("declcache") or {}
+    print(f"daemon pid={status.get('pid')} "
+          f"uptime={status.get('uptime_s', 0.0):.1f}s "
+          f"socket={status.get('socket')}")
+    print(f"requests: served={status.get('served_total', 0)} "
+          f"queue_depth={status.get('queue_depth', 0)} "
+          f"in_flight={status.get('in_flight', 0)} "
+          f"workers={status.get('workers', 0)}")
+    print(f"declcache: hit_rate={status.get('declcache_hit_rate', 0.0):.3f} "
+          f"hits={decl.get('hits', 0)} misses={decl.get('misses', 0)} "
+          f"evictions={decl.get('evictions', 0)} "
+          f"entries={decl.get('entries', 0)}")
+    res = status.get("residency")
+    if res:
+        ev = res.get("evictions") or {}
+        print(f"residency: {'on' if res.get('enabled') else 'off'} "
+              f"hit_rate={res.get('hit_rate', 0.0):.3f} "
+              f"entries={res.get('entries', 0)} "
+              f"bytes={res.get('bytes', 0)}/{res.get('budget_bytes', 0)} "
+              f"evictions={sum(ev.values())}"
+              + ("".join(f" {k}={v}" for k, v in sorted(ev.items())) if ev else ""))
+    print(f"memory: rss_mb={status.get('rss_mb', 0.0):.1f} "
+          f"repos_tracked={status.get('repos_tracked', 0)}")
+    port = status.get("metrics_port")
+    if port is not None:
+        print(f"telemetry: http://127.0.0.1:{port} (/metrics, /healthz)")
+    slo = status.get("slo")
+    if slo:
+        print(f"slo: {'healthy' if slo.get('healthy') else 'BURNING'} "
+              f"(fast {slo.get('windows', {}).get('fast_s', 0):g}s / "
+              f"slow {slo.get('windows', {}).get('slow_s', 0):g}s)")
+        for row in slo.get("objectives", ()):
+            mark = "TRIPPED" if row.get("tripped") else "ok"
+            print(f"  {mark:8s} {row.get('objective')}: "
+                  f"burn fast={row.get('burn_fast', 0.0):.2f}x "
+                  f"slow={row.get('burn_slow', 0.0):.2f}x "
+                  f"(n={row.get('samples_fast', 0)})")
+        for verb, q in (slo.get("window_quantiles") or {}).items():
+            print(f"  window {verb}: p50={q.get('p50_ms', 0.0):.1f}ms "
+                  f"p99={q.get('p99_ms', 0.0):.1f}ms "
+                  f"n={q.get('count', 0)} errors={q.get('errors', 0)}")
+    batch = status.get("batch")
+    if batch:
+        cache = batch.get("program_cache") or {}
+        print(f"batch: queue_depth={batch.get('queue_depth', 0)} "
+              f"batches={batch.get('batches_total', 0)} "
+              f"mean_batch_size={batch.get('mean_batch_size', 0.0):.2f} "
+              f"padding_waste={batch.get('padding_waste_ratio', 0.0):.3f} "
+              f"program_cache_hit_rate={cache.get('hit_rate', 0.0):.3f}")
+    for line in _render_stats({"counters": status.get("metrics", {}).get("counters", {})}):
+        print(line)
+    return 0
 
 
 def cmd_stats(args: argparse.Namespace) -> int:

@@ -142,6 +142,28 @@ class SpanRecorder:
         with self._lock:
             self.events.append(row)
 
+    def absorb(self, other: "SpanRecorder", **extra_meta: Any) -> None:
+        """Graft another recorder's rows into this one: span starts are
+        re-based onto this recorder's epoch, ids are remapped (parent
+        links preserved within the absorbed set), and ``extra_meta``
+        (typically ``trace_id=...``) is stamped on every span. The
+        daemon's ``--events`` recorder absorbs each finished request's
+        scoped recorder."""
+        shift = other.epoch - self.epoch
+        with other._lock:
+            spans = list(other.spans)
+            events = list(other.events)
+        id_map = {sp.span_id: self._new_id() for sp in spans}
+        with self._lock:
+            for sp in spans:
+                self.spans.append(SpanRecord(
+                    name=sp.name, layer=sp.layer, t_start=sp.t_start + shift,
+                    seconds=sp.seconds, depth=sp.depth, span_id=id_map[sp.span_id],
+                    parent_id=id_map.get(sp.parent_id, -1), thread=sp.thread,
+                    status=sp.status, error=sp.error, meta=dict(sp.meta, **extra_meta)))
+            for e in events:
+                self.events.append(dict(e, t_start=round(e["t_start"] + shift, 6)))
+
     # -- views ------------------------------------------------------------
 
     def span_dicts(self) -> List[dict]:
@@ -330,6 +352,24 @@ def record(name: str, seconds: float, layer: Optional[str] = None, *,
         seconds=seconds, depth=depth, span_id=rec._new_id(),
         parent_id=parent_id, thread=threading.current_thread().name,
         status="ok", error=None, meta=dict(meta)))
+
+
+def record_into(recorder: SpanRecorder, name: str, seconds: float, *,
+                t_start: Optional[float] = None,
+                layer: Optional[str] = None, **meta: Any) -> None:
+    """Record a span directly into ``recorder``, bypassing scope
+    resolution — the batch leader thread grafts its pack, dispatch and
+    scatter spans into every co-batched member's request recorder (with
+    a shared ``batch_id`` in ``meta``). Artifact-only: the phase
+    histogram and the flight ring are not fed here (the leader's own
+    :func:`span` / :func:`record` call counted the work once)."""
+    rel = max(t_start - recorder.epoch, 0.0) if t_start is not None else \
+        max(time.perf_counter() - recorder.epoch - seconds, 0.0)
+    recorder._add_span(SpanRecord(
+        name=name, layer=layer, t_start=rel, seconds=seconds, depth=0,
+        span_id=recorder._new_id(), parent_id=-1,
+        thread=threading.current_thread().name, status="ok", error=None,
+        meta=dict(meta)))
 
 
 def event(name: str, **fields: Any) -> None:

@@ -106,8 +106,11 @@ def _sort_stream(cols: torch.Tensor, n_ts: int, n_id: int) -> torch.Tensor:
 def _rename_pairs(is_rename: torch.Tensor, sym: torch.Tensor,
                   new_name: torch.Tensor, n_real):
     """(symbol, newName key) of a stream's rename rows among its first
-    ``n_real``, ``PAD_ID`` symbols elsewhere."""
-    idx = torch.arange(sym.shape[0], device=sym.device)
+    ``n_real``, ``PAD_ID`` symbols elsewhere. Along the last axis:
+    leading batch dimensions take an ``n_real`` of their shape."""
+    idx = torch.arange(sym.shape[-1], device=sym.device)
+    if isinstance(n_real, torch.Tensor):
+        n_real = n_real.unsqueeze(-1)
     is_r = (is_rename == 1) & (idx < n_real)
     return torch.where(is_r, sym, int(PAD_ID)).long(), new_name.long()
 
@@ -118,17 +121,19 @@ def _rename_candidates_cols(a, n_a, b, n_b) -> torch.Tensor:
     streams' canonical ``(is_rename, sym, new_name)`` columns. A's
     renames sort by (symbol, name), so a query reads its symbol run's
     min and max name (scanning the run's two ends alone would miss a run
-    with mixed names)."""
-    na = a[1].shape[0]
+    with mixed names). Along the last axis: with leading batch
+    dimensions the answer has their shape."""
+    na = a[1].shape[-1]
     a_sym, a_name = _rename_pairs(*a, n_a)
-    srt = torch.sort((a_sym << 32) | (a_name + 1)).values
+    srt = torch.sort((a_sym << 32) | (a_name + 1), dim=-1).values
     nm_sym, nm_name = srt >> 32, (srt & 0xFFFFFFFF) - 1
     b_sym, b_name = _rename_pairs(*b, n_b)
     lo = torch.searchsorted(nm_sym, b_sym).clamp(0, na - 1)
     hi = (torch.searchsorted(nm_sym, b_sym, right=True) - 1).clamp(0, na - 1)
-    differing = ((nm_sym[lo] == b_sym) & (b_sym != int(PAD_ID))
-                 & ((nm_name[lo] != b_name) | (nm_name[hi] != b_name)))
-    return differing.any()
+    differing = ((nm_sym.gather(-1, lo) == b_sym) & (b_sym != int(PAD_ID))
+                 & ((nm_name.gather(-1, lo) != b_name)
+                    | (nm_name.gather(-1, hi) != b_name)))
+    return differing.any(-1)
 
 
 def _rename_candidates(a: torch.Tensor, n_a: int,
@@ -139,15 +144,15 @@ def _rename_candidates(a: torch.Tensor, n_a: int,
 
 
 def _seg_last_valid(seg_sym: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Segmented inclusive last-valid scan, rows of ``vals`` (k, n) in
-    (symbol, merged position) order: the value at the last row ``j <= i``
-    holding a valid value, if ``j`` lies in ``i``'s symbol segment, else
-    ``NULL_ID``."""
-    idx = torch.arange(vals.shape[1], device=vals.device).expand_as(vals)
-    last = torch.cummax(torch.where(vals != NULL_ID, idx, -1), dim=1).values
+    """Segmented inclusive last-valid scan, rows of ``vals`` (k, ..., n)
+    in (symbol, merged position) order along the last axis: the value at
+    the last row ``j <= i`` holding a valid value, if ``j`` lies in
+    ``i``'s symbol segment, else ``NULL_ID``. ``seg_sym`` is (..., n)."""
+    idx = torch.arange(vals.shape[-1], device=vals.device).expand_as(vals)
+    last = torch.cummax(torch.where(vals != NULL_ID, idx, -1), dim=-1).values
     j = last.clamp(min=0)
-    same = (last >= 0) & (seg_sym[j] == seg_sym)
-    return torch.where(same, vals.gather(1, j), NULL_ID)
+    same = (last >= 0) & (seg_sym.expand_as(j).gather(-1, j) == seg_sym)
+    return torch.where(same, vals.gather(-1, j), NULL_ID)
 
 
 def _merge_and_scan(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,

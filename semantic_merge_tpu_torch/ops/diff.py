@@ -67,37 +67,44 @@ def _occurrence_bounds(sym, order, sorted_sym, n_pad):
     right = torch.searchsorted(sorted_sym, sym, right=True) - 1
     left = left.clamp(0, n_pad - 1)
     right = right.clamp(0, n_pad - 1)
-    return order[left], order[right]
+    return order.gather(-1, left), order.gather(-1, right)
 
 
 def _diff_plan(b_sym, b_addr, b_name, s_sym, s_addr, s_name, nb: int, ns: int):
     """The parallel join: which slots emit which diff kinds, at which
-    positions of the op stream, with node data taken from which slots."""
+    positions of the op stream, with node data taken from which slots.
+
+    Every step works along the last axis, so the columns may carry
+    leading batch dimensions (``[B, n]``: B independent joins, as the
+    batched fused program runs them); ``n_ops`` then has shape ``[B]``."""
+    # searchsorted takes contiguous values (a row of a [B, 4, n] stack
+    # is a strided view); a no-op on one merge's 1-D columns.
+    b_sym, s_sym = b_sym.contiguous(), s_sym.contiguous()
     idx_b = torch.arange(nb, device=b_sym.device)
     b_valid = b_sym != int(PAD_ID)
     s_valid = s_sym != int(PAD_ID)
 
     # Stable sort by symbol: ties keep slot order, so right-1 = last occurrence.
-    b_order = torch.argsort(b_sym, stable=True)
-    s_order = torch.argsort(s_sym, stable=True)
-    b_sorted = b_sym[b_order]
-    s_sorted = s_sym[s_order]
+    b_order = torch.argsort(b_sym, dim=-1, stable=True)
+    s_order = torch.argsort(s_sym, dim=-1, stable=True)
+    b_sorted = b_sym.gather(-1, b_order)
+    s_sorted = s_sym.gather(-1, s_order)
 
     b_first, b_last = _occurrence_bounds(b_sym, b_order, b_sorted, nb)
 
     # Side representative (Map last-wins) for each base symbol.
     pos = torch.searchsorted(s_sorted, b_sym, right=True) - 1
     pos_c = pos.clamp(0, ns - 1)
-    found = (pos >= 0) & (s_sorted[pos_c] == b_sym) & b_valid
-    s_repr = s_order[pos_c]
+    found = (pos >= 0) & (s_sorted.gather(-1, pos_c) == b_sym) & b_valid
+    s_repr = s_order.gather(-1, pos_c)
 
     # Base-map emission: only the first occurrence emits; data from last.
     emits = b_valid & (idx_b == b_first)
     bl = b_last
-    b_addr_l = b_addr[bl]
-    b_name_l = b_name[bl]
-    s_addr_r = s_addr[s_repr]
-    s_name_r = s_name[s_repr]
+    b_addr_l = b_addr.gather(-1, bl)
+    b_name_l = b_name.gather(-1, bl)
+    s_addr_r = s_addr.gather(-1, s_repr)
+    s_name_r = s_name.gather(-1, s_repr)
 
     is_delete = emits & ~found
     is_move = emits & found & (b_addr_l != s_addr_r)
@@ -107,17 +114,17 @@ def _diff_plan(b_sym, b_addr, b_name, s_sym, s_addr, s_name, nb: int, ns: int):
     # Adds: every raw side slot whose symbol is absent from base.
     in_base = torch.searchsorted(b_sorted, s_sym)
     in_base_c = in_base.clamp(0, nb - 1)
-    present = b_sorted[in_base_c] == s_sym
+    present = b_sorted.gather(-1, in_base_c) == s_sym
     is_add = s_valid & ~present
 
     # Emission positions: per base slot `delete ? 1 : move+rename`,
     # move before rename within a slot, adds after all base emissions.
     base_count = torch.where(is_delete, 1, is_move.long() + is_rename.long())
-    base_off = torch.cumsum(base_count, 0) - base_count
-    total_base = base_count.sum()
+    base_off = torch.cumsum(base_count, -1) - base_count
+    total_base = base_count.sum(-1, keepdim=True)
     add_count = is_add.long()
-    add_off = total_base + torch.cumsum(add_count, 0) - add_count
-    n_ops = total_base + add_count.sum()
+    add_off = total_base + torch.cumsum(add_count, -1) - add_count
+    n_ops = (total_base + add_count.sum(-1, keepdim=True)).squeeze(-1)
     return {
         "is_delete": is_delete, "is_move": is_move, "is_rename": is_rename,
         "is_add": is_add, "base_off": base_off, "add_off": add_off,

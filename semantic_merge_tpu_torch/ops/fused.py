@@ -23,9 +23,9 @@ the scan and the final decode on the card:
    candidate precheck and the segmented chain scans of :mod:`.compose`,
    on columns derived from the diff rows (the scan's interner ids are
    the compose's equality ids);
-5. a **split fetch**: ``head`` (op rows and digest words) first, then
-   ``mid`` (canonical permutations and composed-stream references), and
-   ``chains`` (the chain overrides) only when the composed view is read.
+5. **one fetch** of the merge's one-buffer row (op rows and digest
+   words, canonical permutations and composed-stream references, chain
+   overrides), the layout a batched dispatch scatters to each merge.
 
 Conflicts are handled speculatively: the device runs the parallel
 candidate join only. Without candidates the fetched result is final;
@@ -270,10 +270,17 @@ class DeviceStrings:
         self._n_hashed = 0
         self._dev: Optional[torch.Tensor] = None
         self._n_dev = 0
+        self._lock = threading.Lock()
 
     def sync(self) -> torch.Tensor:
         """The device table, up to date with the interner (rows past the
-        interned count are zeros, never gathered by valid ids)."""
+        interned count are zeros, never gathered by valid ids). Rows
+        already shipped never change, so a table handed to an earlier
+        caller stays valid for every id that caller holds."""
+        with self._lock:
+            return self._sync()
+
+    def _sync(self) -> torch.Tensor:
         strings = self.interner.strings
         n = len(strings)
         cap = self.cap
@@ -298,6 +305,61 @@ class DeviceStrings:
         return self._dev
 
 
+_shared_lock = threading.Lock()
+#: The process-shared interner's device string tables, by (interner
+#: token, device): every engine of the merge service adopts the shared
+#: interner, so each request ships only the strings new to the process.
+_shared_strings: Dict[Tuple[int, str], DeviceStrings] = {}
+#: Identity-keyed device decl columns, by (device, snapshot identity):
+#: a snapshot identity (``(interner token, per-file decl-cache keys)``,
+#: see ``backends/ts_torch.py``) names exact ids, so a repeat of a
+#: snapshot (the base tree of a repeat merge, above all in the merge
+#: service) ships no bytes. Bounded LRU.
+_decl_columns: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_DECL_COLUMNS_CAP = 12
+
+
+def _strings_for(interner: Interner, device: torch.device) -> DeviceStrings:
+    """The device string table of ``interner`` on ``device``: shared in
+    the process for a shared interner, the engine's own otherwise."""
+    if not interner.shared:
+        return DeviceStrings(interner, device)
+    key = (interner.token, str(device))
+    with _shared_lock:
+        tab = _shared_strings.get(key)
+        if tab is None:
+            tab = _shared_strings[key] = DeviceStrings(interner, device)
+            for old in [k for k in _shared_strings if k[0] != interner.token]:
+                del _shared_strings[old]
+        return tab
+
+
+def device_decl_columns(t: DeclTensor, identity, device: torch.device) -> torch.Tensor:
+    """int32 ``[4, bucket]`` (sym, addr, name, file) of ``t`` on
+    ``device``: from the identity-keyed cache when ``identity`` is not
+    ``None`` and was shipped before, else copied (and cached)."""
+    key = None if identity is None else (str(device), identity)
+    if key is not None:
+        with _shared_lock:
+            hit = _decl_columns.get(key)
+            if hit is not None:
+                _decl_columns.move_to_end(key)
+                return hit
+    bucket = bucket_size(max(t.n, 1))
+    null = np.int32(NULL_ID)
+    stacked = np.stack([pad_to(t.sym, bucket, PAD_ID), pad_to(t.addr, bucket, null),
+                        pad_to(t.name, bucket, null), pad_to(t.file, bucket, null)])
+    obs_device.record_transfer("h2d", stacked.nbytes)
+    dev = _h2d(stacked, device)
+    if key is not None:
+        with _shared_lock:
+            _decl_columns[key] = dev
+            while len(_decl_columns) > _DECL_COLUMNS_CAP:
+                _decl_columns.popitem(last=False)
+    return dev
+
+
+
 # --------------------------------------------------------------------------
 # The device program
 # --------------------------------------------------------------------------
@@ -306,18 +368,20 @@ def _emit_slots(plan, C: int):
     """Scatter the diff plan into ``(kind, a_slot, b_slot)`` rows of
     capacity ``C``; rows past ``C`` land in the sink column (the
     overflow flag tells the host to retry with a larger capacity).
-    Returns the three int32 ``[C]`` columns and the op count."""
+    ``plan`` is :func:`.diff._diff_plan` over ``[B, n]`` columns.
+    Returns the three int32 ``[B, C]`` columns and the op counts
+    ``[B]``."""
     bl, s_repr = plan["bl"], plan["s_repr"]
     dev = bl.device
-    nb, ns = bl.shape[0], plan["is_add"].shape[0]
-    out = torch.full((3, C + 1), NULL_ID, dtype=torch.int32, device=dev)
+    (B, nb), ns = bl.shape, plan["is_add"].shape[-1]
+    out = torch.full((3, B, C + 1), NULL_ID, dtype=torch.int32, device=dev)
 
     def scat(posn, mask, vals):
         posn = torch.where(mask & (posn < C), posn, C)
-        out[:, posn] = torch.stack(vals)
+        out.scatter_(-1, posn.expand(3, *posn.shape), torch.stack(vals))
 
     def const(n, value):
-        return torch.full((n,), value, dtype=torch.int32, device=dev)
+        return torch.full((B, n), value, dtype=torch.int32, device=dev)
 
     bl32, s32 = bl.to(torch.int32), s_repr.to(torch.int32)
     scat(plan["base_off"], plan["is_delete"], [const(nb, KIND_DELETE), bl32, const(nb, NULL_ID)])
@@ -326,48 +390,51 @@ def _emit_slots(plan, C: int):
          [const(nb, KIND_RENAME), bl32, s32])
     scat(plan["add_off"], plan["is_add"],
          [const(ns, KIND_ADD), const(ns, NULL_ID),
-          torch.arange(ns, dtype=torch.int32, device=dev)])
-    return out[0, :C], out[1, :C], out[2, :C], plan["n_ops"]
+          torch.arange(ns, dtype=torch.int32, device=dev).expand(B, ns)])
+    return out[0, :, :C], out[1, :, :C], out[2, :, :C], plan["n_ops"]
 
 
 def _op_id_words(kind, a_slot, b_slot, b_cols, s_cols, hash_tab, pre_digest,
                  C: int) -> torch.Tensor:
-    """Each op's id payload, hashed: int32 ``[C, 4]`` digest words.
+    """Each op's id payload, hashed: int32 ``[B, C, 4]`` digest words
+    for ``[B, C]`` op rows of B merges.
 
     Layout (``core.ids.deterministic_op_id``): the 16-byte (seed, rev)
     prefix digest ‖ op index be32 ‖ type code ‖ the 10-byte digests of
-    symbolId, base addressId and side addressId gathered from
-    ``hash_tab`` (zeros for an absent value, ``value_digest10("")``).
-    51 bytes always, so the SHA runs one compression per row. Device
-    kind codes 0-3 equal the ``OP_TYPES`` type codes by construction."""
-    b_sym, b_addr = b_cols[0], b_cols[1]
-    s_sym, s_addr = s_cols[0], s_cols[1]
-    a_sl = a_slot.long().clamp(0, b_sym.shape[0] - 1)
-    b_sl = b_slot.long().clamp(0, s_sym.shape[0] - 1)
+    symbolId, base addressId and side addressId gathered from the
+    merge's ``hash_tab`` ``[B, cap, 10]`` (zeros for an absent value,
+    ``value_digest10("")``). 51 bytes always, so the SHA runs one
+    compression per row, and the ``B * C`` rows of all merges go through
+    ONE kernel launch. Device kind codes 0-3 equal the ``OP_TYPES`` type
+    codes by construction."""
+    b_sym, b_addr = b_cols[:, 0], b_cols[:, 1]
+    s_sym, s_addr = s_cols[:, 0], s_cols[:, 1]
+    a_sl = a_slot.long().clamp(0, b_sym.shape[-1] - 1)
+    b_sl = b_slot.long().clamp(0, s_sym.shape[-1] - 1)
     is_add = kind == KIND_ADD
     valid = kind >= 0
-    sym_id = torch.where(is_add, s_sym[b_sl], b_sym[a_sl])
-    a_id = torch.where(valid & ~is_add, b_addr[a_sl], NULL_ID)
+    sym_id = torch.where(is_add, s_sym.gather(-1, b_sl), b_sym.gather(-1, a_sl))
+    a_id = torch.where(valid & ~is_add, b_addr.gather(-1, a_sl), NULL_ID)
     b_id = torch.where((kind == KIND_MOVE) | (kind == KIND_RENAME) | is_add,
-                       s_addr[b_sl], NULL_ID)
-    cap = hash_tab.shape[0]
+                       s_addr.gather(-1, b_sl), NULL_ID)
+    B, cap = hash_tab.shape[0], hash_tab.shape[1]
     dev = kind.device
 
     def hrows(sid):
-        row = hash_tab[sid.long().clamp(0, cap - 1)]
-        return torch.where((sid >= 0)[:, None], row, 0)
+        idx = sid.long().clamp(0, cap - 1)[..., None].expand(B, C, 10)
+        return torch.where((sid >= 0)[..., None], hash_tab.gather(1, idx), 0)
 
     idx = torch.arange(C, device=dev)
     idx_be = (torch.stack([idx >> 24, idx >> 16, idx >> 8, idx], dim=1) & 0xFF).to(torch.uint8)
     msg = torch.cat([
-        pre_digest[None, :].expand(C, 16),
-        idx_be,
-        kind.clamp(0, 3).to(torch.uint8)[:, None],
+        pre_digest[:, None, :].expand(B, C, 16),
+        idx_be.expand(B, C, 4),
+        kind.clamp(0, 3).to(torch.uint8)[..., None],
         hrows(sym_id), hrows(a_id), hrows(b_id),
-        torch.zeros((C, 64 - _ID_PAYLOAD_LEN), dtype=torch.uint8, device=dev),
-    ], dim=1).contiguous()
-    lens = torch.full((C,), _ID_PAYLOAD_LEN, dtype=torch.int32, device=dev)
-    return sha256_device(msg, lens, n_words=4)
+        torch.zeros((B, C, 64 - _ID_PAYLOAD_LEN), dtype=torch.uint8, device=dev),
+    ], dim=2).reshape(B * C, 64)
+    lens = torch.full((B * C,), _ID_PAYLOAD_LEN, dtype=torch.int32, device=dev)
+    return sha256_device(msg, lens, n_words=4).view(B, C, 4)
 
 
 def _precedence(kind: torch.Tensor) -> torch.Tensor:
@@ -380,18 +447,18 @@ def _precedence(kind: torch.Tensor) -> torch.Tensor:
 
 
 def _compose_cols(kind, a_slot, b_slot, words, b_cols, s_cols, C: int) -> Dict[str, torch.Tensor]:
-    """The composer's columns, int64, straight from the diff rows.
-    ``idw`` holds the four digest words as unsigned values; invalid rows
-    carry ``0xFFFFFFFF`` words and the padding precedence, so they sort
-    last."""
-    b_sym, b_file = b_cols[0], b_cols[3]
-    s_sym, s_addr, s_name, s_file = s_cols[0], s_cols[1], s_cols[2], s_cols[3]
-    a_sl = a_slot.long().clamp(0, b_sym.shape[0] - 1)
-    b_sl = b_slot.long().clamp(0, s_sym.shape[0] - 1)
+    """The composer's columns, int64 ``[B, C]``, straight from the diff
+    rows. ``idw`` (``[B, C, 4]``) holds the four digest words as
+    unsigned values; invalid rows carry ``0xFFFFFFFF`` words and the
+    padding precedence, so they sort last."""
+    b_sym, b_file = b_cols[:, 0], b_cols[:, 3]
+    s_sym, s_addr, s_name, s_file = s_cols[:, 0], s_cols[:, 1], s_cols[:, 2], s_cols[:, 3]
+    a_sl = a_slot.long().clamp(0, b_sym.shape[-1] - 1)
+    b_sl = b_slot.long().clamp(0, s_sym.shape[-1] - 1)
     valid = kind >= 0
     is_add, is_ren, is_mv = kind == KIND_ADD, kind == KIND_RENAME, kind == KIND_MOVE
-    sym_id = torch.where(is_add, s_sym[b_sl], b_sym[a_sl]).long()
-    idw = torch.where(valid[:, None], words.long() & 0xFFFFFFFF, 0xFFFFFFFF)
+    sym_id = torch.where(is_add, s_sym.gather(-1, b_sl), b_sym.gather(-1, a_sl)).long()
+    idw = torch.where(valid[..., None], words.long() & 0xFFFFFFFF, 0xFFFFFFFF)
     return {
         "prec": torch.where(valid, _precedence(kind), _PAD_PREC),
         "ts_rank": torch.where(valid, 0, NULL_ID).long(),  # one shared timestamp
@@ -400,35 +467,42 @@ def _compose_cols(kind, a_slot, b_slot, words, b_cols, s_cols, C: int) -> Dict[s
         "is_move": (is_mv & valid).long(),
         "sym": torch.where(valid, sym_id, int(PAD_ID)),
         # newName doubles as the rename chain value on the fused path.
-        "new_name": torch.where(is_ren, s_name[b_sl], NULL_ID).long(),
-        "new_addr": torch.where(is_mv, s_addr[b_sl], NULL_ID).long(),
-        "chain_file": torch.where(valid, torch.where(kind == KIND_DELETE, b_file[a_sl],
-                                                     s_file[b_sl]), NULL_ID).long(),
+        "new_name": torch.where(is_ren, s_name.gather(-1, b_sl), NULL_ID).long(),
+        "new_addr": torch.where(is_mv, s_addr.gather(-1, b_sl), NULL_ID).long(),
+        "chain_file": torch.where(valid, torch.where(kind == KIND_DELETE,
+                                                     b_file.gather(-1, a_sl),
+                                                     s_file.gather(-1, b_sl)),
+                                  NULL_ID).long(),
         "op_index": torch.where(valid, torch.arange(C, device=kind.device), NULL_ID),
     }
 
 
 def _canonical_order(prec, ts_rank, side, idw) -> torch.Tensor:
-    """The stable permutation sorting rows by ``(prec, ts_rank, side,
-    idw[:, 0], idw[:, 1], idw[:, 2], idw[:, 3])``: three stable sorts,
-    least significant pair first. ``idw`` holds unsigned 32-bit words in
-    int64; each pair packs as ``(hi - 2**31) * 2**32 + lo`` so that
-    signed int64 order is unsigned order. ``prec`` in ``[0, 2**30]``,
-    ``ts_rank`` in ``[-1, 2**31 - 2]``, ``side`` 0 or 1."""
+    """The stable permutation (along the last axis) sorting rows by
+    ``(prec, ts_rank, side, idw[..., 0], idw[..., 1], idw[..., 2],
+    idw[..., 3])``: three stable sorts, least significant pair first.
+    ``idw`` holds unsigned 32-bit words in int64; each pair packs as
+    ``(hi - 2**31) * 2**32 + lo`` so that signed int64 order is unsigned
+    order. ``prec`` in ``[0, 2**30]``, ``ts_rank`` in ``[-1, 2**31 - 2]``,
+    ``side`` 0 or 1."""
     def pair(hi, lo):
         return (hi - 2**31) * 2**32 + lo
 
-    order = torch.sort(pair(idw[:, 2], idw[:, 3]), stable=True).indices
-    for key in (pair(idw[:, 0], idw[:, 1]),
+    order = torch.sort(pair(idw[..., 2], idw[..., 3]), dim=-1, stable=True).indices
+    for key in (pair(idw[..., 0], idw[..., 1]),
                 prec.long() * 2**32 + (ts_rank.long() + 1) * 2 + side.long()):
-        order = order[torch.sort(key[order], stable=True).indices]
+        order = order.gather(-1, torch.sort(key.gather(-1, order), dim=-1,
+                                            stable=True).indices)
     return order
 
 
 def _merge_scan_spec(m, side_m, C: int):
     """Segmented chain scans and compact ``side << 30 | op_index``
-    references over rows already in composed order: the stable symbol
-    grouping keeps composed order inside each symbol's segment."""
+    references over ``[B, 2C]`` rows already in composed order: the
+    stable symbol grouping keeps composed order inside each symbol's
+    segment. Returns the live counts ``[B]`` and ``[4, B, 2C]`` (refs,
+    chain addr, chain file, chain name), ``NULL_ID`` past the live
+    rows."""
     total = 2 * C
     opidx = m["op_index"]
     live = opidx != NULL_ID
@@ -438,79 +512,94 @@ def _merge_scan_spec(m, side_m, C: int):
         torch.where(move_live & (m["chain_file"] != NULL_ID), m["chain_file"], NULL_ID),
         torch.where((m["is_rename"] == 1) & live, m["new_name"], NULL_ID),
     ])
-    seg_order = torch.sort(m["sym"], stable=True).indices
-    chains_seg = _seg_last_valid(m["sym"][seg_order], contrib[:, seg_order])
-    chains = torch.empty_like(chains_seg)
-    chains[:, seg_order] = chains_seg
-    pos = torch.where(live, torch.cumsum(live.long(), 0) - 1, total)
+    seg_order = torch.sort(m["sym"], dim=-1, stable=True).indices
+    seg3 = seg_order.expand_as(contrib)
+    chains_seg = _seg_last_valid(m["sym"].gather(-1, seg_order), contrib.gather(-1, seg3))
+    chains = torch.empty_like(chains_seg).scatter_(-1, seg3, chains_seg)
+    pos = torch.where(live, torch.cumsum(live.long(), -1) - 1, total)
     packed = (side_m << 30) | torch.where(opidx >= 0, opidx, 0)
-    out = torch.full((4, total + 1), NULL_ID, dtype=torch.long, device=opidx.device)
-    out[:, pos] = torch.cat([packed[None], chains])
-    return live.sum(), out[:, :total]
+    out = torch.full((4, *pos.shape[:-1], total + 1), NULL_ID, dtype=torch.long,
+                     device=opidx.device)
+    out.scatter_(-1, pos.expand(4, *pos.shape), torch.cat([packed[None], chains]))
+    return live.sum(-1), out[..., :total]
 
 
 def _compose_and_pack(kL, aL, bL, wL, nopsL, kR, aR, bR, wR, nopsR,
-                      b_cols, l_cols, r_cols, C: int):
+                      b_cols, l_cols, r_cols, C: int) -> torch.Tensor:
     """Compose columns, the one canonical sort, the candidate precheck,
-    the speculative chain scans, and the split packing: int32
-    ``head = [8 scalars, kL, aL, bL, wL0..3, kR, aR, bR, wR0..3]``,
-    ``mid = [A's canonical permutation, B's, composed refs]``,
-    ``chains = [chain addr, chain file, chain name]``."""
+    the speculative chain scans, and the one-buffer packing of each of
+    the B merges: int32 ``[B, 8 + 24C]`` rows
+    ``[8 scalars, kL, aL, bL, wL0..3, kR, aR, bR, wR0..3 | A's canonical
+    permutation, B's, composed refs (2C) | chain addr, chain file, chain
+    name (2C each)]`` — the layout of the JAX package's
+    ``_fused_merge_kernel(split=False)``, whose ``split=True`` parts
+    ``head`` (``8 + 14C``), ``mid`` (``4C``) and ``chains`` (``6C``) are
+    its three consecutive slices."""
     dev = kL.device
+    B = kL.shape[0]
     colsL = _compose_cols(kL, aL, bL, wL, b_cols, l_cols, C)
     colsR = _compose_cols(kR, aR, bR, wR, b_cols, r_cols, C)
 
     def cat(name):
-        return torch.cat([colsL[name], colsR[name]])
+        return torch.cat([colsL[name], colsR[name]], dim=1)
 
     # ONE canonical sort: sorting the concatenation by (prec, ts, side,
     # id words) gives the composed order, and its restriction to one
     # side IS that side's canonical order.
     side = torch.cat([torch.zeros(C, dtype=torch.long, device=dev),
-                      torch.ones(C, dtype=torch.long, device=dev)])
+                      torch.ones(C, dtype=torch.long, device=dev)]).expand(B, 2 * C)
     order = _canonical_order(cat("prec"), cat("ts_rank"), side, cat("idw"))
-    m = {k: cat(k)[order] for k in ("sym", "is_rename", "is_move", "new_name",
-                                    "new_addr", "chain_file", "op_index")}
-    side_m = side[order]
+    m = {k: cat(k).gather(-1, order)
+         for k in ("sym", "is_rename", "is_move", "new_name", "new_addr",
+                   "chain_file", "op_index")}
+    side_m = side.gather(-1, order)
 
     # Stable partition of the composed rows into [A canonical | B canonical].
     is_a = side_m == 0
-    ppos = torch.where(is_a, torch.cumsum(is_a.long(), 0) - 1,
-                       C + torch.cumsum((~is_a).long(), 0) - 1)
+    ppos = torch.where(is_a, torch.cumsum(is_a.long(), -1) - 1,
+                       C + torch.cumsum((~is_a).long(), -1) - 1)
 
     def part(v):
-        out = torch.zeros(2 * C, dtype=v.dtype, device=dev)
-        out[ppos] = v
-        return out
+        return torch.zeros((B, 2 * C), dtype=v.dtype, device=dev).scatter_(-1, ppos, v)
 
     canon = {k: part(m[k]) for k in ("is_rename", "sym", "new_name", "op_index")}
-    a = tuple(canon[k][:C] for k in ("is_rename", "sym", "new_name"))
-    b = tuple(canon[k][C:] for k in ("is_rename", "sym", "new_name"))
+    a = tuple(canon[k][:, :C] for k in ("is_rename", "sym", "new_name"))
+    b = tuple(canon[k][:, C:] for k in ("is_rename", "sym", "new_name"))
     has_cand = _rename_candidates_cols(a, nopsL, b, nopsR)
 
     n_out, scan = _merge_scan_spec(m, side_m, C)
     overflow = (nopsL > C) | (nopsR > C)
-    zero = torch.zeros((), dtype=torch.long, device=dev)
+    zero = torch.zeros_like(n_out)
     scalars = torch.stack([nopsL.long(), nopsR.long(), n_out, has_cand.long(),
-                           overflow.long(), zero, zero, zero]).to(torch.int32)
-    head = torch.cat([scalars, kL, aL, bL, *wL.unbind(1), kR, aR, bR, *wR.unbind(1)])
-    mid = torch.cat([canon["op_index"], scan[0]]).to(torch.int32)
-    chains = scan[1:].reshape(-1).to(torch.int32)
-    return head, mid, chains
+                           overflow.long(), zero, zero, zero], dim=-1).to(torch.int32)
+    return torch.cat([scalars, kL, aL, bL, *wL.unbind(-1), kR, aR, bR, *wR.unbind(-1),
+                      canon["op_index"].to(torch.int32),
+                      scan.permute(1, 0, 2).reshape(B, 8 * C).to(torch.int32)], dim=1)
 
 
-def _fused_merge_program(b_cols, l_cols, r_cols, hash_tab, dig_l, dig_r, C: int):
-    """Both diffs, both sides' op ids and the compose on the device:
-    ``(head, mid, chains)`` (see :func:`_compose_and_pack`)."""
-    nb, nl, nr = b_cols.shape[1], l_cols.shape[1], r_cols.shape[1]
-    planL = _diff_plan(b_cols[0], b_cols[1], b_cols[2], l_cols[0], l_cols[1], l_cols[2], nb, nl)
-    planR = _diff_plan(b_cols[0], b_cols[1], b_cols[2], r_cols[0], r_cols[1], r_cols[2], nb, nr)
+def _fused_merge_rows(b, l, r, hash_tab, dig_l, dig_r, C: int) -> torch.Tensor:
+    """The fused merge of B merges at once: ``b[B, 4, nb]``,
+    ``l[B, 4, nl]``, ``r[B, 4, nr]`` int32 decl columns, ``hash_tab[B,
+    cap, 10]``, ``dig_l``/``dig_r[B, 16]`` uint8 → int32 ``[B, 8 + 24C]``
+    (:func:`_compose_and_pack`). Both diffs, both sides' op ids and the
+    compose, each step on the leading merge axis: row ``i`` depends on
+    merge ``i``'s inputs alone, so it equals a one-merge call's row."""
+    nb, nl, nr = b.shape[-1], l.shape[-1], r.shape[-1]
+    planL = _diff_plan(b[:, 0], b[:, 1], b[:, 2], l[:, 0], l[:, 1], l[:, 2], nb, nl)
+    planR = _diff_plan(b[:, 0], b[:, 1], b[:, 2], r[:, 0], r[:, 1], r[:, 2], nb, nr)
     kL, aL, bL, nopsL = _emit_slots(planL, C)
     kR, aR, bR, nopsR = _emit_slots(planR, C)
-    wL = _op_id_words(kL, aL, bL, b_cols, l_cols, hash_tab, dig_l, C)
-    wR = _op_id_words(kR, aR, bR, b_cols, r_cols, hash_tab, dig_r, C)
-    return _compose_and_pack(kL, aL, bL, wL, nopsL, kR, aR, bR, wR, nopsR,
-                             b_cols, l_cols, r_cols, C)
+    wL = _op_id_words(kL, aL, bL, b, l, hash_tab, dig_l, C)
+    wR = _op_id_words(kR, aR, bR, b, r, hash_tab, dig_r, C)
+    return _compose_and_pack(kL, aL, bL, wL, nopsL, kR, aR, bR, wR, nopsR, b, l, r, C)
+
+
+def _fused_merge_program(b_cols, l_cols, r_cols, hash_tab, dig_l, dig_r,
+                         C: int) -> torch.Tensor:
+    """One merge (``[4, n]`` decl columns, ``[cap, 10]`` table, ``[16]``
+    digests) → its int32 ``[8 + 24C]`` one-buffer row."""
+    return _fused_merge_rows(b_cols[None], l_cols[None], r_cols[None], hash_tab[None],
+                             dig_l[None], dig_r[None], C)[0]
 
 
 def _fused_diff_program(b_cols, s_cols, hash_tab, dig, C: int) -> torch.Tensor:
@@ -518,13 +607,39 @@ def _fused_diff_program(b_cols, s_cols, hash_tab, dig, C: int) -> torch.Tensor:
     int32 buffer ``[n_ops, overflow, 6 zeros, kind, a_slot, b_slot,
     w0..w3]``."""
     nb, ns = b_cols.shape[1], s_cols.shape[1]
-    plan = _diff_plan(b_cols[0], b_cols[1], b_cols[2], s_cols[0], s_cols[1], s_cols[2], nb, ns)
-    k, a, b, n_ops = _emit_slots(plan, C)
-    w = _op_id_words(k, a, b, b_cols, s_cols, hash_tab, dig, C)
+    b, s = b_cols[None], s_cols[None]
+    plan = _diff_plan(b[:, 0], b[:, 1], b[:, 2], s[:, 0], s[:, 1], s[:, 2], nb, ns)
+    k, a, bs, n_ops = _emit_slots(plan, C)
+    w = _op_id_words(k, a, bs, b, s, hash_tab[None], dig[None], C)
     scalars = torch.zeros(8, dtype=torch.int32, device=k.device)
-    scalars[0] = n_ops
-    scalars[1] = n_ops > C
-    return torch.cat([scalars, k, a, b, *w.unbind(1)])
+    scalars[0] = n_ops[0]
+    scalars[1] = n_ops[0] > C
+    return torch.cat([scalars, k[0], a[0], bs[0], *w[0].unbind(1)])
+
+
+# --------------------------------------------------------------------------
+# Batched entry point (the continuous-batching subsystem, ``batch/``)
+# --------------------------------------------------------------------------
+# The batched program is the single-merge body over a leading merge axis
+# (the body above IS that axis: the one-merge program runs it at B = 1):
+# every lane is independent, so lane i of the batched output equals an
+# unbatched dispatch of request i, and padding lanes are inert. PyTorch
+# compiles nothing per bucket shape, so there is no program cache to keep.
+
+def batched_fused_program(B: int, nb: int, nl: int, nr: int, C: int):
+    """The batched fused-merge program for one bucket shape: maps
+    ``(b[B,4,nb], l[B,4,nl], r[B,4,nr], hash_tab[B,cap,10], dig_l[B,16],
+    dig_r[B,16])`` to the int32 ``[B, 8 + 24C]`` stack of one-buffer
+    packed rows, on the inputs' device; other decl shapes raise
+    ``ValueError``."""
+    def prog(b, l, r, hash_tab, dig_l, dig_r):
+        shapes = (b.shape, l.shape, r.shape)
+        if shapes != ((B, 4, nb), (B, 4, nl), (B, 4, nr)):
+            raise ValueError(f"batched fused program {(B, nb, nl, nr, C)}: "
+                             f"got shapes {shapes}")
+        return _fused_merge_rows(b, l, r, hash_tab, dig_l, dig_r, C)
+
+    return prog
 
 
 # --------------------------------------------------------------------------
@@ -543,35 +658,34 @@ class FusedMergeEngine:
         self.interner = interner
         self.device = device
         self._tail = TailPipeline(resolve_host_workers(host_workers))
-        self.strings = DeviceStrings(interner, device)
+        self.strings = _strings_for(interner, device)
         self._renderer = None
         #: Per-snapshot field lists for the views and the applier.
         self._fields: "OrderedDict" = OrderedDict()
         self._cap_hint = 256
         self.phases: Dict[str, float] = {}
 
-    def _device_decl(self, t: DeclTensor) -> torch.Tensor:
-        """int32 ``[4, bucket]`` (sym, addr, name, file) on the device."""
-        bucket = bucket_size(max(t.n, 1))
-        null = np.int32(NULL_ID)
-        stacked = np.stack([pad_to(t.sym, bucket, PAD_ID), pad_to(t.addr, bucket, null),
-                            pad_to(t.name, bucket, null), pad_to(t.file, bucket, null)])
-        obs_device.record_transfer("h2d", stacked.nbytes)
-        return _h2d(stacked, self.device)
+    def _device_decl(self, t: DeclTensor, identity=None) -> torch.Tensor:
+        """int32 ``[4, bucket]`` (sym, addr, name, file) on the device,
+        reused when ``identity`` names a snapshot shipped before."""
+        return device_decl_columns(t, identity, self.device)
 
     def _digest(self, seed: str, rev: str) -> torch.Tensor:
         return _h2d(np.frombuffer(op_id_prefix_digest(seed, rev), np.uint8), self.device)
 
     def diff(self, base_t: DeclTensor, base_nodes, side_t: DeclTensor, side_nodes,
-             *, seed: str, base_rev: str, timestamp: str) -> Optional[OpStreamView]:
+             *, seed: str, base_rev: str, timestamp: str, keys=(None, None)
+             ) -> Optional[OpStreamView]:
         """The two-way fused diff (``semdiff``): one device pass, one
         fetch, op ids hashed on the device; ``None`` when the capacity
-        retries run out (the caller takes the two-program path)."""
+        retries run out (the caller takes the two-program path).
+        ``keys`` are the two snapshots' identities (or ``None``), under
+        which their device columns are cached."""
         t0 = time.perf_counter()
         hash_tab = self.strings.sync()
         dig = self._digest(seed + "/R", base_rev)
-        dev_b = self._device_decl(base_t)
-        dev_s = self._device_decl(side_t)
+        dev_b = self._device_decl(base_t, keys[0])
+        dev_s = self._device_decl(side_t, keys[1])
         for _attempt in range(4):
             C = bucket_size(max(self._cap_hint, 8))
             flat = _fused_diff_program(dev_b, dev_s, hash_tab, dig, C).cpu().numpy()
@@ -594,11 +708,14 @@ class FusedMergeEngine:
 
     def merge(self, base_t: DeclTensor, base_nodes, left_t: DeclTensor, left_nodes,
               right_t: DeclTensor, right_nodes,
-              *, seed: str, base_rev: str, timestamp: str, overlap_work=None
+              *, seed: str, base_rev: str, timestamp: str, overlap_work=None,
+              keys=(None, None, None)
               ) -> Optional[Tuple[OpStreamView, OpStreamView, ComposedOpView, List[Conflict]]]:
         """The one-pass merge: ``(A's view, B's view, composed view,
         conflicts)``, or ``None`` when the capacity retries run out (the
-        caller takes the two-program path).
+        caller takes the two-program path). ``keys`` are the three
+        snapshots' identities (or ``None``), under which their device
+        columns are cached.
 
         ``overlap_work`` (a no-argument callable) runs on the host while
         the device works, before the first fetch. The host tail is
@@ -608,42 +725,75 @@ class FusedMergeEngine:
         when eligible (:mod:`.render`). The ``kernel`` fault-injection
         stage fires before the dispatch.
 
+        The merge's one-buffer row is fetched once. Under an active batch
+        scheduler (the merge service) on this engine's device, the
+        dispatch is submitted to it
+        (:func:`semantic_merge_tpu_torch.batch.plan_for_request`) and
+        the merge decodes its scattered row, the same bytes. A batching
+        fault degrades this request alone to the inline
+        dispatch on the same device under ``SEMMERGE_BATCH=auto`` and
+        raises under ``require``.
+
         While a detailed span recorder is active (``--trace``,
         ``--profile``) the steps are recorded as the JAX engine records
         them: ``h2d``, then per attempt ``kernel`` and ``fetch``, then
-        ``materialize``, ``render`` (when dispatched), ``fetch`` (mid),
-        ``compose_decode``, and ``chain_decode`` when the composed view
+        ``materialize``, ``render`` (when dispatched), ``compose_decode``, and ``chain_decode`` when the composed view
         is first read (layer ``ops``). They time the host: ``kernel`` is
         the dispatch (no synchronization is added), the fetches include
         the wait for the card. Transfers count in the device block."""
+        from .. import batch as batch_mod
+        from ..errors import MergeFault
         faults.check("kernel")
         detailed = obs_spans.detailed_active()
         t0 = t_start = time.perf_counter()
         hash_tab = self.strings.sync()
         dig_l = self._digest(seed + "/L", base_rev)
         dig_r = self._digest(seed + "/R", base_rev)
-        dev_b = self._device_decl(base_t)
-        dev_l = self._device_decl(left_t)
-        dev_r = self._device_decl(right_t)
+        dev_b = self._device_decl(base_t, keys[0])
+        dev_l = self._device_decl(left_t, keys[1])
+        dev_r = self._device_decl(right_t, keys[2])
         if detailed:
             obs_spans.record("h2d", time.perf_counter() - t0, layer="ops", t_start=t0)
+        batcher = batch_mod.plan_for_request(self.device)
         for _attempt in range(4):
             C = bucket_size(max(self._cap_hint, 8))
             t0 = time.perf_counter()
-            head_dev, mid_dev, chains_dev = _fused_merge_program(
-                dev_b, dev_l, dev_r, hash_tab, dig_l, dig_r, C)
+            batch_fut = None
+            if batcher is not None:
+                try:
+                    batch_fut = batch_mod.submit_request(
+                        batcher, dev_b, dev_l, dev_r, hash_tab, dig_l, dig_r,
+                        nb=dev_b.shape[1], nl=dev_l.shape[1], nr=dev_r.shape[1], C=C)
+                except MergeFault as fault:
+                    batch_mod.degrade_or_raise(fault)
+                    batcher = None
+            if batch_fut is None:
+                row_dev = _fused_merge_program(dev_b, dev_l, dev_r, hash_tab, dig_l, dig_r, C)
             if overlap_work is not None:
                 overlap_work()  # rides along with the device's work
                 overlap_work = None
                 for nodes in (base_nodes, left_nodes, right_nodes):
                     _get_fields(self._fields, nodes)
-            if detailed:
-                obs_spans.record("kernel", time.perf_counter() - t0, layer="ops", t_start=t0)
-                t0 = time.perf_counter()
-            flat = head_dev.cpu().numpy()
-            obs_device.record_transfer("d2h", flat.nbytes)
-            if detailed:
-                obs_spans.record("fetch", time.perf_counter() - t0, layer="ops", t_start=t0)
+            if batch_fut is not None:
+                try:
+                    flat = batch_mod.collect_request(batch_fut)
+                except MergeFault as fault:
+                    batch_mod.degrade_or_raise(fault)
+                    batcher = None
+                    continue  # retry this capacity on the inline path
+                if detailed:
+                    obs_spans.record("kernel", time.perf_counter() - t0, layer="ops",
+                                     t_start=t0)
+            else:
+                if detailed:
+                    obs_spans.record("kernel", time.perf_counter() - t0, layer="ops",
+                                     t_start=t0)
+                    t0 = time.perf_counter()
+                flat = row_dev.cpu().numpy()
+                obs_device.record_transfer("d2h", flat.nbytes)
+                if detailed:
+                    obs_spans.record("fetch", time.perf_counter() - t0, layer="ops",
+                                     t_start=t0)
             n_l, n_r = int(flat[0]), int(flat[1])
             if not flat[4]:
                 break
@@ -673,12 +823,8 @@ class FusedMergeEngine:
         if detailed and rendered:
             obs_spans.record("render", self.phases["render"], layer="ops", t_start=t0)
 
-        t0 = time.perf_counter()
-        fm = mid_dev.cpu().numpy()
-        obs_device.record_transfer("d2h", fm.nbytes)
-        if detailed:
-            obs_spans.record("fetch", time.perf_counter() - t0, layer="ops", t_start=t0)
-        t_decode = time.perf_counter()
+        t0 = t_decode = time.perf_counter()
+        fm, chains = flat[8 + 14 * C:8 + 18 * C], flat[8 + 18 * C:]
         perm_l, perm_r, ref = fm[:C], fm[C:2 * C], fm[2 * C:]
         refs = ref[:n_out]
         sides = (refs >> 30).astype(np.int32)
@@ -696,17 +842,16 @@ class FusedMergeEngine:
         interner = self.interner  # not `self`: an unread view must not pin the engine
         ctx_row_arr = np.asarray(ctx_rows, np.int64)
 
-        def fetch_chains():
+        def chain_columns():
             t1 = time.perf_counter()
-            fc = chains_dev.cpu().numpy()
-            obs_device.record_transfer("d2h", fc.nbytes)
             tbl = interner.object_table()
             if detailed:
                 obs_spans.record("chain_decode", time.perf_counter() - t1, layer="ops",
                                  t_start=t1)
-            return fc[:n_out], fc[2 * C:2 * C + n_out], fc[4 * C:4 * C + n_out], tbl
+            return (chains[:n_out], chains[2 * C:2 * C + n_out],
+                    chains[4 * C:4 * C + n_out], tbl)
 
-        chains_cell = _OnceCell(fetch_chains)
+        chains_cell = _OnceCell(chain_columns)
 
         def decode_rows(lo, hi):
             """One shard's chain overrides: object-array gathers over the

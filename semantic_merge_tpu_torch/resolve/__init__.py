@@ -28,7 +28,7 @@ are a no-op outside its daemon unless ``SEMMERGE_BREAKER=on``).
 """
 from __future__ import annotations
 
-import os
+from ..utils import reqenv
 
 #: Accepted ``SEMMERGE_RESOLVE`` / ``--resolve`` values.
 POSTURES = ("off", "auto", "require")
@@ -39,5 +39,5 @@ def posture(args=None) -> str:
     then ``SEMMERGE_RESOLVE``; anything absent or unrecognized is
     ``off``. Strict-mode suppression is the CLI's call."""
     flag = getattr(args, "resolve", None) if args is not None else None
-    raw = (flag or os.environ.get("SEMMERGE_RESOLVE", "") or "").strip().lower()
+    raw = (flag or reqenv.get("SEMMERGE_RESOLVE", "") or "").strip().lower()
     return raw if raw in POSTURES else "off"

@@ -1,5 +1,5 @@
 """The resolution engine: propose → verify → accept (the port's copy of
-the JAX package's ``resolve/engine.py``, without its circuit breakers).
+the JAX package's ``resolve/engine.py``).
 
 Flow per merge (called from the CLI when the compose yields conflicts
 and the posture enables the tier):
@@ -32,6 +32,12 @@ record (layer ``resolve``); ``resolutions_total{category,outcome}`` with
 outcomes ``no-candidates``, ``tie``, ``rejected``, ``accepted`` and
 (category ``all``) ``fault``; a ``resolver-fault`` postmortem bundle for
 an absorbed fault.
+
+Each category is a circuit-breaker rung, ``resolve:<Category>``
+(:mod:`semantic_merge_tpu_torch.service.resilience`; a no-op outside
+the merge service unless ``SEMMERGE_BREAKER=on``): an open breaker
+skips the category's proposals (``cause = "breaker-open"``), a fault or
+a failed gate counts against it, an accepted resolution closes it.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from ..errors import MergeFault, fault_boundary
 from ..obs import flight as obs_flight
 from ..obs import metrics as obs_metrics
 from ..obs import spans as obs_spans
+from ..service.resilience import breakers
 from ..utils import faults, workdir
 from .base import Candidate, ResolveContext, Resolver
 from .search import SearchResolver
@@ -76,12 +83,13 @@ def _count(category: str, outcome: str) -> None:
 def record_resolver_fault(fault: MergeFault) -> None:
     """Containment bookkeeping for a resolver fault the CLI absorbed
     (posture ``auto``): a log line, ``resolutions_total{category="all",
-    outcome="fault"}`` and a ``resolver-fault`` postmortem bundle (its
-    ``breakers`` empty: the port runs no circuit breakers)."""
+    outcome="fault"}`` and a ``resolver-fault`` postmortem bundle with
+    the breakers' states."""
     logger.warning("conflict resolution fell back after %s", fault.describe())
     _count("all", "fault")
     obs_flight.dump(obs_spans.trace_id() or obs_flight.default_trace_id(),
-                    "resolver-fault", fault=fault, breakers={}, root=workdir.root())
+                    "resolver-fault", fault=fault, breakers=breakers().snapshot(),
+                    root=workdir.root())
 
 
 def resolve_conflicts(conflicts: Sequence, log_a: List[Op], log_b: List[Op],
@@ -96,6 +104,7 @@ def resolve_conflicts(conflicts: Sequence, log_a: List[Op], log_b: List[Op],
     resolver = resolver or SearchResolver()
     ctx = ResolveContext(log_a, log_b, base_tar=base_tar,
                          left_tar=left_tar, right_tar=right_tar)
+    board = breakers()
 
     records: List[dict] = []
     winners: List[Tuple[dict, Candidate]] = []
@@ -114,10 +123,19 @@ def resolve_conflicts(conflicts: Sequence, log_a: List[Op], log_b: List[Op],
             "gates": [],
         }
         records.append(rec)
-        with obs_spans.span("resolution.propose", layer="resolve", category=category), \
-                fault_boundary("resolver:propose"):
-            faults.check("resolver:propose")
-            cands = list(resolver.propose(cd, ctx))
+        rung = f"resolve:{category}"
+        if not board.allow(rung):
+            rec["cause"] = "breaker-open"
+            _count(category, "breaker-open")
+            continue
+        try:
+            with obs_spans.span("resolution.propose", layer="resolve", category=category), \
+                    fault_boundary("resolver:propose"):
+                faults.check("resolver:propose")
+                cands = list(resolver.propose(cd, ctx))
+        except MergeFault:
+            board.record_failure(rung)
+            raise
         rec["candidates"] = len(cands)
         rec["scores"] = {c.id: c.score for c in cands}
         if not cands:
@@ -145,21 +163,28 @@ def resolve_conflicts(conflicts: Sequence, log_a: List[Op], log_b: List[Op],
     gates: List[dict] = []
     for rec in records:
         rec["gates"] = gates  # one shared verify run covers the set
-    with obs_spans.span("resolution.verify", layer="resolve", n=len(winners)), \
-            fault_boundary("resolver:verify"):
-        faults.check("resolver:verify")
-        composed2, failed = _verify(
-            [c for _, c in winners], log_a, log_b, gates,
-            composed=composed, base_tar=base_tar,
-            strict_detect=strict_detect, config=config, device=device)
+    try:
+        with obs_spans.span("resolution.verify", layer="resolve", n=len(winners)), \
+                fault_boundary("resolver:verify"):
+            faults.check("resolver:verify")
+            composed2, failed = _verify(
+                [c for _, c in winners], log_a, log_b, gates,
+                composed=composed, base_tar=base_tar,
+                strict_detect=strict_detect, config=config, device=device)
+    except MergeFault:
+        for rec, _ in winners:
+            board.record_failure(f"resolve:{rec['category']}")
+        raise
     if failed is not None:
         for rec, _ in winners:
             rec["cause"] = f"gate:{failed}"
             _count(rec["category"], "rejected")
+            board.record_failure(f"resolve:{rec['category']}")
         return ResolutionOutcome(False, None, records)
     for rec, _ in winners:
         rec["status"] = "accepted"
         _count(rec["category"], "accepted")
+        board.record_success(f"resolve:{rec['category']}")
     obs_spans.record("resolution.accept", 0.0, layer="resolve", n=len(winners))
     return ResolutionOutcome(True, composed2, records)
 

@@ -19,16 +19,26 @@ import tempfile
 from typing import Iterable, Iterator
 
 from ..frontend.snapshot import SOURCE_EXTENSIONS, Snapshot
+from ..utils import workdir
 
 
 def run_git(args: Iterable[str], cwd: pathlib.Path | None = None) -> str:
+    # cwd=None is the scoped request root inside a merge service
+    # request, the process's working directory otherwise (utils/workdir).
     proc = subprocess.run(["git", *args], check=True, stdout=subprocess.PIPE,
-                          text=True, cwd=cwd)
+                          text=True, cwd=cwd if cwd is not None else workdir.current())
     return proc.stdout.strip()
 
 
 def resolve_rev(rev: str, cwd: pathlib.Path | None = None) -> str:
     return run_git(["rev-parse", rev], cwd=cwd)
+
+
+def tree_oid(rev: str, cwd: pathlib.Path | None = None) -> str:
+    """The tree object id a revision points at — the content address
+    the warm residency cache (``service/residency.py``) keys encoded
+    base snapshots under."""
+    return run_git(["rev-parse", rev + "^{tree}"], cwd=cwd)
 
 
 def commit_timestamp_iso(rev: str, cwd: pathlib.Path | None = None) -> str:
@@ -47,7 +57,8 @@ def archive_bytes(rev: str, cwd: pathlib.Path | None = None) -> bytes:
     """One ``git archive`` round-trip for a revision's full tree."""
     resolved = resolve_rev(rev, cwd=cwd)
     proc = subprocess.run(["git", "archive", resolved], check=True,
-                          stdout=subprocess.PIPE, cwd=cwd)
+                          stdout=subprocess.PIPE,
+                          cwd=cwd if cwd is not None else workdir.current())
     return proc.stdout
 
 

@@ -1,7 +1,8 @@
 """Op-log persistence as git notes (reference ``semmerge/notes.py``).
 
 The port's copy of the JAX package's ``runtime/notes.py``; commands run
-in ``cwd`` (the process's working directory when ``None``).
+in ``cwd`` (when ``None``, the scoped request root inside a merge
+service request, else the process's working directory).
 
 Op logs are attached to the merged commits under the ``semmerge`` notes
 ref after every successful merge, for traceability and rebase replay.
@@ -18,6 +19,7 @@ import subprocess
 import tempfile
 
 from ..core.ops import OpLog
+from ..utils import workdir
 
 NOTES_REF = "semmerge"
 
@@ -31,7 +33,7 @@ def notes_put(commit: str, oplog: OpLog, namespace: str = NOTES_REF,
         tmp_file.write_bytes(oplog.to_json_bytes())
         subprocess.run(
             ["git", "notes", "--ref", namespace, "add", "-f", "-F", str(tmp_file), commit],
-            check=True, cwd=cwd,
+            check=True, cwd=cwd if cwd is not None else workdir.current(),
         )
     except subprocess.CalledProcessError:
         pass  # Notes are optional; never fail the merge over them.
@@ -45,7 +47,7 @@ def notes_get(commit: str, namespace: str = NOTES_REF,
         proc = subprocess.run(
             ["git", "notes", "--ref", namespace, "show", commit],
             check=True, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
-            cwd=cwd,
+            cwd=cwd if cwd is not None else workdir.current(),
         )
     except subprocess.CalledProcessError:
         return None

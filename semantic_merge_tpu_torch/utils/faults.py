@@ -47,6 +47,7 @@ import time
 from typing import Dict, Optional
 
 from ..errors import fault_for_stage
+from . import reqenv
 
 ENV_VAR = "SEMMERGE_FAULT"
 
@@ -94,14 +95,17 @@ def check(stage: str) -> Optional[str]:
     """Injection point: fire the configured fault when ``stage``
     matches. Returns ``None`` (no spec / not this stage / not this
     hit), or the kind token for site-specific kinds."""
-    env = os.environ.get(ENV_VAR)
+    env = reqenv.get(ENV_VAR)
     if not env:
         return None
     spec = _parse(env)
     if spec is None or spec[0] != stage:
         return None
     _, kind, nth = spec
-    count = _counters[stage] = _counters.get(stage, 0) + 1
+    # A daemon request counts its hits afresh, as a one-shot run would.
+    ov = reqenv.active()
+    counters = _counters if ov is None else ov.setdefault("__fault_counters__", {})
+    count = counters[stage] = counters.get(stage, 0) + 1
     if nth is not None and count != nth:
         return None
     if kind == "raise":

@@ -69,8 +69,10 @@ def test_merge_program_matches_jax(seed):
     cols, tab, (dl, dr) = _program_inputs(seed)
     want = _fused_merge_kernel(*cols, tab, dl, dr, nb=48, nl=48, nr=48, C=128, split=True)
     t = [torch.from_numpy(c) for c in cols]
-    got = fused._fused_merge_program(*t, torch.from_numpy(tab), torch.from_numpy(dl),
+    row = fused._fused_merge_program(*t, torch.from_numpy(tab), torch.from_numpy(dl),
                                      torch.from_numpy(dr), C=128)
+    assert row.shape == (8 + 24 * 128,)
+    got = row.split([8 + 14 * 128, 4 * 128, 6 * 128])  # JAX's split=True parts
     for name, g, w in zip(("head", "mid", "chains"), got, want):
         w = np.asarray(w)
         assert g.dtype == torch.int32 and w.dtype == np.int32, name

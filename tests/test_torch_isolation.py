@@ -6,9 +6,11 @@
 - Importing every module of the port leaves ``jax`` and the JAX package
   out of ``sys.modules``.
 - The strict, statement-op, native-scan and git-facing modules
-  (faults, ladder, resolution tier, driver) and the telemetry modules
+  (faults, ladder, resolution tier, driver), the telemetry modules
   (``obs/``, ``runtime/trace.py``, ``utils/loggingx.py``,
-  ``utils/workdir.py``) are among them; the merge driver and ``obs/``
+  ``utils/workdir.py``) and the merge service's (``service/``,
+  ``batch/``, ``utils/reqenv.py``) are among them; the service client's
+  path imports neither torch nor numpy; the merge driver and ``obs/``
   import the standard library only (and their own package); the
   native scanner is the port's own build of its own copy of the C++
   source, never the JAX package's ``native/`` library.
@@ -113,6 +115,41 @@ def test_telemetry_modules_are_checked_and_stand_alone(module):
         # backend chose a CUDA device).
         allowed = {"torch"} if module == "obs/device.py" else set()
         assert roots <= set(sys.stdlib_module_names) | {"__future__"} | allowed, roots
+
+
+#: The merge service slice: the daemon, its client and supervisor, the
+#: batching subsystem, warm residency and the daemon-side telemetry.
+SERVICE_MODULES = ("service/__init__.py", "service/protocol.py", "service/client.py",
+                   "service/daemon.py", "service/supervisor.py", "service/resilience.py",
+                   "service/residency.py", "service/telemetry.py", "batch/__init__.py",
+                   "batch/packer.py", "batch/scheduler.py", "batch/dispatcher.py",
+                   "utils/reqenv.py", "obs/agg.py", "obs/sampling.py", "obs/slo.py",
+                   "obs/anomaly.py", "frontend/snapshot.py", "__main__.py")
+
+
+@pytest.mark.parametrize("module", SERVICE_MODULES)
+def test_service_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    roots = _imported_roots(path)
+    assert not roots & set(FORBIDDEN), roots
+    if not module.startswith("batch/"):
+        # The client path (``__main__`` → service.client) runs before
+        # torch is imported; the daemon asks torch for the card's name
+        # inside a function. The rest: the standard library.
+        allowed = {"torch"} if module == "service/daemon.py" else set()
+        assert roots <= set(sys.stdlib_module_names) | {"__future__"} | allowed, roots
+
+
+def test_client_path_imports_no_torch():
+    code = ("import sys\nfrom semantic_merge_tpu_torch.service import client\n"
+            "client.delegate(['semdiff', 'a', 'b'])\n"
+            "print(sorted(m for m in ('torch', 'numpy') if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(SEMMERGE_DAEMON="off"),
+                         cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_driver_imports_the_standard_library_only():

@@ -308,8 +308,9 @@ def test_native_build_failure_never_degrades(tmp_path, monkeypatch):
 def test_exit_codes_are_the_jax_packages():
     assert errors.EXIT_CODES == {name: jax_errors.EXIT_CODES[name]
                                  for name in errors.EXIT_CODES}
-    assert set(errors.EXIT_CODES) == {"ParseFault", "KernelFault", "ApplyFault",
-                                      "FormatFault", "DeadlineFault", "ResolveFault"}
+    assert set(errors.EXIT_CODES) == {"ParseFault", "KernelFault", "WorkerFault",
+                                      "ApplyFault", "FormatFault", "DeadlineFault",
+                                      "BatchFault", "ResolveFault"}
     assert errors.UnsupportedSetting.exit_code == 70
 
 

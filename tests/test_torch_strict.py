@@ -23,6 +23,7 @@ the JAX package.
 - Refused settings: each exits 70 before it reads a revision, leaving
   the work tree and ``git status`` as they were.
 """
+import json
 import os
 import pathlib
 import shutil
@@ -40,6 +41,7 @@ from semantic_merge_tpu.core.strict_conflicts import (
 from semantic_merge_tpu.frontend.scanner import scan_snapshot_py as jax_scan
 from semantic_merge_tpu.frontend.snapshot import Snapshot as JaxSnapshot
 from semantic_merge_tpu_torch import cli
+from semantic_merge_tpu_torch.service import client as service_client
 from semantic_merge_tpu_torch.backends.ts_torch import TorchTSBackend
 from semantic_merge_tpu_torch.core import difflift
 from semantic_merge_tpu_torch.core.ops import Op
@@ -462,6 +464,22 @@ REFUSED = {
                                     "SEMMERGE_DAEMON=require"),
     "batch_require": ("", {"SEMMERGE_BATCH": "require"}, "SEMMERGE_BATCH=require"),
 }
+#: Postures the merge service now serves: outside it they still fail
+#: before the tree is touched, with their own codes — ``require`` with
+#: no daemon on the socket exits 12 (WorkerFault), ``SEMMERGE_BATCH=
+#: require`` with no batch scheduler 16 (BatchFault).
+SERVED = {"daemon_require": (12, "daemon required but unavailable"),
+          "daemon_require_with_resolve": (12, "daemon required but unavailable"),
+          "batch_require": (16, "BatchFault")}
+
+
+class _DeadProc:
+    """A spawned daemon that exited at once."""
+
+    returncode = 1
+
+    def poll(self):
+        return self.returncode
 
 
 def _git_status(root):
@@ -488,15 +506,24 @@ def test_refused_setting_exits_before_touching_the_tree(tmp_path, monkeypatch, c
         monkeypatch.delenv(key, raising=False)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
+    # No daemon answers here, and none can be spawned.
+    monkeypatch.setenv("SEMMERGE_SERVICE_SOCKET", str(tmp_path / "no-daemon.sock"))
+    monkeypatch.setenv("SEMMERGE_SERVICE_RETRIES", "0")
+    monkeypatch.setattr(service_client, "_spawn_daemon", lambda path, device=None: _DeadProc())
     monkeypatch.chdir(repo)
     code = cli.main(["semmerge", "basebr", "branch-a", "branch-b", "--inplace",
                      "--device", "cpu"])
     err = capsys.readouterr().err
-    assert code == 70
-    assert named in err and "UnsupportedSetting" in err
+    want_code, want_text = SERVED.get(name, (70, "UnsupportedSetting"))
+    assert code == want_code
+    assert want_text in err and (named in err or name in SERVED)
+    if name == "batch_require":  # a typed fault's escape leaves its postmortem bundle
+        (bundle,) = (repo / ".semmerge-postmortem").glob("*.json")
+        assert json.loads(bundle.read_text())["reason"] == "fault-escape"
+        shutil.rmtree(repo / ".semmerge-postmortem")
     assert _tree_bytes(repo) == before and _git_status(repo) == status
     if not name.startswith("batch"):  # semdiff refuses them too
-        assert cli.main(["semdiff", "basebr", "branch-a", "--device", "cpu"]) == 70
+        assert cli.main(["semdiff", "basebr", "branch-a", "--device", "cpu"]) == want_code
 
 
 def test_unrefused_settings_keep_their_meaning(tmp_path, monkeypatch):

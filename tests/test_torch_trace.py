@@ -50,7 +50,13 @@ fault in its snapshot stage, the port's at the scan of its merge stage
 11, against the port's ``ParseFault``, exit 10); both exit 10 with a
 ``fault-escape`` bundle and ``merge_faults_total{fault="ParseFault"}``.
 ``scan_fault_no_degrade`` (a typed fault at the same scan) gives the
-full comparison.
+full comparison. Every fused merge needs a third: the JAX engine
+fetches its split outputs one by one (head, then mid, then the chains:
+a second ``fetch`` span and three d2h transfers), the port its
+one-buffer row at once (one ``fetch``, one d2h), so each JAX fused
+merge's later ``fetch`` span, its ``fetch`` phase observation and the
+d2h transfers of that fetch and of the chains are taken off before the
+comparison (:func:`_one_fetch`).
 
 Also: ``stats`` (plain, ``--json``, ``--prometheus``), ``trace
 analyze`` (one file, a directory, ``--json``) and ``trace diff`` print
@@ -321,8 +327,48 @@ def _cut_host_rung(trace):
     return trace
 
 
+def _one_fetch(trace):
+    """A JAX trace or postmortem bundle as the port's fused merge records
+    its fetch: under each ``fused_merge`` span the JAX engine has two
+    ``fetch`` spans (head, then mid) and one d2h transfer each, and one
+    more transfer for the chains, just before its ``chain_decode`` span;
+    the port has one ``fetch`` and one transfer. The later ``fetch`` goes,
+    with its observation of ``semmerge_phase_seconds{phase="fetch"}``, and
+    a transfer per removed ``fetch`` and per ``chain_decode`` comes off
+    ``semmerge_device_transfers_total{direction="d2h"}``."""
+    trace = copy.deepcopy(trace)
+    spans = trace["spans"]
+    cut = set()
+    if spans and "parent_id" in spans[0]:  # a trace's span tree
+        for merge in (r for r in spans if r["name"] == "fused_merge"):
+            fetches = sorted((r for r in spans if r["parent_id"] == merge["span_id"]
+                              and r["name"] == "fetch"), key=lambda r: r["t_start"])
+            assert len(fetches) == 2, fetches
+            cut.add(id(fetches[1]))
+    else:  # a bundle's flight rows, each noted when it ends: a merge's after its steps
+        fetches = []
+        for r in sorted(spans, key=lambda r: r["t"]):
+            if r["name"] == "fetch":
+                fetches.append(r)
+            elif r["name"] == "fused_merge":
+                assert len(fetches) == 2, fetches
+                cut.add(id(fetches[1]))
+                fetches = []
+    trace["spans"] = [r for r in spans if id(r) not in cut]
+    chain_fetches = sum(r["name"] == "chain_decode" for r in spans)
+    if cut:
+        metrics = trace["metrics"]
+        (phase,) = [s for s in metrics["histograms"]["semmerge_phase_seconds"]["series"]
+                    if s["labels"] == {"phase": "fetch"}]
+        phase["count"] -= len(cut)
+        (d2h,) = [s for s in metrics["counters"]["semmerge_device_transfers_total"]["series"]
+                  if s["labels"] == {"direction": "d2h"}]
+        d2h["value"] -= len(cut) + chain_fetches
+    return trace
+
+
 def _comparable_trace(runs, name):
-    jax_trace = runs[name, "jax"]["trace"]
+    jax_trace = _one_fetch(runs[name, "jax"]["trace"])
     if name == "apply_fault":
         jax_trace = _cut_host_rung(jax_trace)
     return jax_trace, runs[name, "port"]["trace"]
@@ -395,7 +441,8 @@ def test_trace_counters_equal(runs, name):
 
 @pytest.mark.parametrize("name", FULL)
 def test_registry_counters_equal(runs, name):
-    jax_metrics, port_metrics = (runs[name, side]["trace"]["metrics"] for side in ("jax", "port"))
+    jax_metrics = _one_fetch(runs[name, "jax"]["trace"])["metrics"]
+    port_metrics = runs[name, "port"]["trace"]["metrics"]
     assert _counters(port_metrics) == _counters(jax_metrics)
     assert sorted(port_metrics["gauges"]) == sorted(jax_metrics["gauges"])
 
@@ -425,7 +472,7 @@ def test_degradation_bundle_and_text_rung_counters_equal(runs):
     port, jax = runs["apply_fault", "port"], runs["apply_fault", "jax"]
     (port_bundle,) = port["bundles"].values()
     jax_bundles = sorted(jax["bundles"].values(), key=lambda b: b["ts"])
-    first = copy.deepcopy(jax_bundles[0])
+    first = _one_fetch(jax_bundles[0])
     assert first["degradation"] == {"from": "tpu", "to": "host"}
     first["degradation"] = {"from": "torch", "to": "text"}
     first["metrics"]["counters"]["merge_degradations_total"]["series"][0]["labels"]["to"] = "text"
@@ -534,11 +581,17 @@ def test_trace_analyze_directory_equal(runs, capsys, tmp_path, as_json):
                                   ["perf", "compare", "BENCH_r01.json"]],
                          ids=lambda a: "_".join(a[:2]))
 def test_unported_forms_exit_70_before_reading(capsys, tmp_path, monkeypatch, argv):
+    """``stats --daemon`` is ported with the merge service: with no
+    daemon on the socket it exits 1 and reads nothing, as the JAX CLI's
+    does; the other forms are still refused."""
     monkeypatch.chdir(tmp_path)  # nothing there to read
+    monkeypatch.setenv("SEMMERGE_SERVICE_SOCKET", str(tmp_path / "none.sock"))
     capsys.readouterr()
-    assert cli.main(argv) == 70
+    ported = argv == ["stats", "--daemon"]
+    assert cli.main(argv) == (1 if ported else 70)
     out, err = capsys.readouterr()
-    assert out == "" and "not implemented by this port" in err
+    assert out == "" and ("no merge service daemon reachable" if ported
+                          else "not implemented by this port") in err
     assert list(tmp_path.iterdir()) == []
 
 
