@@ -14,11 +14,25 @@ Phases, each fatal on failure, each printing its seconds:
    registers and spills (fails on a spill) and, where the toolkit has
    cuobjdump, SASS counts per kernel: the instruction total, the ALU-
    and FMA-pipe totals, HMMA, LDSM, LDGSTS and LDS for ``flash_chunk``
-   (fails without HMMA), SHF, LOP3, IADD3, PRMT, ISETP and IMAD for
+   (fails without HMMA), FFMA, LDS, STS, LDG, STG and MUFU for
+   ``flash_chunk_bwd`` (fails without FFMA), SHF, LOP3, IADD3, PRMT,
+   ISETP and IMAD for
    ``sha256`` (fails without SHF, the rotates; its bound in phase 5 is
    counted from these, so it fails there without cuobjdump). Then
    ``g++`` builds the native scanner
    (``frontend/semmerge_native.cpp``); prints its build seconds.
+2b. train, before any matcher runs: ``train-matcher --steps 200
+   --ckpt-dir DIR --ckpt-every 100 --eval`` in this process at the
+   default width (batch 32, seq 64): exit 0, its two output lines, a
+   finite loss lower at step 200 than at step 1 (printed every 20 steps),
+   1,600 ``flash_chunk`` and 1,600 ``flash_chunk_bwd`` launches in the
+   training (8 a step) and no ``sha256``, ``matcher_eval`` with
+   ``trained`` true, the checkpoint in DIR loading through
+   ``EmbeddingSignatureMatcher``; ms per step and the idle share over
+   steps 101-120 (torch.profiler); the first 3 losses equal the CPU
+   plain path's from the same initial weights within 2e-2; then 20 steps
+   with ``moe_mode="topk"`` through the Python API: finite, falling, 8 +
+   8 launches a step. The merges below keep the seeded checkpoint.
 3. repo: a git repository of the bench's ``synth_repo`` shape at its
    rung5 size (10,000 files x 4 decls): the side branch renames
    functions in every even file and renames AND retypes the first
@@ -38,7 +52,8 @@ Phases, each fatal on failure, each printing its seconds:
    scan seconds and the cache's hits and misses printed):
    - matcher semdiff: ``semdiff base side --json-out --change-signature
      --signature-matcher`` (the two-program path): 8 ``flash_chunk``
-     launches, no ``sha256``;
+     launches, no ``sha256``, no ``flash_chunk_bwd`` (no merge path
+     takes a gradient);
    - fused semdiff: ``semdiff base side --json-out``: the fused engine,
      ``sha256`` launched (2 on a cold engine), no ``flash_chunk``; op
      counts; every op id equals ``core/ids.py::deterministic_op_id``
@@ -72,13 +87,19 @@ Phases, each fatal on failure, each printing its seconds:
    version: ``flash_chunk`` within atol/rtol 2e-3 (normalised output
    and rebased row sums; bf16 inputs, f32 sums in another order; the
    plain f32 einsums run with TF32 off, and l = Lk on all-masked rows),
+   ``flash_chunk_bwd`` within atol/rtol 1e-2 on dq, dk and dv (bf16
+   outputs of f32 sums) at the training shape, the matcher's inference
+   shapes and edge shapes, all-masked rows sending no dq or dk,
    ``sha256`` bit-exact and against hashlib (lengths 0, 1, 55, 56, 63,
    64, 119 and 120, capacities of 1-3 blocks, 1 row and a row count
    that is no multiple of the CTA). Timed at the path shapes: CUDA-event
    and host time per call, device time (torch.profiler), CUDA-graph
    back-to-back time, the plain version's time, and for ``flash_chunk``
    one library call (``scaled_dot_product_attention``, a yardstick
-   only); the bound from this run's shapes. Then the fused merge and
+   only), for ``flash_chunk_bwd`` SDPA's backward (the same, at the
+   training and inference shapes); the bound from this run's shapes
+   (for the backward: q, k, v, O, dO, m, l, dq, dk, dv against its five
+   products on the bf16 tensor cores). Then the fused merge and
    diff programs and the render program, on the inputs the fused paths
    gave them: device time, kernels and host time per call. With them the
    batched fused program (``ops/fused.py::batched_fused_program``) at
@@ -217,8 +238,9 @@ def phase(name: str, t0: float) -> float:
 
 #: SASS instructions printed per kernel, and the one each must hold.
 SASS_OPS = {"flash_chunk": ("HMMA", "LDSM", "LDGSTS", "LDS"),
+            "flash_chunk_bwd": ("FFMA", "LDS", "STS", "LDG", "STG", "MUFU"),
             "sha256": ("SHF", "LOP3", "IADD3", "PRMT", "ISETP", "IMAD")}
-SASS_REQUIRED = {"flash_chunk": "HMMA", "sha256": "SHF"}
+SASS_REQUIRED = {"flash_chunk": "HMMA", "flash_chunk_bwd": "FFMA", "sha256": "SHF"}
 
 
 def report_ptxas(name: str, log: str) -> None:
@@ -526,6 +548,151 @@ def check_kernels(torch, path_shapes: dict) -> dict:
     }
 
 
+#: The backward kernel's tolerance against its plain version: its bf16
+#: outputs round f32 sums taken in another order (bf16 keeps 8 bits).
+TOL_BWD = 1e-2
+
+
+def _bwd_inputs(torch, flash, b, lq, lk, h, dh, *, dead_rows, seed):
+    """The backward's arguments on the card: q, k, v and the mask of
+    :func:`_attention_inputs`, the plain forward's m, l and f32 output, and
+    a bf16 output gradient."""
+    q, k, v, mask = _attention_inputs(torch, b, lq, lk, h, dh, dead_rows=dead_rows, seed=seed)
+    pv, m, l = flash.flash_chunk_attention_plain(q, k, v, mask)
+    o = (pv / l.transpose(1, 2)[..., None]).contiguous()
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(b, lq, h, dh, device="cuda", generator=g).to(torch.bfloat16)
+    return q, k, v, mask, m, l, o, do
+
+
+def _bwd_error(torch, flash, inputs, dead_rows) -> float:
+    """Max abs error of the kernel's dq, dk, dv against the plain
+    backward's; fails beyond atol/rtol ``TOL_BWD``, on a non-finite
+    value, or if an all-masked row sends gradient to its q or keys."""
+    got = flash.flash_chunk_backward(*inputs)
+    want = flash.flash_attention_backward_plain(*inputs)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g = g.float()
+        if not torch.isfinite(g).all():
+            fail(f"flash_chunk_bwd {name}: non-finite values")
+        if not torch.allclose(g, w, atol=TOL_BWD, rtol=TOL_BWD):
+            fail(f"flash_chunk_bwd {name}: max abs err {(g - w).abs().max().item():.3e} "
+                 f"exceeds atol/rtol {TOL_BWD}")
+        err = max(err, (g - w).abs().max().item())
+    if dead_rows and (got[0][-dead_rows:].any() or got[1][-dead_rows:].any()):
+        fail("flash_chunk_bwd: an all-masked row sent gradient to its q or keys")
+    return err
+
+
+def _bwd_work(b, lq, lk, h, dh):
+    """(bytes, flops) a backward launch must move and do: q, k, v, dO
+    (bf16), O (f32), m, l and the mask read once; dq, dk, dv (bf16)
+    written once; five products over every (query, key) pair (S, dO V^T,
+    dV, dK, dQ)."""
+    nbytes = (2 * b * lq * h * dh * 2 + 2 * b * lk * h * dh * 2 + b * lk  # q, dO, k, v, mask
+              + b * lq * h * dh * 4 + 2 * b * h * lq * 4  # O, m, l
+              + b * lq * h * dh * 2 + 2 * b * lk * h * dh * 2)  # dq, dk, dv
+    return nbytes, 10 * b * h * lq * lk * dh
+
+
+def check_flash_bwd(torch, path_shapes: dict, inference_shapes) -> dict:
+    """Holds the backward kernel against its plain version at the shapes
+    the training path launched it with (``path_shapes``: shape →
+    launches), at the matcher's inference shapes (``inference_shapes``),
+    on all-masked rows and at edge shapes, and times it at the training
+    and inference shapes, beside the plain backward and SDPA's backward (a
+    yardstick the port never calls). The row's times and bound are per
+    launch, weighted by the paths' launches at each shape."""
+    import torch.nn.functional as F
+
+    from semantic_merge_tpu_torch.parallel import flash
+
+    timed = dict(path_shapes)
+    for shape in inference_shapes:
+        timed.setdefault(shape, 0)
+    shapes = [(f"path x{n}", *shape, shape[0] // 8) for shape, n in sorted(timed.items())]
+    shapes += [  # (label, B, Lq, Lk, H, Dh, dead rows)
+        ("multi-block (dq in f32 scratch)", 4, 1024, 1000, 8, 32, 1),
+        ("Dh=64", 8, 128, 96, 4, 64, 1),
+        ("Dh=128", 4, 256, 200, 2, 128, 1),
+        ("one query, one key", 4, 1, 1, 8, 32, 1),
+        ("ragged tiles", 6, 17, 65, 8, 32, 1),
+    ]
+    errs = []
+    for i, (label, b, lq, lk, h, dh, dead) in enumerate(shapes):
+        err = _bwd_error(torch, flash, _bwd_inputs(torch, flash, b, lq, lk, h, dh,
+                                                   dead_rows=dead, seed=200 + i), dead)
+        errs.append(err)
+        print(f"flash_chunk_bwd {label} B={b} Lq={lq} Lk={lk} H={h} Dh={dh}: max abs err of "
+              f"dq, dk, dv {err:.3e} (atol/rtol {TOL_BWD}); all-masked rows: no dq, dk",
+              flush=True)
+
+    def sdpa_backward(q, k, v, mask, do):
+        """One SDPA backward over prepared (B, H, L, Dh) leaves."""
+        return torch.autograd.grad(sdpa_out[id(q)], (q, k, v), do, retain_graph=True)
+
+    per_shape, sdpa_out = [], {}
+    for (b, lq, lk, h, dh), n in sorted(timed.items()):
+        sets = [_bwd_inputs(torch, flash, b, lq, lk, h, dh, dead_rows=b // 8, seed=300 + s)
+                for s in range(4)]
+        library_sets = []
+        for q, k, v, mask, _, _, _, do in sets:
+            lq_, lk_, lv_ = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            sdpa_out[id(lq_)] = F.scaled_dot_product_attention(
+                lq_, lk_, lv_, attn_mask=mask[:, None, None, :])
+            library_sets.append((lq_, lk_, lv_, mask, do.transpose(1, 2)))
+        nbytes, flops = _bwd_work(b, lq, lk, h, dh)
+        bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+        ms, host_ms = _time_ms(torch, flash.flash_chunk_backward, sets)
+        row = {
+            "B": b, "Lq": lq, "Lk": lk, "H": h, "Dh": dh, "launches": n,
+            "ms": ms, "host_ms": host_ms,
+            "device_ms": None, "device_records": None,
+            "graph_ms": _graph_ms(torch, flash.flash_chunk_backward, sets),
+            "plain_ms": _time_ms(torch, flash.flash_attention_backward_plain, sets)[0],
+            "library_ms": _time_ms(torch, sdpa_backward, library_sets)[0],
+            "library_device_ms": _queued_ms(torch, sdpa_backward, library_sets),
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        }
+        row["device_ms"], row["device_records"] = _device_ms(
+            torch, flash.flash_chunk_backward, sets, "flash_chunk_bwd_kernel")
+        row["gb_per_s"], row["bound_share"] = _roofline(
+            nbytes, row["device_ms"], max(bytes_ms, ops_ms))
+        per_shape.append(row)
+        sdpa_out.clear()
+        print(f"flash_chunk_bwd timing {json.dumps(row)}", flush=True)
+
+    weighted = [r for r in per_shape if r["launches"]]
+    bytes_ms, ops_ms = _weighted(weighted, "bytes_ms"), _weighted(weighted, "ops_ms")
+    bound_ms = max(bytes_ms, ops_ms)
+    gb_per_s, bound_share = _roofline(_weighted(weighted, "bytes"),
+                                      _weighted(weighted, "device_ms"), bound_ms)
+    return {
+        "name": "flash_chunk_bwd",
+        "route": "cuda",
+        "source": "semantic_merge_tpu_torch/kernels/flash_chunk_bwd.cu",
+        "replaces": "semantic_merge_tpu/parallel/flash.py:45",
+        "computes": "the backward of _chunk_kernel, which the JAX package takes by "
+                    "autodiff of semantic_merge_tpu/parallel/ring.py:27 _chunk_stats_einsum",
+        "launches": None,
+        "max_abs_err": max(errs),
+        "ms": _weighted(weighted, "ms"),
+        "host_ms": _weighted(weighted, "host_ms"),
+        "device_ms": _weighted(weighted, "device_ms"),
+        "graph_ms": _weighted(weighted, "graph_ms"),
+        "plain_ms": _weighted(weighted, "plain_ms"),
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": _weighted(weighted, "library_ms"),
+        "library_device_ms": _weighted(weighted, "library_device_ms"),
+        "gb_per_s": gb_per_s,
+        "bound_share": bound_share,
+        "shapes": per_shape,
+    }
+
+
 def _weighted(rows, key):
     """Mean of ``key`` per launch, weighted by the rows' launches."""
     total = sum(r["launches"] for r in rows)
@@ -773,6 +940,186 @@ def check_batched_timing(programs: dict) -> dict:
            "device_ms_batched": batched["device_ms"], "device_ms_single": single["device_ms"]}
     print(f"batched program against one merge: {json.dumps(out)}", flush=True)
     return out
+
+
+# --- the train phase ---------------------------------------------------------
+
+#: Steps, checkpoint interval and the profiled window of the train phase.
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_WINDOW = 200, 100, (101, 120)
+#: The CPU tests' tolerance on a training step's loss (bf16 matmuls
+#: rounding at other points).
+TOL_LOSS = 2e-2
+
+
+class TrainWatch:
+    """Wraps ``training.train_step``: keeps each step's loss (a tensor,
+    read at the end), the host clock before the first step and, after a
+    synchronise, after step ``total`` (no other step waits for the card),
+    the launch counts and shapes after every step (so the last are the
+    training's, before anything that follows), and a torch.profiler
+    device trace over the steps of ``window``."""
+
+    def __init__(self, torch, training, kernels, total: int, window=None) -> None:
+        self.torch, self.training, self.kernels = torch, training, kernels
+        self.fn = training.train_step
+        self.total, self.window = total, window
+        self.losses, self.steps = [], 0
+        self.t_first = self.t_last = None
+        self.launches, self.shapes = {}, {}
+        self.window_wall = self.window_busy = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        prof = None
+
+        def wrapper(*args, **kwargs):
+            nonlocal prof
+            self.steps += 1
+            if self.t_first is None:
+                self.t_first = time.perf_counter()
+            if self.window and self.steps == self.window[0]:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+                self.window_t0 = time.perf_counter()
+            loss = self.fn(*args, **kwargs)
+            self.losses.append(loss)
+            if self.window and self.steps == self.window[1]:
+                torch.cuda.synchronize()
+                self.window_wall = time.perf_counter() - self.window_t0
+                prof.__exit__(None, None, None)
+                self.window_busy = _busy_us([(s, e) for _, s, e in _device_events(prof)]) / 1e6
+            if self.steps == self.total:
+                torch.cuda.synchronize()
+                self.t_last = time.perf_counter()
+            self.launches = dict(self.kernels.LAUNCHES)
+            self.shapes = {k: dict(v) for k, v in self.kernels.LAUNCH_SHAPES.items()}
+            return loss
+
+        self.training.train_step = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.training.train_step = self.fn
+        return False
+
+    def curve(self) -> list:
+        return [float(x) for x in self.losses]
+
+
+def _check_curve(label: str, curve: list) -> None:
+    if not curve or not all(map(lambda x: x == x and abs(x) != float("inf"), curve)):
+        fail(f"{label}: a non-finite loss in {curve}")
+    if not curve[-1] < curve[0]:
+        fail(f"{label}: the loss did not fall: step 1 {curve[0]:.4f}, last {curve[-1]:.4f}")
+
+
+def run_train_phase(torch, work: pathlib.Path) -> tuple:
+    """``train-matcher --steps 200 --ckpt-dir D --ckpt-every 100 --eval``
+    in this process on the card at the default width: exit 0, its output
+    lines, a finite loss lower at the end than at step 1, 1,600
+    ``flash_chunk`` and 1,600 ``flash_chunk_bwd`` launches (8 per step)
+    and no ``sha256``, ``matcher_eval`` trained, the checkpoint loading
+    through ``EmbeddingSignatureMatcher``; the first 3 steps' losses equal
+    the CPU plain path's from the same initial weights within the CPU
+    tests' 2e-2; then 20 steps with ``moe_mode="topk"`` through the
+    Python API: finite, falling, 8 + 8 launches a step. Returns (the
+    launches and shapes of the training, a summary)."""
+    import contextlib
+    import io
+
+    from semantic_merge_tpu_torch import cli, kernels
+    from semantic_merge_tpu_torch.models import training
+    from semantic_merge_tpu_torch.models.encoder import Encoder, EncoderConfig
+    from semantic_merge_tpu_torch.models.matcher import MatcherConfig, optimizer, train_step
+    from semantic_merge_tpu_torch.models.signature import EmbeddingSignatureMatcher
+
+    ckpt = work / "trained"
+    argv = ["train-matcher", "--steps", str(TRAIN_STEPS), "--ckpt-dir", str(ckpt),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--eval"]
+    out = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with TrainWatch(torch, training, kernels, TRAIN_STEPS, TRAIN_WINDOW) as watch, \
+            contextlib.redirect_stdout(out):
+        code = cli.main(argv, delegate=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = dict(kernels.LAUNCHES)
+    lines = out.getvalue().splitlines()
+    print(f"{' '.join(argv)}: exit {code}, wall {wall:.3f} s; output: {lines}", flush=True)
+    if code != 0:
+        fail(f"train-matcher exited {code}")
+    curve = watch.curve()
+    if watch.steps != TRAIN_STEPS:
+        fail(f"train-matcher ran {watch.steps} steps, expected {TRAIN_STEPS}")
+    _check_curve("train-matcher", curve)
+    expect_launches("train-matcher's training", watch.launches,
+                    {"flash_chunk": 8 * TRAIN_STEPS, "flash_chunk_bwd": 8 * TRAIN_STEPS,
+                     "sha256": 0})
+    if len(lines) != 2 or not re.fullmatch(
+            rf"trained {TRAIN_STEPS} steps, final loss \d+\.\d{{4}}, checkpoints in "
+            + re.escape(str(ckpt)), lines[0]):
+        fail(f"train-matcher printed {lines}")
+    if abs(float(lines[0].split("final loss ")[1].split(",")[0]) - curve[-1]) > 1e-4:
+        fail(f"the printed final loss is not the last step's {curve[-1]:.4f}")
+    evaluation = json.loads(lines[1])["matcher_eval"]
+    if evaluation.get("trained") is not True:
+        fail(f"matcher_eval is not of a trained matcher: {evaluation}")
+    step_ms = (watch.t_last - watch.t_first) / TRAIN_STEPS * 1e3
+    idle = 1 - watch.window_busy / watch.window_wall
+    print("train-matcher loss every 20 steps: " + json.dumps(
+        {i + 1: round(curve[i], 4) for i in range(0, TRAIN_STEPS, 20)} | {
+            TRAIN_STEPS: round(curve[-1], 4)}), flush=True)
+    print(f"train-matcher: {step_ms:.3f} ms per step (host clock over the loop, "
+          f"checkpoints included); steps {TRAIN_WINDOW[0]}-{TRAIN_WINDOW[1]} profiled: "
+          f"wall {watch.window_wall:.4f} s, device busy {watch.window_busy:.4f} s, idle share "
+          f"{idle:.4f}; launches in training {watch.launches}, with --eval {total}; "
+          f"matcher_eval {json.dumps(evaluation)}", flush=True)
+
+    matcher = EmbeddingSignatureMatcher(ckpt_dir=str(ckpt))
+    z = matcher.embed_texts(["export function f(a: number): number {\n  return a;\n}\n"])
+    if not matcher.trained or not bool(torch.isfinite(torch.from_numpy(z)).all()):
+        fail(f"the checkpoint in {ckpt} does not load as a trained matcher")
+
+    # The first three steps on the CPU, plain path, from the same weights
+    # and batches.
+    cfg = training.TrainConfig()
+    encoder = Encoder(cfg.matcher.encoder, generator=torch.Generator().manual_seed(cfg.seed))
+    opt = optimizer(encoder, cfg.matcher)
+    stream = training.batches(cfg)
+    cpu = [float(train_step(encoder, opt, training._on_device(next(stream), torch.device("cpu")),
+                            cfg.matcher)) for _ in range(3)]
+    worst = max(abs(a - b) for a, b in zip(cpu, curve[:3]))
+    print(f"train-matcher: first 3 losses on the card {[round(x, 6) for x in curve[:3]]}, "
+          f"on the CPU (plain path) {[round(x, 6) for x in cpu]}; max abs diff {worst:.3e} "
+          f"(atol {TOL_LOSS})", flush=True)
+    if worst > TOL_LOSS:
+        fail(f"the card's first losses differ from the CPU's by {worst:.3e}")
+
+    topk_steps = 20
+    kernels.reset_launches()
+    with TrainWatch(torch, training, kernels, topk_steps) as topk:
+        training.train_matcher(training.TrainConfig(
+            matcher=MatcherConfig(encoder=EncoderConfig(moe_mode="topk")), steps=topk_steps),
+            "cuda")
+    topk_curve = topk.curve()
+    _check_curve("topk training", topk_curve)
+    expect_launches("topk training", topk.launches,
+                    {"flash_chunk": 8 * topk_steps, "flash_chunk_bwd": 8 * topk_steps,
+                     "sha256": 0})
+    topk_ms = (topk.t_last - topk.t_first) / topk_steps * 1e3
+    print(f"topk training (moe_mode=topk, {topk_steps} steps): losses "
+          f"{[round(x, 4) for x in topk_curve]}; {topk_ms:.3f} ms per step; launches "
+          f"{topk.launches}", flush=True)
+    summary = {"wall_s": wall, "step_ms": step_ms, "idle_share": idle,
+               "window_wall_s": watch.window_wall, "window_busy_s": watch.window_busy,
+               "first_loss": curve[0], "final_loss": curve[-1], "cpu_first3_max_diff": worst,
+               "matcher_eval": evaluation, "topk_step_ms": topk_ms,
+               "topk_first_loss": topk_curve[0], "topk_final_loss": topk_curve[-1]}
+    return (watch.launches, watch.shapes), summary
 
 
 # --- phase 3: the semantic diff end to end -----------------------------------
@@ -2086,6 +2433,13 @@ def main() -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     try:
+        # Training first, before any matcher runs: the merges below keep
+        # their seeded checkpoint.
+        WORK.mkdir(parents=True)
+        train_run, train = run_train_phase(torch, WORK)
+        print(f"train: {json.dumps(train)}", flush=True)
+        t = phase("train", t)
+
         repo, ckpt, fused_tree = WORK / "repo", WORK / "ckpt", WORK / "fused"
         strict_tree, rsv_tree = WORK / "strict", WORK / "resolve"
         trees = synth_trees(N_FILES, DECLS, N_RETYPED)
@@ -2111,7 +2465,8 @@ def main() -> int:
         result, launches, shapes, wall, busy = run_cli(
             torch, repo, ["semdiff", "base", "side", "--json-out", "--change-signature",
                           "--signature-matcher"])
-        expect_launches("matcher semdiff", launches, {"flash_chunk": 8, "sha256": 0})
+        expect_launches("matcher semdiff", launches,
+                        {"flash_chunk": 8, "flash_chunk_bwd": 0, "sha256": 0})
         if result.matcher is None or result.matcher.encoder is None:
             fail("the signature matcher did not run")
         devices = {p.device.type for p in result.matcher.encoder.parameters()}
@@ -2125,7 +2480,7 @@ def main() -> int:
             fail(f"{counts.get('renameSymbol')} renameSymbol ops, expected {(N_FILES + 1) // 2}")
         if counts.get("deleteDecl", 0) + counts.get("changeSignature", 0) != N_RETYPED:
             fail(f"deleteDecl + changeSignature != {N_RETYPED}")
-        runs = {"semdiff": (launches, shapes)}
+        runs = {"train": train_run, "semdiff": (launches, shapes)}
         t = phase("semdiff", t)
 
         # The fused semdiff.
@@ -2162,7 +2517,8 @@ def main() -> int:
                           "--change-signature", "--signature-matcher"])
         # The fused engine runs first, as in the JAX package, and its
         # result is set aside: the matcher could pair its deletes and adds.
-        expect_launches("matcher semmerge", launches, {"flash_chunk": 16, "sha256": 4})
+        expect_launches("matcher semmerge", launches,
+                        {"flash_chunk": 16, "flash_chunk_bwd": 0, "sha256": 4})
         if not {"fused", "compose"} <= set(merged.phases):
             fail("the matcher semmerge did not try the fused engine first, then compose")
         if merged.result is not None:
@@ -2187,7 +2543,8 @@ def main() -> int:
             torch, strict_tree, ["semmerge", "base", "side", "stmt", "--inplace",
                                  "--strict-conflicts", "--structured-apply",
                                  "--change-signature", "--signature-matcher"])
-        expect_launches("strict semmerge", launches, {"flash_chunk": 8, "sha256": 0})
+        expect_launches("strict semmerge", launches,
+                        {"flash_chunk": 8, "flash_chunk_bwd": 0, "sha256": 0})
         check_strict_semmerge(strict_tree, trees[1], merged)
         runs["strict_semmerge"] = (launches, shapes)
         t = phase("strict semmerge", t)
@@ -2202,7 +2559,10 @@ def main() -> int:
         # Timed before the driver's and the resolve merges: after longer
         # traced runs torch.profiler kept no kernel records (PERF.md §6).
         # Neither of those merges launches a hand kernel in this process.
+        inference = {shape for name, (_, shapes_) in runs.items() if name != "train"
+                     for shape in shapes_.get("flash_chunk", {})}
         rows = [check_kernels(torch, path_shapes("flash_chunk")),
+                check_flash_bwd(torch, path_shapes("flash_chunk_bwd"), sorted(inference)),
                 check_sha256(torch, path_shapes("sha256"), clock_mhz * 1e6,
                              sass["sha256"])]
         for row in rows:

@@ -17,6 +17,9 @@ the op-log replay.
     python -m semantic_merge_tpu_torch trace analyze ARTIFACT|DIR [--json]
         [--since DURATION]
     python -m semantic_merge_tpu_torch trace diff A B [--json]
+    python -m semantic_merge_tpu_torch train-matcher [--steps N] [--batch N]
+        [--seq N] [--seed N] [--ckpt-dir DIR] [--ckpt-every N] [--no-resume]
+        [--eval] [--device cuda|cpu]
 
 ``semdiff`` prints the op log between two revisions of the git
 repository in the working directory, exactly as the JAX package's
@@ -161,10 +164,24 @@ need the fleet, the daemon's profile capture or the bench records,
 which are not ported: ``stats --fleet``, ``trace analyze --fleet``,
 ``profile`` (``--daemon``), ``perf`` and ``top``.
 
+``train-matcher`` trains the signature matcher's encoder as the JAX
+package's ``train-matcher`` does (InfoNCE over synthetic declaration
+pairs, AdamW; :mod:`semantic_merge_tpu_torch.models.training`), with
+the same flags and output lines: ``trained N steps, final loss X[,
+checkpoints in DIR]`` or ``nothing to do: ...``, and with ``--eval`` one
+``{"matcher_eval": {...}}`` line of held-out pairing precision and
+recall. ``--ckpt-dir DIR`` saves every ``--ckpt-every`` steps and at the
+last (``torch.save`` files, the newest three kept), resumes from the
+latest unless ``--no-resume``, and writes ``DIR/matcher.pt``, so
+``[engine] matcher_ckpt_dir = DIR`` makes ``--signature-matcher`` score
+with the trained weights. The JAX package's orbax checkpoints are not
+read.
+
 The commands run on the CUDA card; ``--device cpu`` runs them on the
 CPU instead. Without a card and without that flag they say why and exit,
-``semdiff`` with status 2, ``semmerge`` and ``semrebase`` with 11,
-before reading any revision or touching the work tree.
+``semdiff`` and ``train-matcher`` with status 2, ``semmerge`` and
+``semrebase`` with 11, before reading any revision, touching the work
+tree or training.
 """
 from __future__ import annotations
 
@@ -316,6 +333,21 @@ def build_parser() -> argparse.ArgumentParser:
                              "is not ported", **kw)
     p_serve.add_argument("--fleet", action="store_true",
                          help="Refused (exit 70): the fleet is not ported")
+    p_train = sub.add_parser("train-matcher",
+                             help="Train the decl-similarity matcher (torch "
+                                  "checkpoints; resumes from the latest)")
+    p_train.add_argument("--steps", type=int, default=200)
+    p_train.add_argument("--batch", type=int, default=32)
+    p_train.add_argument("--seq", type=int, default=64)
+    p_train.add_argument("--seed", type=int, default=0)
+    p_train.add_argument("--ckpt-dir", default=None)
+    p_train.add_argument("--ckpt-every", type=int, default=50)
+    p_train.add_argument("--no-resume", action="store_true")
+    p_train.add_argument("--eval", action="store_true",
+                         help="After training, report held-out pairing "
+                              "precision/recall (models.evaluate)")
+    p_train.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                         help="Where to run (default: cuda; cpu only when asked)")
     from .obs import report
     report.add_parsers(sub)
     return parser
@@ -859,6 +891,33 @@ def serve(args: argparse.Namespace) -> int:
     return daemon.serve_forever()
 
 
+def train_matcher(args) -> int:
+    """``train-matcher``: the JAX CLI's ``cmd_train_matcher``, on
+    ``--device`` (the card unless ``cpu``; without one,
+    :class:`DeviceUnavailable` before any step)."""
+    from .models.training import TrainConfig, train_matcher as train
+    device = resolve_device(args.device)
+    cfg = TrainConfig(steps=args.steps, batch=args.batch, seq=args.seq,
+                      seed=args.seed, ckpt_dir=args.ckpt_dir,
+                      ckpt_every=args.ckpt_every)
+    _, _, loss, ran = train(cfg, device, resume=not args.no_resume)
+    where = f", checkpoints in {args.ckpt_dir}" if args.ckpt_dir else ""
+    if ran == 0:  # e.g. resumed at or past --steps
+        print(f"nothing to do: checkpoint already at step {args.steps}{where}")
+    else:
+        print(f"trained {ran} steps, final loss {loss:.4f}{where}")
+    if args.eval:
+        # Held-out pairing precision/recall, from the checkpoint just
+        # written (or seeded params when no --ckpt-dir — reported with
+        # trained=false so the number cannot masquerade as quality).
+        from .models.evaluate import evaluate_matcher
+        from .models.signature import EmbeddingSignatureMatcher
+        matcher = EmbeddingSignatureMatcher(ckpt_dir=args.ckpt_dir,
+                                            allow_untrained=True, device=device)
+        print(json.dumps({"matcher_eval": evaluate_matcher(matcher)}))
+    return 0
+
+
 _LAST = threading.local()
 
 
@@ -888,6 +947,8 @@ def main(argv: Sequence[str] | None = None, *, delegate: bool = True) -> int:
             return report.run(args)
         if args.command == "serve":
             return serve(args)
+        if args.command == "train-matcher":
+            return train_matcher(args)
         _refuse(refused_environment(args.command))
         _LAST.phases = None
         if args.command == "semmerge":
@@ -900,7 +961,7 @@ def main(argv: Sequence[str] | None = None, *, delegate: bool = True) -> int:
         _LAST.phases = result.phases
     except DeviceUnavailable as exc:
         print(f"error: {exc}", file=sys.stderr)
-        return 2 if args.command == "semdiff" else EXIT_NO_DEVICE_MERGE
+        return 2 if args.command in ("semdiff", "train-matcher") else EXIT_NO_DEVICE_MERGE
     except subprocess.CalledProcessError as exc:
         cmd = exc.cmd if isinstance(exc.cmd, str) else " ".join(map(str, exc.cmd))
         print(f"error: subprocess failed ({cmd}): exit {exc.returncode}", file=sys.stderr)

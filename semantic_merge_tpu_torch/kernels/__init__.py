@@ -36,10 +36,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: Kernel name → the number of launches its wrapper made.
-LAUNCHES: Dict[str, int] = {"flash_chunk": 0, "sha256": 0}
+LAUNCHES: Dict[str, int] = {"flash_chunk": 0, "flash_chunk_bwd": 0, "sha256": 0}
 
 #: Kernel name → {launch shape → launches}, recorded beside the count.
-LAUNCH_SHAPES: Dict[str, Dict[Tuple[int, ...], int]] = {"flash_chunk": {}, "sha256": {}}
+LAUNCH_SHAPES: Dict[str, Dict[Tuple[int, ...], int]] = {
+    "flash_chunk": {}, "flash_chunk_bwd": {}, "sha256": {}}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

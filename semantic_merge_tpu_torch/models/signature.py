@@ -115,10 +115,11 @@ class EmbeddingSignatureMatcher:
         self._ensure()
         if not self.trained and not self.allow_untrained:
             logger.warning(
-                "signature matcher has NO checkpoint (ckpt_dir=%r): refusing "
-                "to score with seeded-random parameters; only exact-key pairs "
-                "will be used. Point [engine] matcher_ckpt_dir at a directory "
-                "written by save_matcher_checkpoint.", self.ckpt_dir)
+                "signature matcher has NO trained checkpoint (ckpt_dir=%r): "
+                "refusing to score with seeded-random parameters; only "
+                "exact-key pairs will be used. Train one with 'python -m "
+                "semantic_merge_tpu_torch train-matcher --ckpt-dir DIR' and set "
+                "[engine] matcher_ckpt_dir.", self.ckpt_dir)
             return []
         zd = self.embed_texts([t for _, t in deletes])
         za = self.embed_texts([t for _, t in adds])

@@ -7,18 +7,27 @@ on the normalised output in float32: the two compute the same sums in
 another order. The single-device ``ring_attention`` of the port must
 match the JAX ring over a (dp=2, sp=2, tp=2) CPU mesh, whose
 chunk-by-chunk online softmax is exact up to float association.
+
+The backward: ``flash_attention_backward_plain`` and the autograd
+Function behind ``ring_attention`` (on the CPU, the plain backward) give
+``jax.grad`` of ``_chunk_stats_einsum`` plus the normalisation, with
+padded keys and a batch row whose keys are all masked. Tolerance 1e-5 in
+float32: the same sums in another order (JAX's route through the row
+max cancels to rounding).
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from semantic_merge_tpu.parallel.flash import flash_chunk_attention as jax_flash
 from semantic_merge_tpu.parallel.mesh import build_mesh
 from semantic_merge_tpu.parallel.ring import _chunk_stats_einsum
 from semantic_merge_tpu.parallel.ring import ring_attention as jax_ring
-from semantic_merge_tpu_torch.parallel.flash import (flash_chunk_attention,
+from semantic_merge_tpu_torch.parallel.flash import (flash_attention_backward_plain,
+                                                     flash_chunk_attention,
                                                      flash_chunk_attention_plain)
 from semantic_merge_tpu_torch.parallel.ring import ring_attention
 
@@ -147,3 +156,40 @@ def test_ring_attention_matches_jax_ring(seed):
                          torch.from_numpy(v), torch.from_numpy(mask))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def _jax_grads(q, k, v, mask, w):
+    """jax.grad of sum(w * o) with o = pv / max(l, 1e-30) from the einsum
+    path, as the JAX ring normalises its one chunk."""
+    def loss(q, k, v):
+        pv, _, l = _chunk_stats_einsum(q, k, v, jnp.asarray(mask), q.shape[-1] ** -0.5)
+        o = pv / jnp.maximum(l.transpose(0, 2, 1)[..., None], 1e-30)
+        return jnp.sum(o * w)
+    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+@pytest.mark.parametrize("b,lq,lk,h,dh,seed,dead_row", SHAPES)
+def test_backward_plain_matches_jax_grad(b, lq, lk, h, dh, seed, dead_row):
+    q, k, v, mask = _inputs(b, lq, lk, h, dh, seed, dead_row=dead_row)
+    w = np.random.RandomState(seed + 100).randn(b, lq, h, dh).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    pv, m, l = flash_chunk_attention_plain(*args)
+    o = pv / l.transpose(1, 2)[..., None]
+    got = flash_attention_backward_plain(*args, m, l, o, torch.from_numpy(w))
+    for name, g, want in zip(("dq", "dk", "dv"), got, _jax_grads(q, k, v, mask, w)):
+        assert g.dtype == torch.float32 and np.isfinite(g.numpy()).all()
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-5, atol=1e-5, err_msg=name)
+    if dead_row is not None:  # no gradient to the dead row's q or keys
+        assert not got[0][dead_row].any() and not got[1][dead_row].any()
+        assert got[2][dead_row].abs().sum() > 0  # but dV still gets P^T dO
+
+
+@pytest.mark.parametrize("b,lq,lk,h,dh,seed,dead_row", SHAPES)
+def test_ring_attention_autograd_matches_jax_grad(b, lq, lk, h, dh, seed, dead_row):
+    q, k, v, mask = _inputs(b, lq, lk, h, dh, seed, dead_row=dead_row)
+    w = np.random.RandomState(seed + 200).randn(b, lq, h, dh).astype(np.float32)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (ring_attention(qt, kt, vt, torch.from_numpy(mask)) * torch.from_numpy(w)).sum().backward()
+    for name, t, want in zip(("dq", "dk", "dv"), (qt, kt, vt), _jax_grads(q, k, v, mask, w)):
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-5, atol=1e-5, err_msg=name)

@@ -14,7 +14,8 @@
   import the standard library only (and their own package); the
   native scanner is the port's own build of its own copy of the C++
   source, never the JAX package's ``native/`` library.
-- Without a CUDA device the CLI's three commands (without ``--device cpu``) and
+- Without a CUDA device the CLI's three commands and ``train-matcher``
+  (without ``--device cpu``) and
   ``chip_smoke.py`` exit non-zero and say why; neither carries on on
   the CPU, ``semmerge`` leaves the work tree as it was, and the smoke
   test prints no result.
@@ -141,6 +142,19 @@ def test_service_modules_are_checked_and_stand_alone(module):
         assert roots <= set(sys.stdlib_module_names) | {"__future__"} | allowed, roots
 
 
+#: The training slice: the loop, its evaluation, the backward kernel's
+#: wrapper and the autograd Function around the attention.
+TRAINING_MODULES = ("models/training.py", "models/evaluate.py", "models/matcher.py",
+                    "models/encoder.py", "parallel/flash.py", "parallel/ring.py")
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
 def test_client_path_imports_no_torch():
     code = ("import sys\nfrom semantic_merge_tpu_torch.service import client\n"
             "client.delegate(['semdiff', 'a', 'b'])\n"
@@ -206,10 +220,12 @@ def _tree_state(root):
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
-@pytest.mark.parametrize("command,code", [("semdiff", 2), ("semmerge", 11), ("semrebase", 11)])
+@pytest.mark.parametrize("command,code", [("semdiff", 2), ("semmerge", 11), ("semrebase", 11),
+                                          ("train-matcher", 2)])
 def test_cli_without_cuda_fails_clearly(tmp_path, command, code):
     # semmerge exits with the KernelFault code (never 2, "type errors")
-    # before it reads a revision or touches the work tree.
+    # before it reads a revision or touches the work tree; train-matcher
+    # exits 2, as semdiff does, before it trains or writes a checkpoint.
     repo = tmp_path / "repo"
     (repo / "src").mkdir(parents=True)
     (repo / "src" / "a.ts").write_text("export function f(): void {}\n")
@@ -220,7 +236,8 @@ def test_cli_without_cuda_fails_clearly(tmp_path, command, code):
     before = _tree_state(repo)
     argv = {"semdiff": ["HEAD", "HEAD", "--json-out"],
             "semmerge": ["HEAD", "HEAD", "HEAD", "--inplace"],
-            "semrebase": ["HEAD", "HEAD", "--inplace"]}[command]
+            "semrebase": ["HEAD", "HEAD", "--inplace"],
+            "train-matcher": ["--steps", "1", "--ckpt-dir", "ck"]}[command]
     out = subprocess.run([sys.executable, "-m", "semantic_merge_tpu_torch", command, *argv],
                          env=_env(), cwd=repo, stdout=subprocess.PIPE,
                          stderr=subprocess.PIPE, text=True, timeout=120)

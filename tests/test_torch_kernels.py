@@ -22,8 +22,11 @@ from semantic_merge_tpu_torch.core.ops import Op, Target
 from semantic_merge_tpu_torch.ops import fused
 from semantic_merge_tpu_torch.ops.compose import compose_oplogs_device
 from semantic_merge_tpu_torch.ops.sha256 import sha256_device, sha256_device_plain
-from semantic_merge_tpu_torch.parallel.flash import (flash_chunk_attention,
-                                                     flash_chunk_attention_plain)
+from semantic_merge_tpu_torch.parallel.flash import (flash_attention_backward_plain,
+                                                     flash_chunk_attention,
+                                                     flash_chunk_attention_plain,
+                                                     flash_chunk_backward)
+from semantic_merge_tpu_torch.parallel.ring import ring_attention
 
 
 @pytest.fixture
@@ -87,6 +90,74 @@ def test_flash_chunk_kernel_rejects_what_it_cannot_take(card):
         flash_chunk_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask)
 
 
+def _bwd_inputs(b, lq, lk, h, dh, device, seed=0):
+    """The forward's inputs, its saved m, l and f32 output, and a bf16
+    output gradient."""
+    q, k, v, mask = _inputs(b, lq, lk, h, dh, device, seed)
+    pv, m, l = flash_chunk_attention_plain(q, k, v, mask)
+    o = (pv / l.transpose(1, 2)[..., None]).contiguous()
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(b, lq, h, dh, generator=g).to(torch.bfloat16).to(device)
+    return q, k, v, mask, m, l, o, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,dh", [
+    # the training shape and the matcher's inference shape
+    (32, 64, 64, 8, 32), (256, 64, 64, 8, 32),
+    # several query tiles, several key tiles (dq summed in f32 scratch),
+    # ragged tiles, one query and one key, Dh=64 and 128
+    (2, 130, 64, 2, 32), (2, 40, 200, 2, 32), (6, 17, 65, 8, 32), (4, 1, 1, 8, 32),
+    (3, 40, 70, 2, 64), (2, 33, 130, 2, 128)])
+def test_flash_chunk_bwd_kernel_matches_plain(card, b, lq, lk, h, dh):
+    inputs = _bwd_inputs(b, lq, lk, h, dh, card)
+    before = kernels.LAUNCHES["flash_chunk_bwd"]
+    got = flash_chunk_backward(*inputs)
+    want = flash_attention_backward_plain(*inputs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_chunk_bwd"] == before + 1
+    assert kernels.LAUNCH_SHAPES["flash_chunk_bwd"][(b, lq, lk, h, dh)] >= 1
+    # bf16 outputs of f32 sums taken in another order: atol/rtol 1e-2.
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g_.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g_.float(), w_, atol=1e-2, rtol=1e-2, msg=name)
+    # The all-masked last row sends no gradient to its q and its keys.
+    assert not got[0][-1].any() and not got[1][-1].any()
+
+
+@pytest.mark.cuda
+def test_ring_attention_backward_launches_the_kernel(card):
+    q, k, v, mask = (t.requires_grad_() if t.dtype == torch.bfloat16 else t
+                     for t in _inputs(4, 64, 64, 8, 32, card, seed=3))
+    before = dict(kernels.LAUNCHES)
+    out = ring_attention(q, k, v, mask)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_chunk"] == before["flash_chunk"] + 1
+    assert kernels.LAUNCHES["flash_chunk_bwd"] == before["flash_chunk_bwd"] + 1
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_flash_chunk_bwd_kernel_rejects_what_it_cannot_take(card):
+    q, k, v, mask, m, l, o, do = _bwd_inputs(2, 8, 8, 2, 32, card)
+    with pytest.raises(ValueError):
+        flash_chunk_backward(q, k, v, mask, m, l, o.bfloat16(), do)
+    with pytest.raises(ValueError):
+        flash_chunk_backward(q, k, v, mask, m, l, o, do.float())
+    with pytest.raises(ValueError):
+        flash_chunk_backward(q[:, :4], k, v, mask, m, l, o, do)
+
+
+def test_bwd_cpu_tensors_take_the_plain_version_without_counting():
+    inputs = _bwd_inputs(2, 8, 8, 2, 32, torch.device("cpu"))
+    before = dict(kernels.LAUNCHES)
+    got = flash_chunk_backward(*inputs)
+    want = flash_attention_backward_plain(*inputs)
+    assert all(torch.equal(a, b.to(torch.bfloat16)) for a, b in zip(got, want))
+    assert kernels.LAUNCHES == before
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     inputs = _inputs(2, 8, 8, 2, 32, torch.device("cpu"))
     before = dict(kernels.LAUNCHES)
@@ -102,8 +173,8 @@ def test_reset_launches():
     kernels.LAUNCHES["flash_chunk"] += 3
     kernels.LAUNCH_SHAPES["flash_chunk"][(2, 8, 8, 2, 32)] = 3
     kernels.reset_launches()
-    assert kernels.LAUNCHES == {"flash_chunk": 0, "sha256": 0}
-    assert kernels.LAUNCH_SHAPES == {"flash_chunk": {}, "sha256": {}}
+    assert kernels.LAUNCHES == {"flash_chunk": 0, "flash_chunk_bwd": 0, "sha256": 0}
+    assert kernels.LAUNCH_SHAPES == {"flash_chunk": {}, "flash_chunk_bwd": {}, "sha256": {}}
 
 
 def _fuzz_oplog(rs, side, n, n_sym):
