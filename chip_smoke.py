@@ -14,8 +14,9 @@ Phases, each fatal on failure, each printing its seconds:
    registers and spills (fails on a spill) and, where the toolkit has
    cuobjdump, SASS counts per kernel: the instruction total, the ALU-
    and FMA-pipe totals, HMMA, LDSM, LDGSTS and LDS for ``flash_chunk``
-   (fails without HMMA), FFMA, LDS, STS, LDG, STG and MUFU for
-   ``flash_chunk_bwd`` (fails without FFMA), SHF, LOP3, IADD3, PRMT,
+   (fails without HMMA), HMMA, LDSM, LDGSTS, FFMA, LDS, STS, LDG, STG and
+   MUFU for ``flash_chunk_bwd`` (fails without HMMA: its five products
+   run on the tensor cores), SHF, LOP3, IADD3, PRMT,
    ISETP and IMAD for
    ``sha256`` (fails without SHF, the rotates; its bound in phase 5 is
    counted from these, so it fails there without cuobjdump). Then
@@ -29,7 +30,12 @@ Phases, each fatal on failure, each printing its seconds:
    training (8 a step) and no ``sha256``, ``matcher_eval`` with
    ``trained`` true, the checkpoint in DIR loading through
    ``EmbeddingSignatureMatcher``; ms per step and the idle share over
-   steps 101-120 (torch.profiler); the first 3 losses equal the CPU
+   steps 101-120 (torch.profiler), and the host ms per step over the
+   same steps in each part of a step: the batch's tokenization, its h2d
+   copy, the forward, ``backward()``, AdamW's ``step()`` (host clock,
+   the loop's seams wrapped from here; two checkpoints, each timed, fall
+   outside the window), then the same parts as torch.profiler CPU
+   ranges over steps 21-40 of a separate 40-step run; the first 3 losses equal the CPU
    plain path's from the same initial weights within 2e-2; then 20 steps
    with ``moe_mode="topk"`` through the Python API: finite, falling, 8 +
    8 launches a step. The merges below keep the seeded checkpoint.
@@ -89,7 +95,9 @@ Phases, each fatal on failure, each printing its seconds:
    plain f32 einsums run with TF32 off, and l = Lk on all-masked rows),
    ``flash_chunk_bwd`` within atol/rtol 1e-2 on dq, dk and dv (bf16
    outputs of f32 sums) at the training shape, the matcher's inference
-   shapes and edge shapes, all-masked rows sending no dq or dk,
+   shapes (B=256 and 384) and edge shapes, all-masked rows sending no dq
+   or dk, and a second launch on the same inputs bit-identical to the
+   first (no atomics),
    ``sha256`` bit-exact and against hashlib (lengths 0, 1, 55, 56, 63,
    64, 119 and 120, capacities of 1-3 blocks, 1 row and a row count
    that is no multiple of the CTA). Timed at the path shapes: CUDA-event
@@ -238,9 +246,10 @@ def phase(name: str, t0: float) -> float:
 
 #: SASS instructions printed per kernel, and the one each must hold.
 SASS_OPS = {"flash_chunk": ("HMMA", "LDSM", "LDGSTS", "LDS"),
-            "flash_chunk_bwd": ("FFMA", "LDS", "STS", "LDG", "STG", "MUFU"),
+            "flash_chunk_bwd": ("HMMA", "LDSM", "LDGSTS", "FFMA", "LDS", "STS", "LDG", "STG",
+                                "MUFU"),
             "sha256": ("SHF", "LOP3", "IADD3", "PRMT", "ISETP", "IMAD")}
-SASS_REQUIRED = {"flash_chunk": "HMMA", "flash_chunk_bwd": "FFMA", "sha256": "SHF"}
+SASS_REQUIRED = {"flash_chunk": "HMMA", "flash_chunk_bwd": "HMMA", "sha256": "SHF"}
 
 
 def report_ptxas(name: str, log: str) -> None:
@@ -568,10 +577,15 @@ def _bwd_inputs(torch, flash, b, lq, lk, h, dh, *, dead_rows, seed):
 def _bwd_error(torch, flash, inputs, dead_rows) -> float:
     """Max abs error of the kernel's dq, dk, dv against the plain
     backward's; fails beyond atol/rtol ``TOL_BWD``, on a non-finite
-    value, or if an all-masked row sends gradient to its q or keys."""
+    value, if an all-masked row sends gradient to its q or keys, or if a
+    second launch on the same inputs gives other bits."""
     got = flash.flash_chunk_backward(*inputs)
+    again = flash.flash_chunk_backward(*inputs)
     want = flash.flash_attention_backward_plain(*inputs)
     torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            fail(f"flash_chunk_bwd {name}: two launches on the same inputs differ")
     err = 0.0
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         g = g.float()
@@ -626,7 +640,8 @@ def check_flash_bwd(torch, path_shapes: dict, inference_shapes) -> dict:
                                                    dead_rows=dead, seed=200 + i), dead)
         errs.append(err)
         print(f"flash_chunk_bwd {label} B={b} Lq={lq} Lk={lk} H={h} Dh={dh}: max abs err of "
-              f"dq, dk, dv {err:.3e} (atol/rtol {TOL_BWD}); all-masked rows: no dq, dk",
+              f"dq, dk, dv {err:.3e} (atol/rtol {TOL_BWD}); all-masked rows: no dq, dk; "
+              "two launches bit-identical",
               flush=True)
 
     def sdpa_backward(q, k, v, mask, do):
@@ -946,6 +961,9 @@ def check_batched_timing(programs: dict) -> dict:
 
 #: Steps, checkpoint interval and the profiled window of the train phase.
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_WINDOW = 200, 100, (101, 120)
+#: The steps of a separate run whose CPU ranges torch.profiler records
+#: (so that its overhead stays out of the main run's step time).
+RANGE_STEPS, RANGE_WINDOW = 40, (21, 40)
 #: The CPU tests' tolerance on a training step's loss (bf16 matmuls
 #: rounding at other points).
 TOL_LOSS = 2e-2
@@ -1009,6 +1027,111 @@ class TrainWatch:
         return [float(x) for x in self.losses]
 
 
+class TrainSplit:
+    """Host time of each part of a training step, from outside the
+    package: for the life of the ``with`` it wraps the training loop's
+    seams (the batch stream, ``training._on_device``, ``train_step``,
+    ``matcher.loss_fn``, ``Tensor.backward``, the optimizer's ``step``,
+    ``training._save``) and sums the host clock of each part over the
+    steps of ``window`` (the batch and its h2d copy count for the step
+    they feed; a checkpoint for the step it saves). Every part is also a
+    ``train/<part>`` range, which a torch.profiler trace with CPU
+    activity records; with ``profile`` such a trace covers the window.
+    Every checkpoint's seconds are kept, in the window or not. Entered
+    inside a :class:`TrainWatch`, it wraps the step the watch calls, so
+    the watch's own work (its profiler's start and stop) stays out."""
+
+    PARTS = ("batch", "h2d", "forward", "backward", "step", "checkpoint")
+
+    def __init__(self, torch, training, matcher, window, profile: bool = False) -> None:
+        self.torch, self.training, self.matcher = torch, training, matcher
+        self.window, self.profile = window, profile
+        self.host = dict.fromkeys(self.PARTS + ("train_step",), 0.0)
+        self.saves = []
+        self.steps = 0
+        self.prof = None
+
+    def _timed(self, name: str, fn, after: bool = False):
+        """``fn`` timed as part ``name`` of the step in progress, or with
+        ``after`` of the step just done (``self.steps`` counts the steps
+        whose ``train_step`` returned)."""
+        def wrapper(*args, **kwargs):
+            step = self.steps + (0 if after else 1)
+            if self.profile and step == self.window[0] and self.prof is None:
+                from torch.profiler import ProfilerActivity, profile
+
+                self.prof = profile(activities=[ProfilerActivity.CPU])
+                self.prof.__enter__()
+            t0 = time.perf_counter()
+            with self.torch.profiler.record_function(f"train/{name}"):
+                out = fn(*args, **kwargs)
+            seconds = time.perf_counter() - t0
+            if name == "checkpoint":
+                self.saves.append(seconds)
+            if self.window[0] <= step <= self.window[1]:
+                self.host[name] += seconds
+            return out
+        return wrapper
+
+    def __enter__(self):
+        tr, mt, tensor = self.training, self.matcher, self.torch.Tensor
+        self._restore = [(tr, k, getattr(tr, k)) for k in (
+            "batches", "_on_device", "_save", "optimizer", "train_step")]
+        self._restore += [(mt, "loss_fn", mt.loss_fn), (tensor, "backward", tensor.backward)]
+        batches, make_optimizer, train_step = tr.batches, tr.optimizer, tr.train_step
+
+        def timed_batches(cfg):
+            stream = batches(cfg)
+            draw = self._timed("batch", lambda: next(stream))
+            while True:
+                yield draw()
+
+        def optimizer(*args, **kwargs):
+            opt = make_optimizer(*args, **kwargs)
+            opt.step = self._timed("step", opt.step)
+            return opt
+
+        timed_step = self._timed("train_step", train_step)
+
+        def step(*args, **kwargs):
+            out = timed_step(*args, **kwargs)
+            self.steps += 1
+            if self.steps == self.window[1] and self.prof is not None:
+                self.prof.__exit__(None, None, None)
+            return out
+
+        tr.batches, tr.optimizer, tr.train_step = timed_batches, optimizer, step
+        tr._on_device = self._timed("h2d", tr._on_device)
+        tr._save = self._timed("checkpoint", tr._save, after=True)
+        mt.loss_fn = self._timed("forward", mt.loss_fn)
+        tensor.backward = self._timed("backward", tensor.backward)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in self._restore:
+            setattr(owner, name, value)
+        return False
+
+    def per_step_ms(self) -> dict:
+        """Host ms per step of each part over the window; ``other``, what
+        ``train_step`` spends beside the forward, ``backward()`` and
+        ``step()`` (``zero_grad``, the loss's detach); and ``wall``, their
+        sum with the batch, the h2d copy and the checkpoints."""
+        n = self.window[1] - self.window[0] + 1
+        out = {name: self.host[name] * 1e3 / n for name in self.PARTS}
+        call = self.host["train_step"] * 1e3 / n
+        out["other"] = call - out["forward"] - out["backward"] - out["step"]
+        out["wall"] = call + out["batch"] + out["h2d"] + out["checkpoint"]
+        return out
+
+    def range_ms(self) -> dict:
+        """CPU ms per step of each ``train/<part>`` range in the profiled
+        window."""
+        n = self.window[1] - self.window[0] + 1
+        totals = {e.key: e.cpu_time_total for e in self.prof.key_averages()}
+        return {name: totals.get(f"train/{name}", 0.0) / 1e3 / n for name in self.PARTS}
+
+
 def _check_curve(label: str, curve: list) -> None:
     if not curve or not all(map(lambda x: x == x and abs(x) != float("inf"), curve)):
         fail(f"{label}: a non-finite loss in {curve}")
@@ -1031,6 +1154,7 @@ def run_train_phase(torch, work: pathlib.Path) -> tuple:
     import io
 
     from semantic_merge_tpu_torch import cli, kernels
+    from semantic_merge_tpu_torch.models import matcher as matcher_module
     from semantic_merge_tpu_torch.models import training
     from semantic_merge_tpu_torch.models.encoder import Encoder, EncoderConfig
     from semantic_merge_tpu_torch.models.matcher import MatcherConfig, optimizer, train_step
@@ -1042,7 +1166,8 @@ def run_train_phase(torch, work: pathlib.Path) -> tuple:
     out = io.StringIO()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with TrainWatch(torch, training, kernels, TRAIN_STEPS, TRAIN_WINDOW) as watch, \
+    with TrainSplit(torch, training, matcher_module, TRAIN_WINDOW) as split, \
+            TrainWatch(torch, training, kernels, TRAIN_STEPS, TRAIN_WINDOW) as watch, \
             contextlib.redirect_stdout(out):
         code = cli.main(argv, delegate=False)
     torch.cuda.synchronize()
@@ -1078,6 +1203,27 @@ def run_train_phase(torch, work: pathlib.Path) -> tuple:
           f"wall {watch.window_wall:.4f} s, device busy {watch.window_busy:.4f} s, idle share "
           f"{idle:.4f}; launches in training {watch.launches}, with --eval {total}; "
           f"matcher_eval {json.dumps(evaluation)}", flush=True)
+
+    host_split = split.per_step_ms()
+    save_ms = [round(x * 1e3, 3) for x in split.saves]
+    print(f"train-matcher host ms per step, steps {TRAIN_WINDOW[0]}-{TRAIN_WINDOW[1]} (host "
+          f"clock): {json.dumps({k: round(v, 3) for k, v in host_split.items()})}; "
+          f"checkpoints (steps {TRAIN_CKPT_EVERY} and {TRAIN_STEPS}, none in the window): "
+          f"{save_ms} ms each, {sum(split.saves) * 1e3 / TRAIN_STEPS:.3f} ms per step over "
+          f"the {TRAIN_STEPS}", flush=True)
+    if len(split.saves) != TRAIN_STEPS // TRAIN_CKPT_EVERY:
+        fail(f"train-matcher saved {len(split.saves)} checkpoints, expected "
+             f"{TRAIN_STEPS // TRAIN_CKPT_EVERY}")
+    # The same parts as torch.profiler's CPU ranges, in a run of their own.
+    with TrainSplit(torch, training, matcher_module, RANGE_WINDOW, profile=True) as ranged:
+        training.train_matcher(training.TrainConfig(steps=RANGE_STEPS), "cuda")
+    range_split = ranged.range_ms()
+    print(f"train-matcher torch.profiler CPU ranges, ms per step, steps {RANGE_WINDOW[0]}-"
+          f"{RANGE_WINDOW[1]} of a {RANGE_STEPS}-step run: "
+          f"{json.dumps({k: round(v, 3) for k, v in range_split.items()})}; the same steps "
+          f"by the host clock under that profiler: "
+          f"{json.dumps({k: round(v, 3) for k, v in ranged.per_step_ms().items()})}",
+          flush=True)
 
     matcher = EmbeddingSignatureMatcher(ckpt_dir=str(ckpt))
     z = matcher.embed_texts(["export function f(a: number): number {\n  return a;\n}\n"])
@@ -1117,6 +1263,8 @@ def run_train_phase(torch, work: pathlib.Path) -> tuple:
     summary = {"wall_s": wall, "step_ms": step_ms, "idle_share": idle,
                "window_wall_s": watch.window_wall, "window_busy_s": watch.window_busy,
                "first_loss": curve[0], "final_loss": curve[-1], "cpu_first3_max_diff": worst,
+               "host_split_ms": host_split, "checkpoint_ms": save_ms,
+               "profiler_range_ms": range_split,
                "matcher_eval": evaluation, "topk_step_ms": topk_ms,
                "topk_first_loss": topk_curve[0], "topk_final_loss": topk_curve[-1]}
     return (watch.launches, watch.shapes), summary

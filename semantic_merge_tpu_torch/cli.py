@@ -3,12 +3,12 @@ the op-log replay.
 
     python -m semantic_merge_tpu_torch semdiff REV1 REV2 [--json-out]
         [--change-signature] [--signature-matcher] [--statement-ops]
-        [--trace] [--profile DIR] [--device cuda|cpu]
+        [--trace] [--profile DIR] [--backend NAME] [--device cuda|cpu]
     python -m semantic_merge_tpu_torch semmerge BASE A B [--inplace]
         [--resume] [--git] [--no-degrade] [--resolve [off|auto|require]]
         [--seed SEED] [--change-signature] [--signature-matcher]
         [--strict-conflicts] [--structured-apply] [--statement-ops]
-        [--trace] [--profile DIR] [--device cuda|cpu]
+        [--trace] [--profile DIR] [--backend NAME] [--device cuda|cpu]
     python -m semantic_merge_tpu_torch semrebase COMMIT ONTO [--inplace]
         [--device cuda|cpu]
     python -m semantic_merge_tpu_torch serve [--socket PATH] [--workers N] [--queue N]
@@ -85,6 +85,14 @@ setting (below). Codes 10-17 exit a ``semmerge`` only in strict mode,
 when the text rung itself fails, or (11 and 16, 10 for a failed build)
 on a device fault.
 
+``--backend NAME`` and ``[engine] backend`` (the flag wins) name the
+engine as in the JAX CLI: ``tpu``, ``ts_tpu``, ``host`` and ``ts_host``,
+which give the same bytes there, run this port's engine on the device it
+was given (``host`` does not mean the CPU); a name the JAX CLI does not
+know logs its warning ("Backend 'NAME' unavailable (...); falling back
+to host") and runs as ``host``; the names of other engines are refused
+(below).
+
 ``.semmerge.toml`` applies as in the JAX package: ``[core]
 deterministic_seed``, ``memory_cap_mb`` (the decl cache's budget);
 ``[engine]`` ``change_signature``, ``signature_matcher``,
@@ -122,8 +130,9 @@ anything is read: no scheduler runs outside the daemon). ``stats
 Refused, with exit 70 before a revision is read or the work tree is
 touched, because the port does not implement what they select:
 ``[languages.java|csharp|cs] enabled = true`` (another language's merge
-engine); ``[engine] backend`` other than ``tpu``/``host`` (``subprocess``
-runs ``worker_cmd``, another program); ``[engine] mesh = "require"`` or
+engine); ``--backend`` or ``[engine] backend`` naming another engine,
+``java``, ``cs``, ``csharp``, ``subprocess`` or ``worker`` (another
+language's engine, or ``worker_cmd``, another program); ``[engine] mesh = "require"`` or
 ``SEMMERGE_MESH=require`` (a device mesh); ``SEMMERGE_FLEET=require``
 (the fleet router; ``auto`` finds none and falls through to the daemon
 posture, as the JAX client does); ``SEMMERGE_OTLP`` (the OTLP
@@ -131,8 +140,7 @@ exporter); ``serve --socket tcp://...``, ``--join``, ``--advertise``,
 ``--capacity``, ``--member-id`` and ``--fleet`` (the fleet).
 
 Read by the JAX package and left alone here, since they do not change
-its output: ``[engine] backend = "tpu"|"host"`` (the two give the same
-bytes), ``incremental`` (its scope is collision-safe, so the full-tree
+its output: ``incremental`` (its scope is collision-safe, so the full-tree
 diff here gives the same op logs), ``mesh = "off"|"auto"`` and
 ``mesh_shape`` (the sharded programs give the single-device bytes),
 ``max_nodes_per_bucket`` (padding only), ``parity_mode``, ``[core]
@@ -198,7 +206,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
 
 from .backends.ts_torch import BuildAndDiffResult, TorchTSBackend
-from .config import load_config, refused_environment, refused_settings
+from .config import load_config, refused_environment, refused_settings, resolve_backend
 from .core.conflict import conflicts_payload
 from .core.strict_conflicts import detect_conflicts_strict
 from .core.ops import Op, OpLog
@@ -292,6 +300,12 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--signature-matcher", action="store_true",
                        help="Pair renamed+retyped decls by embedding "
                             "similarity (also [engine].signature_matcher)")
+        p.add_argument("--backend", default=None,
+                       help="Engine, as the JAX CLI names it (overrides "
+                            "[engine].backend): tpu, ts_tpu, host, ts_host run "
+                            "this port's engine on its device; java, cs, "
+                            "csharp, subprocess, worker are refused (exit 70); "
+                            "any other name falls back to host with a warning")
     p_rebase = sub.add_parser("semrebase",
                               help="Replay a commit's stored op log onto a revision")
     p_rebase.add_argument("commit", help="Commit whose semmerge note holds the op log")
@@ -391,11 +405,13 @@ def _refuse(refused: List[str]) -> None:
             stage="config")
 
 
-def _load_config(command: str):
-    """The ``.semmerge.toml`` in force, with the decl cache's budget
-    applied; raises :class:`UnsupportedSetting` on a refused setting."""
+def _load_config(command: str, backend: str | None = None):
+    """The ``.semmerge.toml`` in force, with ``--backend`` (``backend``)
+    resolved into ``engine.backend`` and the decl cache's budget applied;
+    raises :class:`UnsupportedSetting` on a refused setting."""
     config = load_config()
-    _refuse(refused_settings(config, command))
+    _refuse(refused_settings(config, command, backend))
+    config.engine.backend = resolve_backend(config, backend)
     configure_decl_cache(config.core.memory_cap_mb)
     return config
 
@@ -419,7 +435,7 @@ def _annotate_base(snap, rev: str) -> None:
 def semdiff(args: argparse.Namespace) -> SemdiffResult:
     """Run ``semdiff`` for parsed ``args`` in the working directory: the
     ``snapshot`` and ``diff`` phases of the JAX CLI's ``cmd_semdiff``."""
-    config = _load_config("semdiff").engine
+    config = _load_config("semdiff", args.backend).engine
     backend = TorchTSBackend(device=args.device, host_workers=config.host_workers)
     change_sig = args.change_signature or config.change_signature
     matcher = _signature_matcher(args, config, change_sig, backend.device)
@@ -548,7 +564,7 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
         print("error: semmerge requires BASE A B revisions (or --resume)",
               file=sys.stderr)
         return SemmergeResult(code=2)
-    config = _load_config("semmerge")
+    config = _load_config("semmerge", args.backend)
     logger.info("Starting semantic merge base=%s A=%s B=%s", args.base, args.a, args.b)
     if args.inplace:
         # A journal/stage left by an interrupted --inplace commit is

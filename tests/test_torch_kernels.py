@@ -103,8 +103,8 @@ def _bwd_inputs(b, lq, lk, h, dh, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,lq,lk,h,dh", [
-    # the training shape and the matcher's inference shape
-    (32, 64, 64, 8, 32), (256, 64, 64, 8, 32),
+    # the training shape and the matcher's inference shapes
+    (32, 64, 64, 8, 32), (256, 64, 64, 8, 32), (384, 64, 64, 8, 32),
     # several query tiles, several key tiles (dq summed in f32 scratch),
     # ragged tiles, one query and one key, Dh=64 and 128
     (2, 130, 64, 2, 32), (2, 40, 200, 2, 32), (6, 17, 65, 8, 32), (4, 1, 1, 8, 32),
@@ -123,6 +123,19 @@ def test_flash_chunk_bwd_kernel_matches_plain(card, b, lq, lk, h, dh):
         torch.testing.assert_close(g_.float(), w_, atol=1e-2, rtol=1e-2, msg=name)
     # The all-masked last row sends no gradient to its q and its keys.
     assert not got[0][-1].any() and not got[1][-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,dh", [(32, 64, 64, 8, 32), (2, 130, 200, 2, 64)])
+def test_flash_chunk_bwd_kernel_is_deterministic(card, b, lq, lk, h, dh):
+    # No atomics: dq over several key tiles sums in an f32 row that one
+    # CTA owns, so two launches on the same inputs give the same bits.
+    inputs = _bwd_inputs(b, lq, lk, h, dh, card, seed=7)
+    first = flash_chunk_backward(*inputs)
+    second = flash_chunk_backward(*inputs)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a.view(torch.int16), b_.view(torch.int16)), name
 
 
 @pytest.mark.cuda

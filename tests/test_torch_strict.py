@@ -526,12 +526,15 @@ def test_refused_setting_exits_before_touching_the_tree(tmp_path, monkeypatch, c
         assert cli.main(["semdiff", "basebr", "branch-a", "--device", "cpu"]) == want_code
 
 
-def test_unrefused_settings_keep_their_meaning(tmp_path, monkeypatch):
-    """Values that select what the port does are not refused."""
-    from semantic_merge_tpu_torch.config import load_config, refused_settings
+@pytest.mark.parametrize("backend", ["host", "bogus"])
+def test_unrefused_settings_keep_their_meaning(tmp_path, monkeypatch, backend):
+    """Values that select what the port does are not refused; a backend
+    name the JAX package does not know falls back to host there, and runs
+    as host here."""
+    from semantic_merge_tpu_torch.config import load_config, refused_settings, resolve_backend
     (tmp_path / ".semmerge.toml").write_text(
-        '[engine]\nbackend = "host"\nmesh = "off"\n[languages.typescript]\nenabled = true\n'
-        "[languages.java]\nenabled = false\n")
+        f'[engine]\nbackend = "{backend}"\nmesh = "off"\n[languages.typescript]\n'
+        "enabled = true\n[languages.java]\nenabled = false\n")
     config = load_config(tmp_path)
     monkeypatch.delenv("SEMMERGE_BATCH", raising=False)
     monkeypatch.setenv("SEMMERGE_RESOLVE", "off")
@@ -539,3 +542,4 @@ def test_unrefused_settings_keep_their_meaning(tmp_path, monkeypatch):
     assert refused_settings(config, "semmerge") == []
     monkeypatch.setenv("SEMMERGE_RESOLVE", "auto")
     assert refused_settings(config, "semdiff") == []
+    assert resolve_backend(config) == "host"
