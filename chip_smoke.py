@@ -43,14 +43,16 @@ Phases, each fatal on failure, each printing its seconds:
    rung5 size (10,000 files x 4 decls): the side branch renames
    functions in every even file and renames AND retypes the first
    function of 256 other files, the other branch moves every 4th file
-   to ``lib/``, the stmt branch edits the body of the last function of
-   every 3rd file, the drv branch renames the last function of every
-   80th file (125), and
-   rsv_base gives the last function of every 10th file (1,000) a
-   three-line body whose first line rsv_a edits and whose second rsv_b
-   edits; a matcher checkpoint from the port's seeded (untrained)
-   initializer. One ``git fast-import`` writes every branch's commit;
-   only side's tree is written to disk, by its checkout.
+   to ``lib/``, and the stmt branch edits the body of the last function
+   of every 3rd file. Beside it a repository of the same shape at the
+   bench's rung3 size (1,000 files x 6 decls, side and other alike) for
+   the driver, resolve and concurrent service merges: its drv branch
+   renames the last function of every 16th file (63), and its rsv_base
+   gives the last function of every 4th file (250) a three-line body
+   whose first line rsv_a edits and whose second rsv_b edits. A matcher
+   checkpoint from the port's seeded (untrained) initializer. One ``git
+   fast-import`` writes every branch's commit of a repository; only
+   side's tree is written to disk, by its checkout.
 4. Five runs of the port's CLI functions, each under a torch.profiler
    trace (wall, phases, device busy time and idle share), with the decl
    cache emptied and the launch counts and shapes set to 0 just before
@@ -133,25 +135,25 @@ Phases, each fatal on failure, each printing its seconds:
    ``DIR2/semmerge-trace.json``. Prints the traced merge's wall beside
    the untraced one's and each profile's size.
 6. driver merge (not in-process): ``git merge --no-ff drv`` on side in
-   a clone, with ``python -m semantic_merge_tpu_torch.driver %O %A %B
+   a clone of the rung3 repository, with ``python -m semantic_merge_tpu_torch.driver %O %A %B
    %P`` registered as ``merge.semmerge.driver`` for ``*.ts`` in
    ``.git/info/attributes``, the default engine settings (the fused
    engine) and ``SEMMERGE_DAEMON=off`` (the driver's default, ``auto``,
    would spawn a merge service daemon; phase 7b measures that): git
    exits 0 without degrading, the merge commit's tree is
-   side's with drv's 125 renames, the work tree differs from it in
-   exactly the files that side retyped or added a function to (354 at
-   rung5, whatever drv renames: the engine's in-place tree, as the JAX
-   driver leaves it), the latch
-   exists, notes sit on both heads (drv's: 125 renames and their 125
-   moves), git started the driver 125 times (its trace2 log, required),
+   side's with drv's 63 renames, the work tree differs from it in
+   exactly the files that side retyped or added a function to (35 in
+   the rung3 repository, whatever drv renames: the engine's in-place
+   tree, as the JAX driver leaves it), the latch
+   exists, notes sit on both heads (drv's: 63 renames and their 63
+   moves), git started the driver 63 times (its trace2 log, required),
    and a process other than this one held the card during the merge
    (the CLI child: the card's used memory up by 100 MiB or more);
    prints git's wall, the child's and the other starts'.
 7. resolve semmerge, in-process and traced as in phase 4: ``semmerge
    rsv_base rsv_a rsv_b --inplace --strict-conflicts --resolve auto``
-   in a fourth work tree: exit 0,
-   1,000 ConcurrentStmtEdit conflicts each ``accepted`` in
+   in a work tree of the rung3 repository: exit 0,
+   250 ConcurrentStmtEdit conflicts each ``accepted`` in
    ``.semmerge-conflicts.json`` with its four gates passed, both edits
    in every such file, no ``sha256`` or ``flash_chunk`` launch (strict
    mode skips the fused engine); prints the resolve phase and each
@@ -169,12 +171,34 @@ Phases, each fatal on failure, each printing its seconds:
    4's); the matcher semdiff with ``--profile DIR`` (op log equal to
    phase 4's, 8 ``flash_chunk`` records in DIR, 8 launches in the
    daemon); four ``--inplace`` clients at once in four ``git clone
-   --local`` copies of a rung3 repository (1,000 files x 6 decls), each
+   --local`` copies of the rung3 repository, each
    tree equal to a one-shot merge's, co-batched (``requests_batched``
    >= 2, ``mean_batch_size`` > 1); SIGTERM, a drain to exit 0. Prints
    each client's wall, the batch and residency stats. (The warm and
    matcher semdiffs go over the wire from this process, which reads the
-   daemon's reply ``meta``.)
+   daemon's reply ``meta``.) The live tools, on the same daemon: it runs
+   with ``SEMMERGE_OTLP_ENDPOINT`` at a loopback collector thread of
+   this script, which must receive one ``/v1/traces`` payload per served
+   request, each passing ``validate_export`` with the requests' trace
+   ids left-padded to 32 digits, and ``otlp_exported_total{kind=
+   "traces"}`` equal to it, no error, no drop (prints the conversion's
+   microseconds per request); ``profile --daemon --seconds 2 --json
+   --out DIR`` from a client process while warm fused semdiffs (no
+   ``--profile``) are served: a bundle with the JAX bundle's keys and a
+   trace of the daemon's process holding ``sha256`` kernel records
+   (prints the kernel names and whether the executor threads' CPU ops
+   are there); a capture beside the profiled matcher semdiff: both
+   answer, its op log phase 4's (prints which one held the process's
+   one profiler session); ``top --once --json``, ``top --once`` and
+   ``perf record --daemon`` then ``perf compare --daemon`` (the baseline
+   and ``SEMMERGE_BENCH_TRAJECTORY`` under the scratch directory; the
+   checkout's ``PERF_BASELINE.json`` and ``BENCH_trajectory.jsonl``
+   unchanged). After the drain, the one-shot GC posture: the fused
+   semdiff at rung5 in child processes with ``SEMMERGE_GC_TUNE=0`` and
+   as shipped, and the fused semmerge in two more rung3 clones as
+   shipped and with ``=0``: byte-identical outputs (op log; exit code,
+   stdout, tree, notes); prints every child's wall and its seconds per
+   phase (``SEMMERGE_METRICS``).
 8. reference: small inputs on the card and on the CPU must give
    identical op logs (a matcher semdiff) and identical exit codes,
    trees, conflicts and notes (fused semmerges, one with a
@@ -1340,40 +1364,48 @@ def synth_trees(n_files: int, decls: int, n_retyped: int):
     return base, side, other, stmt
 
 
-#: The driver merge's branch edits every 80th file (125 driver starts at
-#: rung5), the resolve merge's branches every 20th (500 conflicts).
-DRV_EVERY, RSV_EVERY = 80, 10
+#: The rung3 repository: the bench's rung3 size (1,000 files x 6 decls,
+#: ``bench.py``'s ladder). The driver merge and the resolve merge run in
+#: it, not at rung5 (every rung5 merge spends a minute or more of host
+#: time in extract, apply and commit, and on a card whose host disk is
+#: slow the run would outgrow its time limit), and so do the service's
+#: concurrent merges and the GC posture's.
+RUNG3_FILES, RUNG3_DECLS = 1_000, 6
+#: In it the driver merge's branch edits every 16th file (63 driver
+#: starts) and the resolve merge's branches every 4th (250 conflicts).
+DRV_EVERY, RSV_EVERY = 16, 4
 
 
-#: The body ``rsv_base`` gives the last function of every 20th file, and
+#: The body ``rsv_base`` gives the last function of every 4th file, and
 #: the two disjoint edits of it on ``rsv_a`` (line 1) and ``rsv_b``
 #: (line 2).
 RSV_BODY = "{\n  n = n + 1;\n  n = n * 2;\n  return n;\n}\n"
 
 
-def extra_branches(base: dict) -> dict:
-    """Four more branches, each as (start, {path: content} of the files
-    it changes):
+def extra_branches(base: dict, n_files: int, decls: int) -> dict:
+    """Four more branches of a repository of ``n_files`` files of
+    ``decls`` functions, each as (start, {path: content} of the files it
+    changes):
 
-    - ``drv`` (on base) renames the last function of every 80th file,
-      ``fn<i>_3`` -> ``drv<i>_3`` (each such file is even, so side
+    - ``drv`` (on base) renames the last function of every 16th file,
+      ``fn<i>_5`` -> ``drv<i>_5`` (each such file is even, so side
       renames its first function: git starts the merge driver for every
       one of them). A rename and not a body edit: with the default
       engine settings a body edit is no op and the merge drops it, in
       the JAX package as in the port (``tests/test_torch_driver.py``);
-    - ``rsv_base`` (on base) gives the last function of every 20th file
+    - ``rsv_base`` (on base) gives the last function of every 4th file
       a three-line body (:data:`RSV_BODY`); on it ``rsv_a`` edits its
       first line (``n = n + i;``) and ``rsv_b`` its second (``n = n *
       4;``): a ConcurrentStmtEdit per file under ``--strict-conflicts``,
       which the resolution tier merges line by line."""
-    last = DECLS - 1
+    last = decls - 1
     branches = {"drv": ("base", {}), "rsv_base": ("base", {}),
                 "rsv_a": ("rsv_base", {}), "rsv_b": ("rsv_base", {})}
-    for i in range(N_FILES):
+    for i in range(n_files):
         path = f"src/mod{i:05d}.ts"
         content = base[path]
         if i % DRV_EVERY == 0:
-            branches["drv"][1][path] = drv_rename(content, i)
+            branches["drv"][1][path] = drv_rename(content, i, decls)
         if i % RSV_EVERY == 0:
             body = content.replace(f"{{ return {last}; }}\n", RSV_BODY)
             branches["rsv_base"][1][path] = body
@@ -1382,9 +1414,9 @@ def extra_branches(base: dict) -> dict:
     return branches
 
 
-def drv_rename(content: str, i: int) -> str:
+def drv_rename(content: str, i: int, decls: int) -> str:
     """The drv branch's change to file ``i``: its last function renamed."""
-    last = DECLS - 1
+    last = decls - 1
     return content.replace(f"function fn{i}_{last}(", f"function drv{i}_{last}(")
 
 
@@ -2015,9 +2047,11 @@ def check_profiled_matcher_semdiff(repo: pathlib.Path, card: str) -> dict:
 
 # --- the service phase -------------------------------------------------------
 
-#: The concurrent leg's repository: the bench's rung3 size (1,000 files
-#: x 6 decls, ``bench.py``'s ladder), four clones merged at once.
-SVC_FILES, SVC_DECLS, SVC_CLIENTS = 1_000, 6, 4
+#: The concurrent leg's clients: four clones of the rung3 repository
+#: merged at once.
+SVC_CLIENTS = 4
+#: The checkout's TPU-era perf records: ``perf`` must never write them.
+PERF_FILES = ("PERF_BASELINE.json", "BENCH_trajectory.jsonl")
 
 
 def _digest(text: str) -> str:
@@ -2062,18 +2096,345 @@ def _clone_at_side(src: pathlib.Path, dst: pathlib.Path, ckpt: pathlib.Path) -> 
     write_config(dst, ckpt)
 
 
+class OtlpCollector:
+    """A loopback OTLP/HTTP collector on a thread of this process: every
+    POST's path and JSON body, answered 200, until :meth:`close`."""
+
+    def __init__(self) -> None:
+        import http.server
+        import threading
+        received = self.received = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                received.append((self.path, json.loads(body)))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.endpoint = f"http://127.0.0.1:{self._server.server_address[1]}"
+        self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=30)
+
+
+def _counter(st: dict, name: str, **labels) -> float:
+    series = ((st.get("metrics") or {}).get("counters") or {}).get(name, {}).get("series", [])
+    return sum(s["value"] for s in series if all(s["labels"].get(k) == v
+                                                for k, v in labels.items()))
+
+
+def check_export(sock: pathlib.Path, collector: OtlpCollector, known: list) -> dict:
+    """Every served request's trace reached the collector: one valid
+    ``/v1/traces`` payload per request (``validate_export``), the
+    requests whose trace ids this script knows among them (left-padded
+    to 32 hex digits), ``otlp_exported_total{kind="traces"}`` equal to
+    the payloads received, no error and no drop. Also times the
+    conversion a request pays on its executor thread
+    (``spans_to_otlp`` of the largest payload's spans, then its JSON)."""
+    from semantic_merge_tpu_torch.obs import export
+
+    t0 = time.perf_counter()
+    while True:
+        st = _svc_status(sock)
+        served = st["served_total"]
+        done = sum(_counter(st, name, **labels) for name, labels in (
+            ("otlp_exported_total", {"kind": "traces"}), ("otlp_errors_total", {}),
+            ("otlp_dropped_total", {"kind": "traces"})))
+        if done >= served or time.perf_counter() - t0 > 60:
+            break
+        time.sleep(0.2)
+    exported = _counter(st, "otlp_exported_total", kind="traces")
+    errors, dropped = _counter(st, "otlp_errors_total"), _counter(st, "otlp_dropped_total")
+    traces = [body for path, body in collector.received if path == "/v1/traces"]
+    if errors or dropped or not exported == len(traces) == served:
+        fail(f"OTLP export: {served} requests served, {len(traces)} traces received, "
+             f"exported {exported}, errors {errors}, dropped {dropped}")
+    schema = _schema_checker()
+    ids = set()
+    for body in traces:
+        errs = schema.validate_export(body)
+        scopes = body["resourceSpans"][0]["scopeSpans"]
+        spans = [sp for scope in scopes for sp in scope["spans"]]
+        tids = {sp["traceId"] for sp in spans}
+        if errs or len(tids) != 1 or {sc["scope"]["name"] for sc in scopes} != \
+                {"semantic_merge_tpu_torch"}:
+            fail(f"an exported trace: schema errors {errs[:3]}, trace ids {sorted(tids)}")
+        ids |= tids
+    missing = {tid.rjust(32, "0") for tid in known} - ids
+    if missing:
+        fail(f"OTLP export: no trace for the requests {sorted(missing)}")
+    # What a request pays on its executor thread: the conversion of its
+    # span rows (the largest payload's, rebuilt as rows), then its JSON.
+    spans = max(([sp for sc in b["resourceSpans"][0]["scopeSpans"] for sp in sc["spans"]]
+                 for b in traces), key=len)
+    epoch = min(int(sp["startTimeUnixNano"]) for sp in spans)
+    rows = [{"name": sp["name"], "span_id": int(sp["spanId"], 16),
+             "parent_id": int(sp["parentSpanId"], 16) if "parentSpanId" in sp else -1,
+             "t_start": (int(sp["startTimeUnixNano"]) - epoch) / 1e9,
+             "seconds": (int(sp["endTimeUnixNano"]) - int(sp["startTimeUnixNano"])) / 1e9,
+             "meta": {a["key"]: next(iter(a["value"].values())) for a in sp["attributes"]}}
+            for sp in spans]
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        json.dumps(export.spans_to_otlp("0" * 16, rows, epoch_unix_nano=epoch))
+    return {"requests": served, "traces_received": len(traces), "exported": exported,
+            "errors": errors, "known_trace_ids": len(known), "largest_trace_spans": len(spans),
+            "conversion_us_per_request": (time.perf_counter() - t0) / reps * 1e6}
+
+
+#: ``bundle.json``'s keys in the JAX daemon's ``_capture_profile``.
+JAX_BUNDLE_KEYS = {"schema", "ok", "profiler_started", "seconds", "t_start", "t_end", "pid",
+                   "metrics_before", "metrics_after", "spans", "slo"}
+
+
+def _bundle(result: dict, daemon_pid: int) -> tuple:
+    """(``bundle.json``, the trace's events) of a capture's bundle, its
+    keys the JAX bundle's and its trace written by the daemon."""
+    bundle_dir = pathlib.Path(result["dir"])
+    bundle = json.loads((bundle_dir / "bundle.json").read_text())
+    if set(bundle) != JAX_BUNDLE_KEYS or bundle["pid"] != daemon_pid:
+        fail(f"bundle.json keys {sorted(bundle)} (pid {bundle['pid']}), expected "
+             f"{sorted(JAX_BUNDLE_KEYS)} from {daemon_pid}")
+    traces = sorted(bundle_dir.glob("*.pt.trace.json"))
+    if not result["profiler_started"]:
+        return bundle, None
+    if len(traces) != 1 or not traces[0].name.split(".")[0].endswith(f"_{daemon_pid}"):
+        fail(f"the bundle {bundle_dir} holds {[t.name for t in traces]}, expected one "
+             f"trace of the daemon's process {daemon_pid}")
+    return bundle, json.loads(traces[0].read_text())["traceEvents"]
+
+
+def _threads(events: list, cat: str) -> dict:
+    tids: dict = {}
+    for e in events:
+        if e.get("cat") == cat:
+            tids[e.get("tid")] = tids.get(e.get("tid"), 0) + 1
+    return tids
+
+
+def check_daemon_profile(sock: pathlib.Path, root: pathlib.Path, phase4: dict,
+                         daemon_pid: int) -> dict:
+    """``profile --daemon --seconds 2 --json --out DIR`` from a client
+    process, while warm fused semdiffs (no ``--profile``) are served one
+    after another: exit 0, ``ok`` and ``profiler_started``, a bundle
+    with the JAX bundle's keys, and a trace of the daemon's process
+    holding ``sha256`` kernel records (CUPTI records every thread's
+    kernels). Prints the kernel names seen and whether the executor
+    threads' CPU ops are in the trace."""
+    out_dir = WORK / "profile_daemon"
+    t0 = time.perf_counter()
+    proc = started(subprocess.Popen(
+        [sys.executable, "-m", "semantic_merge_tpu_torch", "profile", "--daemon", "--seconds",
+         "2", "--json", "--out", str(out_dir)], cwd=WORK, env=_svc_env(sock),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    while not any(out_dir.glob("profile-*")):
+        if proc.poll() is not None or time.perf_counter() - t0 > 180:
+            fail(f"profile --daemon opened no bundle (exit {proc.poll()})")
+        time.sleep(0.02)
+    walls = []
+    while proc.poll() is None or not walls:
+        warm = _svc_verb(sock, root, "semdiff", ["base", "side", "--json-out"])
+        if warm["exit_code"] != 0 or _digest(warm["stdout"]) != phase4["fused_semdiff"]:
+            fail("a warm semdiff served during the capture gave another op log than phase 4's")
+        walls.append(warm["wall_s"])
+    stdout, stderr = proc.communicate(timeout=180)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"profile --daemon exited {proc.returncode}: {stderr[-2000:]}")
+    result = json.loads(stdout)
+    if not (result["ok"] and result["profiler_started"] and "bundle.json" in result["files"]):
+        fail(f"profile --daemon answered {json.dumps(result)}")
+    bundle, events = _bundle(result, daemon_pid)
+    kernel_names = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    sha = sum(1 for e in events if e.get("cat") == "kernel" and "sha256" in e["name"])
+    if not sha:
+        fail(f"the daemon capture holds no sha256 kernel record: kernels {kernel_names[:20]}")
+    cpu_ops, runtime = _threads(events, "cpu_op"), _threads(events, "cuda_runtime")
+    ranges = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("semmerge/")})
+    print(f"service: profile --daemon (2 s window, {len(walls)} warm semdiffs served in it): "
+          f"{len(kernel_names)} kernel names, {sha} sha256 records; kernels "
+          f"{json.dumps(kernel_names[:12])}; executor-side CPU ops in the trace: "
+          f"{'yes' if cpu_ops else 'no'} ({sum(cpu_ops.values())} cpu_op events on "
+          f"{len(cpu_ops)} threads; CUDA runtime calls on {len(runtime)} threads); "
+          f"semmerge/ ranges {ranges}", flush=True)
+    return {"client_wall_s": wall, "window_s": result["seconds"], "warm_semdiffs": len(walls),
+            "warm_semdiff_walls_s": walls, "files": result["files"],
+            "kernel_names": len(kernel_names), "sha256_records": sha,
+            "cpu_op_events": sum(cpu_ops.values()), "cpu_op_threads": len(cpu_ops),
+            "cuda_runtime_threads": len(runtime), "flight_spans": len(bundle["spans"])}
+
+
+def check_profile_overlap(sock: pathlib.Path, root: pathlib.Path, phase4: dict,
+                          daemon_pid: int) -> dict:
+    """A daemon capture (2 s) and the profiled matcher semdiff (``--profile
+    DIR``) at once: the process holds one profiler session, so one of
+    them runs without it; both answer, the semdiff's op log is phase
+    4's, and the daemon still answers ``status``."""
+    import threading
+
+    from semantic_merge_tpu_torch.service import client
+    cap_dir, req_dir = WORK / "profile_overlap", WORK / "profile_overlap_request"
+    box: dict = {}
+
+    def capture():
+        box["result"] = client.capture_profile(2.0, out_dir=str(cap_dir), path=str(sock))
+
+    before = _counter(_svc_status(sock), "profiler_capture_failures_total", reason="busy")
+    thread = threading.Thread(target=capture, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    while not any(cap_dir.glob("profile-*")):
+        if not thread.is_alive() or time.perf_counter() - t0 > 60:
+            fail(f"the overlapping capture opened no bundle: {box}")
+        time.sleep(0.01)
+    matcher = _svc_verb(sock, root, "semdiff",
+                        ["base", "side", "--json-out", "--change-signature",
+                         "--signature-matcher", "--profile", str(req_dir)])
+    thread.join(timeout=180)
+    result = box.get("result") or {}
+    if matcher["exit_code"] != 0 or _digest(matcher["stdout"]) != phase4["matcher_semdiff"]:
+        fail(f"the matcher semdiff served during a capture: exit {matcher['exit_code']}, "
+             "op log other than phase 4's")
+    if not result.get("ok"):
+        fail(f"the capture beside a profiled request answered {result}")
+    _, events = _bundle(result, daemon_pid)
+    st = _svc_status(sock)
+    busy = _counter(st, "profiler_capture_failures_total", reason="busy") - before
+    req_traces = sorted(req_dir.glob("*.pt.trace.json"))
+    flash = None if events is None else sum(
+        1 for e in events if e.get("cat") == "kernel" and "flash_chunk" in e["name"])
+    return {"capture_profiler_started": result["profiler_started"],
+            "request_profile_traces": len(req_traces), "busy_refusals": busy,
+            "capture_flash_chunk_records": flash, "matcher_wall_s": matcher["wall_s"]}
+
+
+def check_top_and_perf(sock: pathlib.Path, daemon_pid: int) -> dict:
+    """``top --once --json``, ``top --once`` and ``perf record --daemon``
+    from client processes at once, then ``perf compare --daemon``, with
+    the baseline and the trajectory under this run's scratch directory
+    (never the checkout's ``PERF_BASELINE.json``): exit 0 each, the
+    status's package and pid, the JAX frame's head line, the record's
+    line, and a compare of the same window that finds no regression."""
+    env = _svc_env(sock, SEMMERGE_BENCH_TRAJECTORY=str(WORK / "bench_trajectory.jsonl"))
+    baseline = WORK / "perf_baseline.json"
+    cmd = [sys.executable, "-m", "semantic_merge_tpu_torch"]
+
+    def run(argvs: dict) -> dict:
+        procs = {name: started(subprocess.Popen(cmd + argv, cwd=WORK, env=env,
+                                                stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True))
+                 for name, argv in argvs.items()}
+        outs = {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"{' '.join(argvs[name])} exited {proc.returncode}: {err[-2000:]}")
+            outs[name] = out
+        return outs
+
+    t0 = time.perf_counter()
+    outs = run({"top_json": ["top", "--once", "--json"], "top": ["top", "--once"],
+                "record": ["perf", "record", "--daemon", "--baseline", str(baseline)]})
+    outs.update(run({"compare": ["perf", "compare", "--daemon", "--baseline", str(baseline)]}))
+    wall = time.perf_counter() - t0
+    snap = json.loads(outs["top_json"])
+    if snap["status"]["package"] != "semantic_merge_tpu_torch" or \
+            snap["status"]["pid"] != daemon_pid or snap["members"] is not None:
+        fail(f"top --once --json: {json.dumps(snap)[:500]}")
+    if not outs["top"].startswith(f"semmerge top — merge daemon pid {daemon_pid}  uptime "):
+        fail(f"top --once printed {outs['top'][:300]!r}")
+    if outs["record"] != f"recorded 1 entry into {baseline}: daemon\n":
+        fail(f"perf record --daemon printed {outs['record']!r}")
+    if not outs["compare"].startswith(f"perf compare vs {baseline}: OK\n"):
+        fail(f"perf compare --daemon printed {outs['compare']!r}")
+    print(f"service: top --once\n{outs['top']}service: perf compare --daemon\n"
+          f"{outs['compare']}", end="", flush=True)
+    return {"served_total": snap["status"]["served_total"], "wall_s": wall,
+            "baseline_entry": json.loads(baseline.read_text())["entries"]["daemon"]}
+
+
+def _phase_sums(dump: pathlib.Path) -> dict:
+    """Seconds per phase in a ``SEMMERGE_METRICS`` dump."""
+    hist = json.loads(dump.read_text())["histograms"]["semmerge_phase_seconds"]
+    return {s["labels"]["phase"]: round(s["sum"], 4) for s in hist["series"]}
+
+
+def check_gc_posture(rung5: pathlib.Path, clones: list, phase4: dict, expected: dict) -> dict:
+    """The one-shot GC posture (``utils/gctune.py``) both ways, in child
+    processes with no daemon: the fused semdiff at rung5
+    (``SEMMERGE_GC_TUNE=0``, then as shipped) and the fused semmerge of
+    the rung3 repository in two clones (as shipped, then ``=0``). The
+    outputs (op log; exit code, stdout, tree and notes) must be
+    byte-identical. Returns each child's wall and its seconds per phase
+    (``SEMMERGE_METRICS``)."""
+    base_env = {k: v for k, v in os.environ.items() if not k.startswith("SEMMERGE_")}
+    base_env.update(PYTHONPATH=str(REPO), SEMMERGE_DAEMON="off")
+
+    def child(cwd, argv, off, tag):
+        dump = WORK / f"gc_metrics_{tag}.json"
+        env = dict(base_env, SEMMERGE_METRICS=str(dump),
+                   **({"SEMMERGE_GC_TUNE": "0"} if off else {}))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "semantic_merge_tpu_torch", *argv],
+                              cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{' '.join(argv)} (SEMMERGE_GC_TUNE={'0' if off else 'unset'}) exited "
+                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        return proc.stdout, {"wall_s": wall, "phases_s": _phase_sums(dump)}
+
+    out: dict = {"semdiff": {}, "semmerge": {}}
+    outputs = set()
+    for off in (True, False):
+        stdout, row = child(rung5, ["semdiff", "base", "side", "--json-out"], off,
+                            f"semdiff_{'off' if off else 'shipped'}")
+        outputs.add(stdout)
+        out["semdiff"]["off" if off else "shipped"] = row
+    if len(outputs) != 1 or _digest(outputs.pop().decode()) != phase4["fused_semdiff"]:
+        fail("the fused semdiff's op log differs with and without the GC posture")
+    merged = []
+    for clone, off in zip(clones, (False, True)):
+        stdout, row = child(clone, ["semmerge", "base", "side", "other", "--inplace"], off,
+                            f"semmerge_{'off' if off else 'shipped'}")
+        out["semmerge"]["off" if off else "shipped"] = row
+        merged.append((stdout, _work_tree(clone),
+                       {rev: _note(clone, rev) for rev in ("side", "other")}))
+    if merged[0] != merged[1] or merged[0][1] != expected:
+        fail("the rung3 semmerge's stdout, tree or notes differ with and without the GC "
+             "posture, or from the one-shot merge's tree")
+    return out
+
+
 def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt: pathlib.Path,
-                      untraced: dict, phase4: dict) -> dict:
+                      untraced: dict, phase4: dict, rung3: pathlib.Path) -> dict:
     """The merge service on the card: ``serve --workers 4`` in a child
-    (a 2 s batch window), then, from clients, the cold fused semmerge in
-    a sixth work tree (its tree and notes phase 4's), the warm fused
+    (a 2 s batch window, ``SEMMERGE_OTLP_ENDPOINT`` at a collector of
+    this process), then, from clients, the cold fused semmerge in a
+    sixth work tree (its tree and notes phase 4's), the warm fused
     semdiff (phase 4's op log, one residency hit), the profiled matcher
     semdiff (phase 4's op log, 8 ``flash_chunk`` records from the
-    daemon's process), four concurrent merges of four clones of a rung3
-    repository (each the one-shot tree; co-batched), and SIGTERM (a
-    drain to exit 0). Returns what it measured."""
+    daemon's process), ``profile --daemon`` over warm semdiffs, a
+    capture beside the profiled matcher semdiff, four concurrent merges
+    of four clones of a rung3 repository (each the one-shot tree;
+    co-batched), ``top`` and ``perf``, the OTLP traces of every served
+    request, SIGTERM (a drain to exit 0), and last the one-shot GC
+    posture both ways. Returns what it measured."""
     from semantic_merge_tpu_torch import cli
 
+    guarded = {name: (REPO / name).read_bytes() for name in PERF_FILES}
+    collector = OtlpCollector()
+    known: list = []
     sock = WORK / "svc.sock"
     svc_tree = WORK / "service"
     subprocess.run(["git", "worktree", "add", "-q", "--detach", str(svc_tree), "side"],
@@ -2087,7 +2448,8 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
             [sys.executable, "-m", "semantic_merge_tpu_torch", "serve", "--socket", str(sock),
              "--workers", "4", "--idle-exit", "1200"],
             cwd=WORK, stdout=log, stderr=subprocess.STDOUT,
-            env=_svc_env(sock, SEMMERGE_BATCH_WINDOW_MS="2000")))
+            env=_svc_env(sock, SEMMERGE_BATCH_WINDOW_MS="2000",
+                         SEMMERGE_OTLP_ENDPOINT=collector.endpoint)))
         try:
             from semantic_merge_tpu_torch.service import client
             while client.hello(str(sock), timeout=1.0) is None:
@@ -2130,6 +2492,7 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
 
         # The warm semdiff: the base is resident (scan, encode, h2d skipped).
         warm = _svc_verb(sock, svc_tree, "semdiff", ["base", "side", "--json-out"])
+        known.append(warm["meta"]["trace_id"])
         if warm["exit_code"] != 0 or _digest(warm["stdout"]) != phase4["fused_semdiff"]:
             fail(f"the daemon-served fused semdiff's op log differs from phase 4's "
                  f"(exit {warm['exit_code']})")
@@ -2152,6 +2515,7 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
         matcher = _svc_verb(sock, svc_tree, "semdiff",
                             ["base", "side", "--json-out", "--change-signature",
                              "--signature-matcher", "--profile", str(prof_dir)])
+        known.append(matcher["meta"]["trace_id"])
         if matcher["exit_code"] != 0 or _digest(matcher["stdout"]) != phase4["matcher_semdiff"]:
             fail(f"the daemon-served matcher semdiff's op log differs from phase 4's "
                  f"(exit {matcher['exit_code']})")
@@ -2164,13 +2528,20 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
         out["matcher_semdiff"] = {"client_wall_s": matcher["wall_s"],
                                   "flash_chunk_records": records.get("flash_chunk", 0)}
 
-        # The concurrent leg: four clones of a rung3 repository at once.
-        small = WORK / "svc_repo"
-        trees = synth_trees(SVC_FILES, SVC_DECLS, SVC_FILES * N_RETYPED // N_FILES)
-        make_repo(small, *trees[:3])
-        clones = [WORK / f"svc_clone{i}" for i in range(SVC_CLIENTS + 1)]
+        # profile --daemon over warm semdiffs, then a capture beside the
+        # profiled matcher semdiff (the process's one profiler session).
+        out["profile"] = check_daemon_profile(sock, svc_tree, phase4, daemon.pid)
+        out["profile_overlap"] = check_profile_overlap(sock, svc_tree, phase4, daemon.pid)
+        print(f"service: a capture beside the profiled matcher semdiff: "
+              f"{json.dumps(out['profile_overlap'])}", flush=True)
+        st = _svc_status(sock)
+
+        # The concurrent leg: four clones of the rung3 repository at once.
+        # clone 0: the one-shot merge; 1-4: the concurrent clients; 5, 6:
+        # the GC posture's merges.
+        clones = [WORK / f"svc_clone{i}" for i in range(SVC_CLIENTS + 3)]
         for clone in clones:
-            _clone_at_side(small, clone, ckpt)
+            _clone_at_side(rung3, clone, ckpt)
         cwd = os.getcwd()
         os.chdir(clones[0])
         try:
@@ -2188,14 +2559,14 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
             [sys.executable, "-m", "semantic_merge_tpu_torch", "semmerge", "base", "side",
              "other", "--inplace"], cwd=clone, env=_svc_env(sock, SEMMERGE_DAEMON="require"),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-            for clone in clones[1:]]
+            for clone in clones[1:SVC_CLIENTS + 1]]
         walls = []
         for p in procs:
             _o, err = p.communicate(timeout=600)
             walls.append(time.perf_counter() - t0)
             if p.returncode != 0:
                 fail(f"a concurrent daemon-served semmerge exited {p.returncode}: {err[-2000:]}")
-        for clone in clones[1:]:
+        for clone in clones[1:SVC_CLIENTS + 1]:
             if _work_tree(clone) != expected:
                 fail(f"{clone.name}'s merged tree differs from the one-shot merge's")
         st = _svc_status(sock)
@@ -2210,7 +2581,9 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
             fail(f"the concurrent merges did not co-batch: {json.dumps(batch)}")
         out["batch"] = batch
         out["residency"] = st["residency"]
-        out["served_total"] = st["served_total"]
+        out["tools"] = check_top_and_perf(sock, daemon.pid)
+        out["export"] = check_export(sock, collector, known)
+        out["served_total"] = _svc_status(sock)["served_total"]
     finally:
         t0 = time.perf_counter()
         daemon.send_signal(signal.SIGTERM)
@@ -2220,9 +2593,22 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
             daemon.kill()
             rc = "killed after 180 s"
         log.close()
+        collector.close()
     out["drain_s"] = time.perf_counter() - t0
     if rc != 0:
         fail(f"the daemon did not drain to exit 0 on SIGTERM: {rc}")
+    t0 = time.perf_counter()
+    out["gc_posture"] = check_gc_posture(svc_tree, clones[SVC_CLIENTS + 1:], phase4, expected)
+    out["gc_posture"]["seconds"] = time.perf_counter() - t0
+    print(f"service: GC posture (child walls, s): fused semdiff rung5 as shipped "
+          f"{out['gc_posture']['semdiff']['shipped']['wall_s']}, "
+          f"SEMMERGE_GC_TUNE=0 {out['gc_posture']['semdiff']['off']['wall_s']}; "
+          f"fused semmerge rung3 as shipped {out['gc_posture']['semmerge']['shipped']['wall_s']}, "
+          f"SEMMERGE_GC_TUNE=0 {out['gc_posture']['semmerge']['off']['wall_s']}; outputs "
+          "byte-identical", flush=True)
+    changed = [name for name, data in guarded.items() if (REPO / name).read_bytes() != data]
+    if changed:
+        fail(f"the service phase wrote the checkout's {changed}")
     return out
 
 
@@ -2298,7 +2684,7 @@ def _counts_json(ops) -> dict:
     return dict(sorted(counts.items()))
 
 
-def check_resolve_semmerge(work: pathlib.Path, merged, n_rsv: int) -> dict:
+def check_resolve_semmerge(work: pathlib.Path, merged, n_rsv: int, n_files: int) -> dict:
     """The resolve merge of rsv_a and rsv_b: exit 0, one
     ConcurrentStmtEdit per file both edited, each ``accepted``
     (``merged3way``) in ``.semmerge-conflicts.json`` with every gate
@@ -2317,7 +2703,7 @@ def check_resolve_semmerge(work: pathlib.Path, merged, n_rsv: int) -> dict:
     if [g["gate"] for g in gates] != ["recompose", "parity", "typecheck", "format"] or \
             not all(g["ok"] for g in gates):
         fail(f"the verify gates did not all pass: {gates}")
-    for i in range(0, N_FILES, RSV_EVERY):
+    for i in range(0, n_files, RSV_EVERY):
         text = (work / "src" / f"mod{i:05d}.ts").read_text()
         if f"n = n + {i};" not in text or "n = n * 4;" not in text:
             fail(f"src/mod{i:05d}.ts does not hold both sides' edits")
@@ -2591,20 +2977,25 @@ def main() -> int:
         repo, ckpt, fused_tree = WORK / "repo", WORK / "ckpt", WORK / "fused"
         strict_tree, rsv_tree = WORK / "strict", WORK / "resolve"
         trees = synth_trees(N_FILES, DECLS, N_RETYPED)
-        extras = extra_branches(trees[0])
-        make_repo(repo, *trees, extras=extras)
+        make_repo(repo, *trees)
+        rung3 = WORK / "rung3"
+        rung3_trees = synth_trees(RUNG3_FILES, RUNG3_DECLS, RUNG3_FILES * N_RETYPED // N_FILES)
+        extras = extra_branches(rung3_trees[0], RUNG3_FILES, RUNG3_DECLS)
+        make_repo(rung3, *rung3_trees[:3], extras=extras)
         encoder = Encoder(EncoderConfig(), generator=torch.Generator().manual_seed(0))
         save_matcher_checkpoint(ckpt, encoder.state_dict())
         config = write_config(repo, ckpt)
+        last3 = RUNG3_DECLS - 1
         print(f"repo: {N_FILES} files x {DECLS} decls and a README.md; side (A): "
               f"{(N_FILES + 1) // 2} renames, {N_RETYPED} renamed+retyped, README line 2; "
               f"other (B): {(N_FILES + 3) // 4} files moved src/ -> lib/, {N_RETYPED} other "
               f"files renamed+retyped, README line 19; stmt: {len(range(0, N_FILES, 3))} "
-              f"body edits of fn<i>_{DECLS - 1}; drv: {len(extras['drv'][1])} renames of "
-              f"fn<i>_{DECLS - 1} (every {DRV_EVERY}th file); rsv_base: "
-              f"{len(extras['rsv_base'][1])} three-line bodies of fn<i>_{DECLS - 1} (every "
-              f"{RSV_EVERY}th file), rsv_a / rsv_b: an edit of line 1 / line 2 of each; "
-              "matcher checkpoint: the port's "
+              f"body edits of fn<i>_{DECLS - 1}; the rung3 repository ({RUNG3_FILES} files "
+              f"x {RUNG3_DECLS} decls, side and other alike) adds drv: "
+              f"{len(extras['drv'][1])} renames of fn<i>_{last3} (every {DRV_EVERY}th "
+              f"file); rsv_base: {len(extras['rsv_base'][1])} three-line bodies of "
+              f"fn<i>_{last3} (every {RSV_EVERY}th file), rsv_a / rsv_b: an edit of line 1 / "
+              "line 2 of each; matcher checkpoint: the port's "
               "seeded init (seed 0), UNTRAINED random weights; .semmerge.toml: "
               + config.replace("\n", "; "), flush=True)
         t = phase("repo", t)
@@ -2742,12 +3133,13 @@ def main() -> int:
 
         # The merge driver: git merge in a clone; the driver's first start
         # runs the CLI in a child process on the card.
-        expected = dict(trees[1])
+        expected = dict(rung3_trees[1])
         for path in extras["drv"][1]:
-            expected[path] = drv_rename(expected[path], int(path[len("src/mod"):-len(".ts")]))
-        dirty = {path for path, text in trees[1].items()
+            expected[path] = drv_rename(expected[path], int(path[len("src/mod"):-len(".ts")]),
+                                        RUNG3_DECLS)
+        dirty = {path for path, text in rung3_trees[1].items()
                  if "function added" in text or "function reshaped" in text}
-        drv = run_driver_merge(repo, WORK / "driver", ckpt, expected, dirty,
+        drv = run_driver_merge(rung3, WORK / "driver", ckpt, expected, dirty,
                                len(extras["drv"][1]))
         print(f"driver merge: git merge --no-ff drv on side, {drv['driver_starts']} driver "
               f"starts, git wall {drv['git_wall_s']:.3f} s, the CLI child's start "
@@ -2761,14 +3153,14 @@ def main() -> int:
         # divergent renames whose heads meet, so a merge of many of them
         # cannot resolve; see PERF.md.) No fused engine, so no sha256.
         subprocess.run(["git", "worktree", "add", "-q", "--detach", str(rsv_tree), "rsv_a"],
-                       cwd=repo, check=True)
+                       cwd=rung3, check=True)
         write_config(rsv_tree, ckpt)
         merged, launches, shapes, wall, busy = run_cli(
             torch, rsv_tree, ["semmerge", "rsv_base", "rsv_a", "rsv_b", "--inplace",
                               "--strict-conflicts", "--resolve", "auto"])
         expect_launches("resolve semmerge", launches, {"flash_chunk": 0, "sha256": 0})
         n_rsv = len(extras["rsv_a"][1])
-        gates = check_resolve_semmerge(rsv_tree, merged, n_rsv)
+        gates = check_resolve_semmerge(rsv_tree, merged, n_rsv, RUNG3_FILES)
         print(f"resolve semmerge: {n_rsv} ConcurrentStmtEdit conflicts, each accepted "
               f"(merged3way); resolve phase {merged.phases['resolve']:.4f} s; gates (ms) "
               f"{json.dumps(gates)}; launches {launches}", flush=True)
@@ -2778,7 +3170,7 @@ def main() -> int:
         t = phase("resolve semmerge", t)
 
         # The merge service: the same merges, served by a warm daemon.
-        svc = run_service_phase(torch, repo, fused_tree, ckpt, untraced, phase4)
+        svc = run_service_phase(torch, repo, fused_tree, ckpt, untraced, phase4, rung3)
         print(f"service: {json.dumps(svc)}", flush=True)
         t = phase("service", t)
 

@@ -17,6 +17,12 @@ the op-log replay.
     python -m semantic_merge_tpu_torch trace analyze ARTIFACT|DIR [--json]
         [--since DURATION]
     python -m semantic_merge_tpu_torch trace diff A B [--json]
+    python -m semantic_merge_tpu_torch profile --daemon [--seconds S] [--out DIR]
+        [--socket PATH] [--json]
+    python -m semantic_merge_tpu_torch perf record|compare [SNAPSHOT ...]
+        [--baseline PATH] [--daemon] ...
+    python -m semantic_merge_tpu_torch top [--socket PATH] [--interval S] [--once]
+        [--json]
     python -m semantic_merge_tpu_torch train-matcher [--steps N] [--batch N]
         [--seq N] [--seed N] [--ckpt-dir DIR] [--ckpt-every N] [--no-resume]
         [--eval] [--device cuda|cpu]
@@ -125,7 +131,19 @@ overload or an open breaker under ``--no-degrade``; 15 a request past
 ``SEMMERGE_SERVICE_DEADLINE``; 16 a batching fault under
 ``SEMMERGE_BATCH=require`` (also a one-shot ``semmerge`` with it, before
 anything is read: no scheduler runs outside the daemon). ``stats
---daemon`` renders the live status.
+--daemon`` renders the live status, ``top`` the JAX CLI's one-screen
+dashboard of it. With ``SEMMERGE_OTLP_ENDPOINT`` the daemon ships each
+served request's trace to an OTLP collector
+(:mod:`semantic_merge_tpu_torch.obs.export`); a one-shot run exports
+nothing, as in the JAX CLI. ``profile --daemon`` captures a bounded
+``torch.profiler`` window from the running daemon, and
+``SEMMERGE_SLO_AUTOPROFILE`` makes the daemon capture one on its first
+SLO trip.
+
+``semdiff``, ``semmerge`` and ``semrebase`` run under the one-shot GC
+posture (:mod:`semantic_merge_tpu_torch.utils.gctune`; off with
+``SEMMERGE_GC_TUNE=0``, which the daemon sets for itself), as the JAX
+CLI's do.
 
 Refused, with exit 70 before a revision is read or the work tree is
 touched, because the port does not implement what they select:
@@ -135,9 +153,9 @@ engine); ``--backend`` or ``[engine] backend`` naming another engine,
 language's engine, or ``worker_cmd``, another program); ``[engine] mesh = "require"`` or
 ``SEMMERGE_MESH=require`` (a device mesh); ``SEMMERGE_FLEET=require``
 (the fleet router; ``auto`` finds none and falls through to the daemon
-posture, as the JAX client does); ``SEMMERGE_OTLP`` (the OTLP
-exporter); ``serve --socket tcp://...``, ``--join``, ``--advertise``,
-``--capacity``, ``--member-id`` and ``--fleet`` (the fleet).
+posture, as the JAX client does); ``serve --socket tcp://...``,
+``--join``, ``--advertise``, ``--capacity``, ``--member-id`` and
+``--fleet`` (the fleet).
 
 Read by the JAX package and left alone here, since they do not change
 its output: ``incremental`` (its scope is collision-safe, so the full-tree
@@ -167,10 +185,13 @@ dumps the registry at exit. ``stats`` pretty-prints a trace, events or
 metrics artifact (``--json``, ``--prometheus``), ``trace analyze`` its
 critical path (one file, or p50/p99 over a directory), ``trace diff``
 two artifacts phase by phase; their output is the JAX CLI's for the
-same artifact. Refused with exit 70 before anything is read, since they
-need the fleet, the daemon's profile capture or the bench records,
-which are not ported: ``stats --fleet``, ``trace analyze --fleet``,
-``profile`` (``--daemon``), ``perf`` and ``top``.
+same artifact. ``perf record|compare`` is the JAX CLI's perf sentinel
+(:mod:`semantic_merge_tpu_torch.obs.perf`) over bench snapshots or a
+live daemon's latency window, with the same output, exit codes and
+baseline format; point ``--baseline`` outside the checkout, whose
+``PERF_BASELINE.json`` holds the TPU's numbers. Refused with exit 70
+before anything is read, since they need the fleet, which is not
+ported: ``stats --fleet`` and ``trace analyze --fleet``.
 
 ``train-matcher`` trains the signature matcher's encoder as the JAX
 package's ``train-matcher`` does (InfoNCE over synthetic declaration
@@ -957,6 +978,11 @@ def main(argv: Sequence[str] | None = None, *, delegate: bool = True) -> int:
         code = service_client.delegate(argv)
         if code is not None:
             return code
+    if args.command in ("semdiff", "semmerge", "semrebase"):
+        # Only the process that does the merge, and only for the
+        # one-shot merge verbs (the daemon turns it off for itself).
+        from .utils.gctune import tune_for_merge
+        tune_for_merge()
     try:
         if args.command in ("stats", "trace", "profile", "perf", "top"):
             from .obs import report

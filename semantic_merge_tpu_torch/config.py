@@ -226,15 +226,16 @@ def refused_environment(command: str) -> List[str]:
     (``semdiff``, ``semmerge``, ``semrebase`` or ``serve``), read
     through the request overlay: ``SEMMERGE_FLEET=require`` (there is no
     fleet router; ``auto`` finds none and falls through to the daemon
-    posture, as the JAX client does) and ``SEMMERGE_OTLP`` (there is no
-    OTLP exporter) — and ``SEMMERGE_MESH=require`` (a device mesh)."""
+    posture, as the JAX client does) and ``SEMMERGE_MESH=require`` (a
+    device mesh). No OTLP variable is refused: as in the JAX package,
+    only the daemon exports (``SEMMERGE_OTLP_ENDPOINT``,
+    :mod:`semantic_merge_tpu_torch.obs.export`), and nothing reads
+    ``SEMMERGE_OTLP``."""
     refused = []
     if (reqenv.get("SEMMERGE_MESH") or "").strip().lower() == "require":
         refused.append("SEMMERGE_MESH=require")
     if (reqenv.get("SEMMERGE_FLEET") or "").strip().lower() == "require":
         refused.append("SEMMERGE_FLEET=require")
-    if (reqenv.get("SEMMERGE_OTLP") or "").strip():
-        refused.append("SEMMERGE_OTLP")
     return refused
 
 

@@ -1,18 +1,24 @@
-"""The artifact commands of the CLI: ``stats``, ``trace analyze`` and
-``trace diff`` over the files the observability layer writes
-(``.semmerge-trace.json``, ``.semmerge-events.jsonl``, a
-``SEMMERGE_METRICS`` dump, postmortem bundles). A copy of the JAX CLI's
-file forms, printing the same bytes for the same artifact; they read
-only the file, so they work on artifacts of processes long gone.
+"""The artifact and live-service commands of the CLI: ``stats``,
+``trace analyze`` and ``trace diff`` over the files the observability
+layer writes (``.semmerge-trace.json``, ``.semmerge-events.jsonl``, a
+``SEMMERGE_METRICS`` dump, postmortem bundles), and ``profile``,
+``perf`` and ``top``. A copy of the JAX CLI's forms, printing the same
+bytes for the same input; the file forms read only the file, so they
+work on artifacts of processes long gone.
 
 ``stats --daemon`` renders the live status of the port's merge service
-daemon (``service/``) as the JAX CLI renders its daemon's.
+daemon (``service/``) as the JAX CLI renders its daemon's; ``top`` is
+the JAX CLI's one-screen dashboard of it (``--once`` or a stdout that
+is not a TTY prints one frame); ``profile --daemon`` asks the running
+daemon for a bounded profiler capture; ``perf record|compare`` is the
+perf sentinel (:mod:`.perf`) over bench snapshots or the daemon's
+latency window. ``perf`` writes its baseline where ``--baseline`` says,
+else ``PERF_BASELINE.json`` in the request root: the checkout's own
+file of that name holds the TPU's numbers, so point it elsewhere.
 
-Refused with exit 70 before anything is read (the fleet, the daemon's
-profile capture and the bench records they need are not ported):
-``stats --fleet``, ``trace analyze --fleet``, ``profile`` (a capture
-from a running daemon; one-shot runs use ``--profile DIR`` on the merge
-verbs), ``perf`` and ``top``. Stdlib only.
+Refused with exit 70 before anything is read (the fleet is not
+ported): ``stats --fleet``, ``trace analyze --fleet`` and a ``tcp://``
+``--socket`` for ``top``, ``profile`` or ``perf``. Stdlib only.
 """
 from __future__ import annotations
 
@@ -29,8 +35,8 @@ from .metrics import render_prometheus_from_dict
 
 
 def add_parsers(sub) -> None:
-    """The ``stats``, ``trace``, ``profile`` and ``perf`` subcommands,
-    with the JAX CLI's arguments."""
+    """The ``stats``, ``trace``, ``top``, ``profile`` and ``perf``
+    subcommands, with the JAX CLI's arguments."""
     p_stats = sub.add_parser("stats",
                              help="Pretty-print a semmerge trace/metrics "
                                   "artifact (.semmerge-trace.json, "
@@ -76,38 +82,102 @@ def add_parsers(sub) -> None:
     p_tdiff.add_argument("b", help="Baseline artifact")
     p_tdiff.add_argument("--json", action="store_true",
                          help="Emit the diff as JSON")
-    p_profile = sub.add_parser(
-        "profile", help="Refused (exit 70): captures from a running merge service "
-                        "daemon are not ported (use --profile DIR on semdiff/semmerge)")
-    p_profile.add_argument("--daemon", action="store_true")
-    p_profile.add_argument("--seconds", type=float, default=1.0)
-    p_profile.add_argument("--out", default=None)
-    p_profile.add_argument("--socket", default=None)
-    p_profile.add_argument("--json", action="store_true")
-    p_perf = sub.add_parser(
-        "perf", help="Refused (exit 70): the perf-regression sentinel over bench "
-                     "records is not ported")
-    p_perf.add_argument("perf_command", choices=("record", "compare"))
-    p_perf.add_argument("rest", nargs=argparse.REMAINDER)
     p_top = sub.add_parser(
-        "top", help="Refused (exit 70): the live fleet dashboard is not ported "
-                    "(use stats --daemon)")
-    p_top.add_argument("--socket", default=None)
-    p_top.add_argument("--interval", type=float, default=2.0)
-    p_top.add_argument("--once", action="store_true")
+        "top",
+        help="Live one-screen dashboard of the merge service daemon: QPS, "
+             "windowed p50/p99, queue depth, breaker states, residency hit "
+             "rate, mesh occupancy — polled from the daemon status "
+             "(keys: q quit, p pause)")
+    p_top.add_argument("--socket", default=None,
+                       help="Daemon socket (default: the serve socket "
+                            "resolution chain)")
+    p_top.add_argument("--interval", type=float, default=2.0,
+                       help="Poll interval seconds (default 2.0)")
+    p_top.add_argument("--once", action="store_true",
+                       help="Print a single frame and exit (scripts/CI; "
+                            "also the non-TTY behavior)")
+    p_top.add_argument("--json", action="store_true",
+                       help="With --once: emit the frame's source data "
+                            "as JSON instead of the rendering")
+
+    p_profile = sub.add_parser(
+        "profile",
+        help="Capture a bounded torch.profiler trace + metrics delta from "
+             "a RUNNING merge service daemon")
+    p_profile.add_argument("--daemon", action="store_true", required=True,
+                           help="Required: captures come from the live "
+                                "daemon (one-shot runs use --profile DIR "
+                                "on the merge verbs instead)")
+    p_profile.add_argument("--seconds", type=float, default=1.0,
+                           help="Capture window length (clamped to "
+                                "[0.1, 60]; default 1.0)")
+    p_profile.add_argument("--out", default=None,
+                           help="Bundle parent directory (default: "
+                                "SEMMERGE_PROFILE_DIR, else a "
+                                "semmerge-profiles dir under the system "
+                                "temp dir)")
+    p_profile.add_argument("--socket", default=None,
+                           help="Daemon socket path (default: the serve "
+                                "socket resolution chain)")
+    p_profile.add_argument("--json", action="store_true",
+                           help="Emit the capture result as JSON")
+
+    p_perf = sub.add_parser(
+        "perf",
+        help="Perf-regression sentinel: record bench snapshots into a "
+             "baseline and compare new runs against it")
+    perf_sub = p_perf.add_subparsers(dest="perf_command", required=True)
+    p_rec = perf_sub.add_parser(
+        "record", help="Normalize bench JSON snapshots (or a live "
+                       "daemon latency window) into the baseline")
+    p_rec.add_argument("snapshots", nargs="*",
+                       help="BENCH_*.json files to record (key = file "
+                            "stem minus the BENCH_ prefix)")
+    p_rec.add_argument("--baseline", default=None,
+                       help="Baseline path (default ./PERF_BASELINE.json)")
+    p_rec.add_argument("--key", default=None,
+                       help="Override the baseline key (single snapshot "
+                            "or --daemon only)")
+    p_rec.add_argument("--daemon", action="store_true",
+                       help="Record the live daemon's request-latency "
+                            "window instead of files (key 'daemon')")
+    p_rec.add_argument("--socket", default=None)
+    p_cmp = perf_sub.add_parser(
+        "compare", help="Compare snapshots against the baseline; exit 1 "
+                        "on regression")
+    p_cmp.add_argument("snapshots", nargs="*",
+                       help="BENCH_*.json files to compare")
+    p_cmp.add_argument("--baseline", default=None,
+                       help="Baseline path (default ./PERF_BASELINE.json)")
+    p_cmp.add_argument("--tolerance-pct", type=float, default=None,
+                       help="Headline-value tolerance (default 10)")
+    p_cmp.add_argument("--phase-tolerance-pct", type=float, default=None,
+                       help="Per-phase wall tolerance (default 25)")
+    p_cmp.add_argument("--daemon", action="store_true",
+                       help="Compare the live daemon's latency window "
+                            "against its recorded baseline entry")
+    p_cmp.add_argument("--socket", default=None)
+    p_cmp.add_argument("--json", action="store_true",
+                       help="Emit findings as JSON")
 
 
 def _refuse(what: str) -> None:
     raise UnsupportedSetting(f"{what}: not implemented by this port (it needs the "
-                             "fleet, the daemon's profile capture or the bench "
-                             "records); use python -m semantic_merge_tpu",
+                             "fleet); use python -m semantic_merge_tpu",
                              stage="config")
 
 
 def run(args: argparse.Namespace) -> int:
-    """Run one of the artifact commands for parsed ``args``."""
-    if args.command in ("profile", "perf", "top"):
-        _refuse(args.command)
+    """Run one of the artifact or live-service commands for parsed
+    ``args``."""
+    if str(getattr(args, "socket", None) or "").startswith("tcp://"):
+        _refuse(f"{args.command} --socket tcp://")  # a fleet member's transport
+    if args.command == "profile":
+        return cmd_profile(args)
+    if args.command == "perf":
+        return cmd_perf(args)
+    if args.command == "top":
+        return cmd_top(args)
     if args.command == "stats":
         if args.fleet:
             _refuse("stats --fleet")
@@ -552,44 +622,6 @@ def _artifact_phases(path: pathlib.Path) -> tuple[dict | None, str]:
 
 
 def cmd_trace_diff(args: argparse.Namespace) -> int:
-    """Phase-aligned diff of two artifacts — the manual-attribution
-    twin of the anomaly auto-triage bundle (same diff rows, same
-    suspect_phase semantics, via :func:`obs.anomaly.phase_diff`)."""
-    from .obs import anomaly as obs_anomaly
-    path_a, path_b = pathlib.Path(args.a), pathlib.Path(args.b)
-    for path in (path_a, path_b):
-        if not path.is_file():
-            print(f"error: no artifact at {path}", file=sys.stderr)
-            return 1
-    a_phases, a_id = _artifact_phases(path_a)
-    b_phases, b_id = _artifact_phases(path_b)
-    if a_phases is None or b_phases is None:
-        bad = path_a if a_phases is None else path_b
-        print(f"error: {bad} is not a span-shaped trace artifact",
-              file=sys.stderr)
-        return 1
-    diff = obs_anomaly.phase_diff(a_phases, b_phases)
-    result = {"a": {"artifact": str(path_a), "trace_id": a_id},
-              "b": {"artifact": str(path_b), "trace_id": b_id},
-              "suspect_phase": diff["suspect_phase"],
-              "phases": diff["phases"]}
-    if args.json:
-        print(json.dumps(result, indent=2))
-        return 0
-    print(f"trace diff  A={a_id}  B={b_id}")
-    print(f"{'phase':<24} {'A ms':>10} {'B ms':>10} {'delta':>10} "
-          f"{'ratio':>7}")
-    for row in diff["phases"]:
-        ratio = f"{row['ratio']:.2f}x" if row["ratio"] is not None else "-"
-        print(f"{row['phase']:<24} {row['a_ms']:>10.1f} "
-              f"{row['b_ms']:>10.1f} {row['delta_ms']:>+10.1f} "
-              f"{ratio:>7}")
-    if diff["suspect_phase"]:
-        print(f"suspect phase: {diff['suspect_phase']}")
-    return 0
-
-
-def cmd_trace_diff(args: argparse.Namespace) -> int:
     """Phase-aligned diff of two artifacts (same diff rows and
     suspect_phase semantics as the JAX CLI, via
     :func:`obs.anomaly.phase_diff`)."""
@@ -624,3 +656,269 @@ def cmd_trace_diff(args: argparse.Namespace) -> int:
     if diff["suspect_phase"]:
         print(f"suspect phase: {diff['suspect_phase']}")
     return 0
+
+
+def cmd_profile(args: argparse.Namespace) -> int:
+    """On-demand profile capture from the live daemon (the ``profile``
+    wire verb). The daemon holds a single-capture lock; a concurrent
+    capture answers ``ok=False`` without disturbing the running one."""
+    from ..service import client as service_client
+    try:
+        result = service_client.capture_profile(
+            args.seconds, out_dir=args.out, path=args.socket)
+    except service_client.DaemonUnavailable as exc:
+        print(f"error: no merge service daemon reachable ({exc})",
+              file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(result, indent=2, default=str))
+        return 0 if result.get("ok") else 1
+    if not result.get("ok"):
+        print(f"error: profile capture failed: "
+              f"{result.get('error', 'unknown')}", file=sys.stderr)
+        return 1
+    print(f"profile bundle: {result.get('dir')}")
+    print(f"  window: {result.get('seconds', 0.0):g}s  "
+          f"profiler_started={result.get('profiler_started')}")
+    for name in result.get("files", ()):
+        print(f"  {name}")
+    return 0
+
+
+def cmd_perf(args: argparse.Namespace) -> int:
+    """Perf-regression sentinel (``perf record|compare``): thin CLI over
+    :mod:`semantic_merge_tpu_torch.obs.perf`."""
+    from . import perf as obs_perf
+    from ..utils import workdir
+    baseline_path = pathlib.Path(args.baseline) if args.baseline \
+        else workdir.root() / obs_perf.BASELINE_NAME
+
+    def _daemon_entry() -> dict | None:
+        from ..service import client as service_client
+        try:
+            status = service_client.call_control("status",
+                                                 path=args.socket)
+        except service_client.DaemonUnavailable as exc:
+            print(f"error: no merge service daemon reachable ({exc})",
+                  file=sys.stderr)
+            return None
+        return obs_perf.daemon_entry(status)
+
+    def _load_entries() -> dict | None:
+        entries: dict = {}
+        if args.daemon:
+            entry = _daemon_entry()
+            if entry is None:
+                return None
+            entries[getattr(args, "key", None) or "daemon"] = entry
+        for raw in args.snapshots:
+            path = pathlib.Path(raw)
+            try:
+                record = json.loads(path.read_text(encoding="utf-8"))
+            except (OSError, ValueError) as exc:
+                print(f"error: cannot read snapshot {path}: {exc}",
+                      file=sys.stderr)
+                return None
+            key = args.key if getattr(args, "key", None) \
+                and len(args.snapshots) == 1 and not args.daemon \
+                else obs_perf.record_key(path)
+            entries[key] = obs_perf.normalize_record(record,
+                                                     source=str(path))
+        if not entries:
+            print("error: nothing to process (pass snapshot files or "
+                  "--daemon)", file=sys.stderr)
+            return None
+        return entries
+
+    if args.perf_command == "record":
+        entries = _load_entries()
+        if entries is None:
+            return 2
+        existing: dict = {}
+        if baseline_path.is_file():
+            try:
+                existing = obs_perf.load_baseline(baseline_path)["entries"]
+            except (OSError, ValueError) as exc:
+                print(f"error: unreadable baseline {baseline_path}: {exc}",
+                      file=sys.stderr)
+                return 2
+        existing.update(entries)
+        obs_perf.save_baseline(baseline_path, existing)
+        print(f"recorded {len(entries)} entr"
+              f"{'y' if len(entries) == 1 else 'ies'} into "
+              f"{baseline_path}: {', '.join(sorted(entries))}")
+        return 0
+
+    # compare
+    if not baseline_path.is_file():
+        print(f"error: no baseline at {baseline_path} (record one with "
+              f"'semmerge perf record')", file=sys.stderr)
+        return 2
+    try:
+        baseline = obs_perf.load_baseline(baseline_path)
+    except (OSError, ValueError) as exc:
+        print(f"error: unreadable baseline {baseline_path}: {exc}",
+              file=sys.stderr)
+        return 2
+    entries = _load_entries()
+    if entries is None:
+        return 2
+    tol = args.tolerance_pct if args.tolerance_pct is not None \
+        else obs_perf.DEFAULT_TOLERANCE_PCT
+    ptol = args.phase_tolerance_pct \
+        if args.phase_tolerance_pct is not None \
+        else obs_perf.DEFAULT_PHASE_TOLERANCE_PCT
+    ok, findings = obs_perf.compare_many(
+        entries, baseline, tolerance_pct=tol, phase_tolerance_pct=ptol)
+    if getattr(args, "json", False):
+        print(json.dumps({"ok": ok, "findings": findings}, indent=2))
+    else:
+        print(f"perf compare vs {baseline_path}: "
+              f"{'OK' if ok else 'REGRESSION'}")
+        print(obs_perf.format_findings(findings))
+    return 0 if ok else 1
+
+
+def _top_fetch(socket_path: str | None) -> dict:
+    """One poll of the dashboard's data: the daemon's status, plus the
+    member statuses when the status says ``fleet`` (a port daemon never
+    does; the renderer takes both shapes as data)."""
+    from ..service.client import call_control
+    status = call_control("status", path=socket_path)
+    members = None
+    if status.get("fleet"):
+        try:
+            members = call_control("member_status",
+                                   path=socket_path).get("members")
+        except Exception:
+            members = None
+    return {"status": status, "members": members}
+
+
+def _render_top_frame(snap: dict) -> str:
+    """One dashboard screen from a :func:`_top_fetch` snapshot (the JAX
+    CLI's frame, character for character)."""
+    status = snap["status"]
+    lines: List[str] = []
+    fleet = bool(status.get("fleet"))
+    window = status.get("window") or {}
+    w1s, w1m = window.get("1s") or {}, window.get("1m") or {}
+    head = "fleet router" if fleet else "merge daemon"
+    lines.append(
+        f"semmerge top — {head} pid {status.get('pid')}  "
+        f"uptime {status.get('uptime_s', 0):.0f}s  "
+        f"socket {status.get('socket')}")
+    lines.append(
+        f"  qps {w1s.get('qps', 0):>7.1f}/s (1s) {w1m.get('qps', 0):>7.2f}/s (1m)   "
+        f"p50 {w1m.get('p50_ms', 0):>8.1f} ms   "
+        f"p99 {w1m.get('p99_ms', 0):>8.1f} ms   "
+        f"err {w1m.get('error_rate', 0):>6.2%}")
+    res = status.get("resilience") or {}
+    breakers = res.get("breakers") or {}
+    tripped = sorted(n for n, s in breakers.items() if s != "closed")
+    lines.append(
+        f"  queue {status.get('queue_depth', 0):>3}  "
+        f"in-flight {status.get('in_flight', 0):>3}  "
+        f"served {status.get('served_total', 0):>6}  "
+        f"pressure {res.get('pressure', '-')}  "
+        f"breakers {('OPEN:' + ','.join(tripped)) if tripped else 'closed'}")
+    residency = status.get("residency") or {}
+    r_hit = (f"{residency.get('hit_rate', 0.0):.1%}"
+             if residency.get("lookups") else "-")
+    batch = status.get("batch") or {}
+    mesh = batch.get("mesh") or {}
+    mesh_occ = mesh.get("last_rows_per_chip")
+    sampling = status.get("sampling") or {}
+    store = status.get("trace_store") or {}
+    lines.append(
+        f"  residency hit {r_hit}  "
+        f"mesh occupancy {mesh_occ if mesh_occ is not None else '-'}  "
+        f"sampling {'on' if sampling.get('enabled') else 'keep-all'}  "
+        f"trace store {store.get('count', '-')} files"
+        + (f" ({store.get('bytes', 0) / 1048576.0:.1f}/"
+           f"{store.get('budget_bytes', 0) / 1048576.0:.0f} MB)"
+           if store else ""))
+    anomaly = status.get("anomaly") or {}
+    if anomaly.get("latched"):
+        lines.append(f"  ANOMALY latched: {', '.join(anomaly['latched'])}"
+                     f"  (bundles fired: {anomaly.get('fired', 0)})")
+    slo = status.get("slo")
+    if isinstance(slo, dict):
+        lines.append(f"  slo {'HEALTHY' if slo.get('healthy', True) else 'BURNING'}")
+    members = snap.get("members")
+    if fleet:
+        lines.append("")
+        lines.append(f"  {'member':<8} {'state':<10} {'qps(1m)':>8} "
+                     f"{'p99 ms':>8} {'queue':>6} {'in-fl':>6} "
+                     f"{'served':>7}")
+        rows = status.get("members") or []
+        by_id = {}
+        if isinstance(members, dict):
+            by_id = {mid: m for mid, m in members.items()
+                     if isinstance(m, dict)}
+        for view in rows:
+            if not isinstance(view, dict):
+                continue
+            mid = str(view.get("id") or "?")
+            mstat = by_id.get(mid) or {}
+            mwin = (mstat.get("window") or {}).get("1m") or {}
+            lines.append(
+                f"  {mid:<8} {str(view.get('state', '?')):<10} "
+                f"{mwin.get('qps', 0):>8.2f} "
+                f"{mwin.get('p99_ms', 0):>8.1f} "
+                f"{mstat.get('queue_depth', 0):>6} "
+                f"{mstat.get('in_flight', 0):>6} "
+                f"{mstat.get('served_total', 0):>7}")
+    return "\n".join(lines)
+
+
+def cmd_top(args: argparse.Namespace) -> int:
+    """Live one-screen dashboard. Interactive on a TTY (q quits,
+    p pauses); ``--once`` (or a non-TTY stdout) prints one frame and
+    exits, so scripts and tests get a stable surface."""
+    from ..service.client import DaemonUnavailable
+    interactive = (not args.once and sys.stdout.isatty()
+                   and sys.stdin.isatty())
+    try:
+        snap = _top_fetch(args.socket)
+    except DaemonUnavailable as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    if not interactive:
+        if args.json:
+            print(json.dumps(snap, indent=2, default=str))
+        else:
+            print(_render_top_frame(snap))
+        return 0
+    import os
+    import select
+    import termios
+    import tty
+    fd = sys.stdin.fileno()
+    old_attrs = termios.tcgetattr(fd)
+    paused = False
+    try:
+        tty.setcbreak(fd)
+        while True:
+            if not paused:
+                try:
+                    snap = _top_fetch(args.socket)
+                    frame = _render_top_frame(snap)
+                except DaemonUnavailable as exc:
+                    frame = f"daemon unreachable: {exc}"
+                sys.stdout.write("\x1b[2J\x1b[H" + frame
+                                 + "\n\n  q quit · p pause\n")
+                sys.stdout.flush()
+            ready, _, _ = select.select([fd], [], [],
+                                        max(0.2, args.interval))
+            if ready:
+                key = os.read(fd, 1).decode("utf-8", "replace").lower()
+                if key == "q":
+                    return 0
+                if key == "p":
+                    paused = not paused
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        termios.tcsetattr(fd, termios.TCSADRAIN, old_attrs)
+        sys.stdout.write("\n")

@@ -29,11 +29,26 @@ With ``profile_dir`` set the run is captured by ``torch.profiler``: CPU
 and CUDA activities on the card, CPU only under ``--device cpu``. Every
 phase is a ``semmerge/<phase>`` range (``record_function``), so the
 kernels line up with the engine phases. A profiler session is an object
-here, not the process-global session of the JAX profiler, but a session
-that was started and never stopped still blocks the next start:
-:func:`start_profiler_session` stops it and retries once, and every
-failure counts in ``profiler_capture_failures_total{reason}``.
-:meth:`Tracer.close` stops and exports the capture on every exit path.
+here, not the process-global session of the JAX profiler, but the
+Kineto/CUPTI state under it is per process: one session at a time. A
+second session started while one runs cancels the first, whose stop
+then crashes the process, so :func:`start_profiler_session` never
+starts one beside a live session: while the thread that started the
+open session is alive and is not the caller, the start is refused
+(``None``, counted with reason ``busy``). The caller that comes second
+loses: a merge service request with ``--profile`` during a daemon
+capture runs unprofiled (its bytes unchanged), and a daemon capture
+during such a request reports ``profiler_started: false``. A session
+whose starter has ended, or that the caller itself left open (an
+aborted capture in a warm process), is stale: the start stops it
+first, and after a failed start stops whatever profiler is on and
+retries once. Every failure counts in
+``profiler_capture_failures_total{reason}``. :meth:`Tracer.close` stops
+and exports the capture on every exit path.
+
+``torch.profiler`` records the CPU ranges (``record_function``) of the
+thread that started the session only, and the CUDA activity (CUPTI)
+of every thread in the process.
 """
 from __future__ import annotations
 
@@ -42,6 +57,7 @@ import json
 import os
 import pathlib
 import socket
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
@@ -56,8 +72,12 @@ TRACE_SCHEMA_VERSION = 1
 #: — a capture that silently goes dark is an observability bug in itself.
 PROFILER_FAILURES = "profiler_capture_failures_total"
 
-#: The profiler session this process started last and has not stopped.
+#: The profiler session this process started last and has not stopped,
+#: and the thread that started it.
 _open_session = None
+_open_owner: threading.Thread | None = None
+#: Held while a session starts or stops: two starts never race.
+_session_lock = threading.Lock()
 
 
 def _failures():
@@ -65,58 +85,78 @@ def _failures():
         PROFILER_FAILURES, "Profiler session start/stop failures, by reason")
 
 
+def _live_elsewhere() -> bool:
+    """Is the open session held by another thread that still runs?"""
+    owner = _open_owner
+    return (_open_session is not None and owner is not None
+            and owner is not threading.current_thread() and owner.is_alive())
+
+
 def start_profiler_session(cuda: bool):
     """Start a ``torch.profiler`` session (CPU activity, plus CUDA when
     ``cuda``) and return it, or ``None`` when it cannot start.
 
-    A session some earlier run started and never stopped (an aborted
-    capture in a warm process) makes the next start raise: on failure
-    the stale session is stopped and the start retried **once**; every
-    failure counts in ``profiler_capture_failures_total{reason}`` so a
-    dark profiler is at least visible in metrics."""
-    global _open_session
+    While another live thread holds the open session the start is
+    refused (reason ``busy``; see the module docstring). A stale session
+    (its starter ended, or the caller left it open) is stopped first; a
+    start that fails stops whatever profiler is on and is retried
+    **once**; every failure counts in
+    ``profiler_capture_failures_total{reason}`` so a dark profiler is at
+    least visible in metrics."""
+    global _open_session, _open_owner
     try:
         from torch.profiler import ProfilerActivity, profile
     except Exception:
         _failures().inc(1, reason="torch-import")
         return None
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    for attempt in ("start", "start-retry"):
-        prof = profile(activities=activities)
-        try:
-            prof.start()
-            _open_session = prof
-            return prof
-        except Exception:
-            _failures().inc(1, reason=attempt)
-        if attempt == "start":
-            # Recovery: a stale session from an aborted capture is the
-            # common cause — close it and retry once.
+    with _session_lock:
+        if _live_elsewhere():
+            _failures().inc(1, reason="busy")
+            return None
+        if _open_session is not None:
+            _stop_stale()  # never start beside it: that would cancel it
+        for attempt in ("start", "start-retry"):
+            prof = profile(activities=activities)
             try:
-                stale = _open_session
-                _open_session = None
-                if stale is not None:
-                    stale.stop()
-                else:
-                    import torch
-                    torch.autograd._disable_profiler()
+                prof.start()
+                _open_session, _open_owner = prof, threading.current_thread()
+                return prof
             except Exception:
-                _failures().inc(1, reason="recovery-stop")
+                _failures().inc(1, reason=attempt)
+            if attempt == "start":
+                _stop_stale()
     return None
+
+
+def _stop_stale() -> None:
+    """Stop the stale open session, or a profiler some other code left
+    enabled, so that the next start can succeed."""
+    global _open_session, _open_owner
+    stale, _open_session, _open_owner = _open_session, None, None
+    try:
+        if stale is not None:
+            stale.stop()
+        else:
+            import torch
+            torch.autograd._disable_profiler()
+    except Exception:
+        _failures().inc(1, reason="recovery-stop")
 
 
 def stop_profiler_session(prof, profile_dir: str) -> bool:
     """Stop ``prof`` and write its Chrome trace into ``profile_dir``;
     returns whether it did (never raises)."""
-    global _open_session
-    try:
-        prof.stop()
-    except Exception:
-        _failures().inc(1, reason="stop")
-        return False
-    finally:
-        if _open_session is prof:
-            _open_session = None
+    global _open_session, _open_owner
+    with _session_lock:
+        try:
+            prof.stop()
+        except Exception:
+            _failures().inc(1, reason="stop")
+            return False
+        finally:
+            if _open_session is prof:
+                _open_session = _open_owner = None
     try:
         out = pathlib.Path(profile_dir)
         out.mkdir(parents=True, exist_ok=True)

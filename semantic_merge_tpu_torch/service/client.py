@@ -385,6 +385,20 @@ def call_control(method: str, params: Optional[dict] = None,
         _close(sock, rfile, wfile)
 
 
+def capture_profile(seconds: float, out_dir: Optional[str] = None,
+                    path: Optional[str] = None) -> dict:
+    """Ask a RUNNING daemon for an on-demand profile capture. The
+    daemon blocks the control connection for the capture window, so
+    the transport timeout trails ``seconds`` by a wide margin. Returns
+    the capture result dict (``ok``/``dir``/``files`` or
+    ``ok=False``/``error``)."""
+    params: Dict[str, Any] = {"seconds": float(seconds)}
+    if out_dir:
+        params["out_dir"] = str(out_dir)
+    return call_control("profile", params=params, path=path,
+                        timeout=float(seconds) + 30.0)
+
+
 def call_verb(verb: str, params: dict, path: Optional[str] = None,
               timeout: Optional[float] = None) -> dict:
     """Raw verb request against a RUNNING daemon, returning the full

@@ -40,14 +40,42 @@ exit 0 immediately, a daemon of another package makes it exit 12. An
 idle daemon exits after ``SEMMERGE_SERVICE_IDLE_EXIT`` seconds; idle
 per-repo state is reaped after ``SEMMERGE_SERVICE_TTL``.
 
-Not ported (the CLI refuses them with exit 70): the fleet membership
-(``tcp://`` sockets, ``--join``), the ``profile`` capture and the OTLP
-export.
+Live tools, as in the JAX daemon:
+
+- **OTLP export**: with ``SEMMERGE_OTLP_ENDPOINT`` set, each served
+  request's trace (its span rows, under its ``trace_id``) is shipped
+  through :func:`~semantic_merge_tpu_torch.obs.export.maybe_exporter`
+  after its telemetry is finished; a dead collector only counts in
+  ``otlp_errors_total``, never in the request's answer. Every port
+  daemon is standalone (there is no fleet member).
+- **Profile capture** (the ``profile`` control method, ``profile
+  --daemon``): a bounded ``torch.profiler`` window (0.1-60 s) over
+  whatever the daemon serves meanwhile, with CUDA activity when the
+  daemon runs on the card, written as a bundle directory
+  ``profile-<stamp>-<pid>-<hex>`` holding the profiler's Chrome trace
+  and ``bundle.json`` (the metrics before and after, the flight ring,
+  the SLO verdict). One capture at a time: a second answers ``busy``.
+  The session is started on the connection thread, so the trace holds
+  the CUDA kernels and CUDA runtime calls of every thread, but no CPU
+  op or range of the executor threads that run the requests
+  (``torch.profiler`` records CPU activity on the starting thread only;
+  ``chip_smoke.py`` prints both from the card). A request that carries ``--profile DIR`` during a
+  capture runs unprofiled, and a capture during such a request
+  reports ``profiler_started: false`` (one session per process;
+  :mod:`semantic_merge_tpu_torch.runtime.trace`). With
+  ``SEMMERGE_SLO_AUTOPROFILE`` on, the first SLO trip of the daemon's
+  life starts one capture.
+
+The daemon keeps normal GC cadence (``SEMMERGE_GC_TUNE=0``,
+:mod:`semantic_merge_tpu_torch.utils.gctune`). Not ported (the CLI
+refuses them with exit 70): the fleet membership (``tcp://`` sockets,
+``--join``).
 """
 from __future__ import annotations
 
 import contextlib
 import io
+import json
 import os
 import pathlib
 import queue
@@ -62,6 +90,7 @@ from typing import Any, Dict, Optional
 from ..errors import DeadlineFault, MergeFault, WorkerFault, fault_boundary
 from ..obs import agg as obs_agg
 from ..obs import anomaly as obs_anomaly
+from ..obs import export as obs_export
 from ..obs import metrics as obs_metrics
 from ..obs import sampling as obs_sampling
 from ..obs import slo as obs_slo
@@ -265,6 +294,10 @@ class Daemon:
         self._sampler = obs_sampling.SamplingPolicy(minted_by="daemon")
         self._anomaly = obs_anomaly.AnomalyTriage()
         self._trace_store = obs_sampling.TraceStore.from_env()
+        # One profile capture at a time (``profile`` wire verb, SLO
+        # autoprofile); the autoprofile fires once per daemon life.
+        self._profile_lock = threading.Lock()
+        self._autoprofiled = False
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -320,10 +353,13 @@ class Daemon:
         return 0
 
     def _configure_process_env(self) -> None:
-        """The daemon's own process posture: never self-delegate; the
+        """The daemon's own process posture: never self-delegate, keep
+        normal GC cadence (``utils/gctune``: freezing per-request
+        garbage into the permanent generation would leak it); the
         breakers and warm residency read ``_SEMMERGE_IN_DAEMON``."""
         os.environ["_SEMMERGE_IN_DAEMON"] = "1"
         os.environ["SEMMERGE_DAEMON"] = "off"
+        os.environ["SEMMERGE_GC_TUNE"] = "0"
 
     def _bind(self):
         """The listening socket; ``None`` when a live port daemon owns
@@ -501,6 +537,15 @@ class Daemon:
                             "metrics": obs_metrics.REGISTRY.to_dict(),
                             "health": self.status(),
                         }})
+                    continue
+                if method == "profile":
+                    # Blocks this connection thread for the capture
+                    # window; merge traffic keeps flowing through the
+                    # executor pool meanwhile — that traffic is what
+                    # the capture is *of*.
+                    protocol.write_message(wfile, {
+                        "id": req_id,
+                        "result": self._capture_profile(params)})
                     continue
                 if method == "shutdown":
                     protocol.write_message(wfile,
@@ -766,6 +811,16 @@ class Daemon:
                     # so the events artifact still covers everything.
                     self._recorder.absorb(req.recorder,
                                           trace_id=req.trace_id)
+                # Every port daemon is standalone: export this request's
+                # trace directly. Export never reaches the request: a
+                # dead collector only counts in otlp_errors_total.
+                try:
+                    exporter = obs_export.maybe_exporter()
+                    if exporter is not None:
+                        exporter.export_trace(req.trace_id,
+                                              req.recorder.span_dicts())
+                except Exception:
+                    logger.debug("OTLP export error", exc_info=True)
 
     def _run_cli(self, req: _Request):
         """The actual CLI invocation: ``service.execute`` span, request
@@ -908,12 +963,16 @@ class Daemon:
         """Evaluate the SLO engine on a fixed cadence
         (``SEMMERGE_SLO_EVAL_INTERVAL``), publishing the burn-rate
         gauges. On the edge of a trip (both windows at/above the
-        threshold): log it and dump an ``slo-burn`` postmortem bundle
-        with the verdict attached. (The JAX daemon's
-        ``SEMMERGE_SLO_AUTOPROFILE`` capture comes with ``profile``,
-        which the port does not have.)"""
+        threshold): log it, dump an ``slo-burn`` postmortem bundle with
+        the verdict attached, and — with ``SEMMERGE_SLO_AUTOPROFILE``
+        set — capture one profile bundle for the first trip of the
+        daemon's life (one, not per trip: a burning daemon must spend
+        its cycles serving, not profiling)."""
         interval = max(0.1, obs_slo._env_float(
             obs_slo.ENV_EVAL_INTERVAL, obs_slo.DEFAULT_EVAL_INTERVAL))
+        autoprofile = os.environ.get(
+            obs_slo.ENV_AUTOPROFILE, "").strip().lower() \
+            not in ("", "0", "off", "false")
         while not self._stop.wait(interval):
             try:
                 verdict = self._slo.evaluate(consume_edges=True)
@@ -929,6 +988,87 @@ class Daemon:
             obs_flight.dump(None, "slo-burn",
                             breakers=resilience.breakers().snapshot(),
                             extra={"slo": verdict})
+            if autoprofile and not self._autoprofiled:
+                self._autoprofiled = True
+                threading.Thread(
+                    target=self._capture_profile,
+                    args=({"seconds": 1.0},),
+                    name="svc-autoprofile", daemon=True).start()
+
+    def _capture_profile(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """On-demand profile capture from the live daemon: a bounded
+        ``torch.profiler`` window over whatever traffic flows during it
+        (CUDA activity too when the daemon runs on the card), plus a
+        metrics before/after delta, the flight-ring span sample, and
+        the SLO verdict, written into a timestamped bundle directory.
+        Serialized by ``_profile_lock``; a session that cannot start
+        (another thread's ``--profile`` request holds the process's
+        one session) gives a bundle with ``profiler_started: false``,
+        counted in ``profiler_capture_failures_total``. Every failure is
+        an answer, never a dropped connection."""
+        try:
+            seconds = float(params.get("seconds") or 1.0)
+        except (TypeError, ValueError):
+            seconds = 1.0
+        seconds = min(60.0, max(0.1, seconds))
+        out_base = str(params.get("out_dir") or "").strip() \
+            or os.environ.get("SEMMERGE_PROFILE_DIR", "").strip()
+        if not out_base:
+            import tempfile
+            out_base = os.path.join(tempfile.gettempdir(),
+                                    "semmerge-profiles")
+        captures = obs_metrics.REGISTRY.counter(
+            "profile_captures_total",
+            "On-demand daemon profile captures, by result")
+        if not self._profile_lock.acquire(blocking=False):
+            captures.inc(1, result="busy")
+            return {"ok": False,
+                    "error": "a profile capture is already in progress"}
+        try:
+            from ..runtime import trace as rt_trace
+            stamp = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+            bundle_dir = pathlib.Path(out_base) / (
+                f"profile-{stamp}-{os.getpid()}-{os.urandom(2).hex()}")
+            bundle_dir.mkdir(parents=True, exist_ok=True)
+            before = obs_metrics.REGISTRY.to_dict()
+            t0 = time.time()
+            session = rt_trace.start_profiler_session(
+                cuda=self._device.type == "cuda")
+            started = session is not None
+            # The capture window: sample whatever the daemon serves
+            # meanwhile (interruptible so shutdown never waits on it).
+            self._stop.wait(seconds)
+            if started:
+                rt_trace.stop_profiler_session(session, str(bundle_dir))
+            bundle = {
+                "schema": 1,
+                "ok": True,
+                "profiler_started": started,
+                "seconds": seconds,
+                "t_start": round(t0, 3),
+                "t_end": round(time.time(), 3),
+                "pid": os.getpid(),
+                "metrics_before": before,
+                "metrics_after": obs_metrics.REGISTRY.to_dict(),
+                "spans": obs_flight.snapshot(),
+                "slo": (self._slo.status()
+                        if self._slo is not None else None),
+            }
+            (bundle_dir / "bundle.json").write_text(
+                json.dumps(bundle, indent=2, default=str),
+                encoding="utf-8")
+            files = sorted(str(p.relative_to(bundle_dir))
+                           for p in bundle_dir.rglob("*") if p.is_file())
+            captures.inc(1, result="ok")
+            return {"ok": True, "dir": str(bundle_dir),
+                    "profiler_started": started, "seconds": seconds,
+                    "files": files}
+        except Exception as exc:  # capture failure must not kill the conn
+            captures.inc(1, result="error")
+            return {"ok": False,
+                    "error": f"{type(exc).__name__}: {exc}"}
+        finally:
+            self._profile_lock.release()
 
     def _reaper(self) -> None:
         """Evict per-repo state idle past the TTL."""

@@ -20,7 +20,10 @@ bundle (``.semmerge-postmortem/<trace_id>.json``).
 Verb methods are the three merge-shaped CLI commands; control methods
 are ``hello`` (startup/liveness handshake carrying the protocol
 version), ``status``, ``metrics`` (live registry: Prometheus text +
-health JSON) and ``shutdown``.
+health JSON), ``drain``, ``profile`` (params ``seconds``, optional
+``out_dir``: a bounded profiler capture, answered when the window ends
+with ``ok``, ``dir``, ``profiler_started``, ``seconds`` and ``files``,
+or ``ok: false`` and ``error``, ``busy`` included) and ``shutdown``.
 
 The port's daemon names its package (:data:`PACKAGE`) in its ``hello``
 and ``status`` replies, and its ``hello`` names the checkout it runs

@@ -23,13 +23,22 @@ copies of the same repositories. Stdout, exit code, work tree, notes and
   ``package`` and ``device``;
 - a JAX daemon on the socket is never used (``require`` exits 12,
   ``auto`` runs one-shot, ``serve`` exits 12);
-- the settings still refused exit 70, and ``serve`` without a card exits
-  11 before it binds.
+- the live tools: each served request's trace reaches an OTLP collector
+  (``SEMMERGE_OTLP_ENDPOINT``), ``profile --daemon`` captures (back to
+  back, ``busy`` while one runs, a bundle with the JAX daemon's bundle
+  keys, the SLO autoprofile once), a capture beside a ``--profile``
+  request leaves the request's bytes the one-shot bytes, ``top`` and
+  ``perf --daemon``;
+- the settings still refused exit 70, the forms ported since give the
+  JAX CLI's answer, and ``serve`` without a card exits 11 before it
+  binds.
 
 Every wait has a timeout; no daemon outlives its test module.
 """
 from __future__ import annotations
 
+import gc
+import http.server
 import json
 import os
 import pathlib
@@ -45,6 +54,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
+from semantic_merge_tpu import cli as jax_cli
 from semantic_merge_tpu.service import client as jax_client
 from semantic_merge_tpu_torch import cli
 from semantic_merge_tpu_torch.backends import ts_torch
@@ -186,11 +196,44 @@ def status(sock):
     return client.call_control("status", path=str(sock))
 
 
+class Collector:
+    """A loopback OTLP/HTTP collector on a thread: every POST's path and
+    JSON body; ``hold`` makes every POST wait on ``release``."""
+
+    def __init__(self, hold=False):
+        self.received, self.entered = [], threading.Event()
+        self.release = threading.Event()
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                outer.entered.set()
+                if hold:
+                    outer.release.wait(30)
+                outer.received.append((self.path, json.loads(body)))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.endpoint = f"http://127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.release.set()
+        self.server.shutdown()
+        self.server.server_close()
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """The repositories (a ``jax`` and a ``port`` copy of each), the JAX
-    CLI's one-shot results, a port daemon (with ``/metrics``) and a JAX
-    daemon, each on its own socket."""
+    CLI's one-shot results, a port daemon (with ``/metrics``, exporting
+    to ``world["collector"]``) and a JAX daemon, each on its own
+    socket."""
     work = tmp_path_factory.mktemp("svc")
     origins = {name: make_repo(work / f"origin-{name}", *trees)
                for name, trees in REPOS.items()}
@@ -199,9 +242,11 @@ def world(tmp_path_factory):
         for side in ("jax", "port", "lock"):
             roots[name, side] = work / f"{name}-{side}"
             shutil.copytree(origin, roots[name, side])
+    collector = Collector()
     world = {"work": work, "roots": roots, "sock": work / "port.sock",
-             "jax_sock": work / "jax.sock"}
-    daemons = [start_daemon(world["sock"], SEMMERGE_METRICS_PORT="0"),
+             "jax_sock": work / "jax.sock", "collector": collector}
+    daemons = [start_daemon(world["sock"], SEMMERGE_METRICS_PORT="0",
+                            SEMMERGE_OTLP_ENDPOINT=collector.endpoint),
                start_daemon(world["jax_sock"], package="semantic_merge_tpu")]
     try:
         def jax_chain(name):
@@ -221,6 +266,7 @@ def world(tmp_path_factory):
     finally:
         for proc in daemons:
             stop(proc)
+        collector.close()
 
 
 def _port_via_daemon(world, name):
@@ -299,6 +345,232 @@ def test_metrics_and_healthz(world, served):
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as resp:
         health = json.loads(resp.read())
     assert resp.status == 200 and health["ok"] and health["degraded"] is False
+
+
+# --- the live tools ---------------------------------------------------------------------
+
+def _counter(st, name, **labels):
+    series = st["metrics"]["counters"].get(name, {}).get("series", [])
+    return sum(x["value"] for x in series
+               if all(x["labels"].get(k) == v for k, v in labels.items()))
+
+
+def test_daemon_ships_one_trace_per_served_request(world, served):
+    """With ``SEMMERGE_OTLP_ENDPOINT`` every executed request's span tree
+    reaches the collector once, under its trace id (left-padded to 32
+    hex digits), and passes ``validate_export``."""
+    from test_torch_export import _schema
+    root = world["roots"]["rename", "lock"]
+    resp = client.call_verb("semdiff", {"argv": ["basebr", "brA", "--device", "cpu"],
+                                        "cwd": str(root), "env": {},
+                                        "trace_id": "00c0ffee00c0ffee"},
+                            path=str(world["sock"]), timeout=WAIT)
+    assert resp["result"]["exit_code"] == 0
+    t0 = time.monotonic()
+    while True:
+        st = status(world["sock"])
+        exported = _counter(st, "otlp_exported_total", kind="traces")
+        if exported >= st["served_total"] or time.monotonic() - t0 > WAIT:
+            break
+        time.sleep(0.1)
+    traces = [body for path, body in world["collector"].received if path == "/v1/traces"]
+    assert exported == st["served_total"] == len(traces) >= 5
+    assert _counter(st, "otlp_errors_total") == 0
+    schema, ids = _schema(), []
+    for body in traces:
+        assert schema.validate_export(body) == []
+        (scope,) = body["resourceSpans"][0]["scopeSpans"]
+        assert scope["scope"]["name"] == protocol.PACKAGE
+        (tid,) = {sp["traceId"] for sp in scope["spans"]}
+        ids.append(tid)
+    assert len(set(ids)) == len(ids) and "0" * 16 + "00c0ffee00c0ffee" in ids
+    names = {sp["name"] for body in traces
+             for sp in body["resourceSpans"][0]["scopeSpans"][0]["spans"]}
+    assert {"service.queue_wait", "service.execute"} <= names
+
+
+def _capture(world, out_dir, seconds=0.2):
+    return client.capture_profile(seconds, out_dir=str(out_dir), path=str(world["sock"]))
+
+
+def _bundle(result):
+    return json.loads((pathlib.Path(result["dir"]) / "bundle.json").read_text())
+
+
+def test_back_to_back_captures_each_give_a_bundle(world, tmp_path):
+    before = _counter(status(world["sock"]), "profile_captures_total", result="ok")
+    dirs = []
+    for _ in range(2):
+        result = _capture(world, tmp_path)
+        assert result["ok"] and result["profiler_started"] and result["seconds"] == 0.2
+        assert "bundle.json" in result["files"] and \
+            any(f.endswith(".pt.trace.json") for f in result["files"])
+        bundle = _bundle(result)
+        assert bundle["schema"] == 1 and bundle["metrics_after"]["counters"]
+        assert bundle["pid"] == status(world["sock"])["pid"]
+        dirs.append(pathlib.Path(result["dir"]).name)
+    assert len(set(dirs)) == 2 and all(d.startswith("profile-") for d in dirs)
+    after = _counter(status(world["sock"]), "profile_captures_total", result="ok")
+    assert after == before + 2
+
+
+def test_a_second_capture_answers_busy(world, tmp_path):
+    box = {}
+    thread = threading.Thread(target=lambda: box.update(r=_capture(world, tmp_path, 0.3)))
+    before = _counter(status(world["sock"]), "profile_captures_total", result="busy")
+    thread.start()
+    t0 = time.monotonic()
+    while not list(tmp_path.glob("profile-*")) and time.monotonic() - t0 < WAIT:
+        time.sleep(0.01)
+    t1 = time.monotonic()
+    busy = _capture(world, tmp_path / "second", 5.0)
+    assert time.monotonic() - t1 < 5.0  # answered at once, not after its window
+    thread.join(timeout=WAIT)
+    assert busy == {"ok": False, "error": "a profile capture is already in progress"}
+    assert box["r"]["ok"] and not (tmp_path / "second").exists()
+    assert _counter(status(world["sock"]), "profile_captures_total",
+                    result="busy") == before + 1
+
+
+def test_the_bundle_keys_equal_the_jax_daemons(world, tmp_path):
+    port = _bundle(_capture(world, tmp_path / "port"))
+    jax_result = jax_client.capture_profile(0.2, out_dir=str(tmp_path / "jax"),
+                                            path=str(world["jax_sock"]))
+    jax = json.loads((pathlib.Path(jax_result["dir"]) / "bundle.json").read_text())
+    assert set(port) == set(jax)
+    assert set(_capture(world, tmp_path / "again")) == set(jax_result)
+
+
+@pytest.mark.parametrize("as_json", [True, False], ids=["json", "text"])
+def test_profile_cli_against_the_daemon(world, tmp_path, capsys, as_json):
+    capsys.readouterr()
+    code = cli.main(["profile", "--daemon", "--seconds", "0.2", "--out", str(tmp_path),
+                     "--socket", str(world["sock"])] + (["--json"] if as_json else []))
+    out = capsys.readouterr().out
+    assert code == 0
+    (bundle_dir,) = tmp_path.glob("profile-*")
+    if as_json:
+        result = json.loads(out)
+        assert result["ok"] and result["dir"] == str(bundle_dir)
+    else:
+        lines = out.splitlines()
+        assert lines[0] == f"profile bundle: {bundle_dir}"
+        assert lines[1] == "  window: 0.2s  profiler_started=True"
+        assert "  bundle.json" in lines[2:]
+
+
+@pytest.mark.parametrize("first", ["capture", "request"])
+def test_a_capture_beside_a_profiled_request_keeps_its_bytes(world, tmp_path, first):
+    """The process holds one profiler session: whichever of a daemon
+    capture and a ``--profile DIR`` request comes second runs without
+    it (counted as ``busy``). The request's answer is the one-shot
+    bytes either way. ``request`` first is made certain by a 1 s hang
+    inside its scan, with the capture started 0.3 s into it."""
+    root, sock = world["roots"]["rename", "lock"], str(world["sock"])
+    env = {"SEMMERGE_FAULT": "scan:hang=1"} if first == "request" else {}
+    params = {"argv": ["basebr", "brA", "--json-out", "--device", "cpu", "--profile",
+                       str(tmp_path / "request")], "cwd": str(root), "env": env}
+    busy_before = _counter(status(sock), "profiler_capture_failures_total", reason="busy")
+    box = {}
+    request = threading.Thread(target=lambda: box.update(
+        resp=client.call_verb("semdiff", params, path=sock, timeout=WAIT)))
+    capture = threading.Thread(target=lambda: box.update(
+        cap=_capture(world, tmp_path / "capture", 0.3)))
+    t0 = time.monotonic()
+    if first == "capture":
+        capture.start()
+        while not list((tmp_path / "capture").glob("profile-*")) and \
+                time.monotonic() - t0 < WAIT:
+            time.sleep(0.005)
+        request.start()
+    else:
+        request.start()
+        while status(sock)["in_flight"] < 1 and time.monotonic() - t0 < WAIT:
+            time.sleep(0.01)
+        time.sleep(0.3)
+        capture.start()
+    for thread in (request, capture):
+        thread.join(timeout=WAIT)
+    result, cap = box["resp"]["result"], box["cap"]
+    assert (result["exit_code"], result["stdout"]) == world["jax"]["rename"][0][:2]
+    assert cap["ok"]
+    request_traced = bool(list((tmp_path / "request").glob("*.pt.trace.json")))
+    assert (tmp_path / "request" / "semmerge-trace.json").is_file()
+    busy = _counter(status(sock), "profiler_capture_failures_total", reason="busy") \
+        - busy_before
+    if first == "request":
+        assert request_traced and not cap["profiler_started"] and busy == 1
+    else:
+        # The capture held the session; the request lost it unless it
+        # only started after the window closed.
+        assert cap["profiler_started"] and busy == (0 if request_traced else 1)
+
+
+def test_slo_autoprofile_captures_once(world, tmp_path):
+    """``SEMMERGE_SLO_AUTOPROFILE``: the first SLO trip of the daemon's
+    life starts one capture into ``SEMMERGE_PROFILE_DIR``; later
+    evaluations of the burning objective start none."""
+    sock, profiles = tmp_path / "slo.sock", tmp_path / "profiles"
+    proc = start_daemon(sock, SEMMERGE_SLO="diff:p50<1ms", SEMMERGE_SLO_EVAL_INTERVAL="0.1",
+                        SEMMERGE_SLO_AUTOPROFILE="1", SEMMERGE_PROFILE_DIR=str(profiles),
+                        SEMMERGE_POSTMORTEM_DIR=str(tmp_path / "pm"))
+    try:
+        wait_for_hello(sock, proc)
+        root = world["roots"]["rename", "lock"]
+        for _ in range(2):
+            resp = client.call_verb("semdiff", {"argv": ["basebr", "brA", "--device", "cpu"],
+                                                "cwd": str(root), "env": {}},
+                                    path=str(sock), timeout=WAIT)
+            assert resp["result"]["exit_code"] == 0
+        t0 = time.monotonic()
+        while not list(profiles.glob("profile-*/bundle.json")) and \
+                time.monotonic() - t0 < WAIT:
+            time.sleep(0.1)
+        time.sleep(1.0)  # ten more evaluations of the burning objective
+        (bundle,) = profiles.glob("profile-*/bundle.json")
+        assert json.loads(bundle.read_text())["seconds"] == 1.0
+        st = status(sock)
+        assert st["slo"]["healthy"] is False
+        assert _counter(st, "profile_captures_total", result="ok") == 1
+    finally:
+        stop(proc)
+
+
+@pytest.mark.parametrize("tool", ["top-json", "top", "perf"])
+def test_top_and_perf_against_the_daemon(world, tmp_path, monkeypatch, capsys, tool):
+    monkeypatch.chdir(tmp_path)  # outside the checkout
+    sock = str(world["sock"])
+    capsys.readouterr()
+    if tool == "perf":
+        base = str(tmp_path / "base.json")
+        assert cli.main(["perf", "record", "--daemon", "--socket", sock, "--baseline",
+                         base]) == 0
+        assert capsys.readouterr().out == f"recorded 1 entry into {base}: daemon\n"
+        entry = json.loads(pathlib.Path(base).read_text())["entries"]["daemon"]
+        assert entry["source"] == "cumulative-histogram" and entry["unit"] == "ms"
+        assert cli.main(["perf", "compare", "--daemon", "--socket", sock, "--baseline",
+                         base]) == 0
+        assert capsys.readouterr().out.startswith(f"perf compare vs {base}: OK\n")
+        return
+    st = status(world["sock"])
+    assert cli.main(["top", "--once", "--socket", sock]
+                    + (["--json"] if tool == "top-json" else [])) == 0
+    out = capsys.readouterr().out
+    if tool == "top-json":
+        snap = json.loads(out)
+        assert snap["members"] is None and snap["status"]["package"] == protocol.PACKAGE
+        assert snap["status"]["served_total"] == st["served_total"]
+        # Every block the frame reads is in the port daemon's status.
+        frame_reads = snap["status"]
+        assert {"1s", "1m"} <= set(frame_reads["window"])
+        assert "breakers" in frame_reads["resilience"]
+        assert {"lookups", "hit_rate"} <= set(frame_reads["residency"])
+        assert "last_rows_per_chip" in frame_reads["batch"]["mesh"]
+        assert "enabled" in frame_reads["sampling"] and "latched" in frame_reads["anomaly"]
+        assert {"trace_store", "slo"} <= set(frame_reads)
+    else:
+        assert out.startswith(f"semmerge top — merge daemon pid {st['pid']}  uptime ")
+        assert f"served {st['served_total']:>6}" in out
 
 
 # --- the same-repo lock ----------------------------------------------------------------
@@ -585,17 +857,40 @@ REFUSED = {
     "serve_member_id": (["serve", "--member-id", "m"], {}),
     "serve_fleet": (["serve", "--status", "--fleet"], {}),
     "fleet_require": (["semmerge", "basebr", "brA", "brB"], {"SEMMERGE_FLEET": "require"}),
-    "otlp": (["semdiff", "basebr", "brA"], {"SEMMERGE_OTLP": "http://127.0.0.1:4318"}),
     "mesh_require": (["semdiff", "basebr", "brA"], {"SEMMERGE_MESH": "require"}),
-    "top": (["top", "--once"], {}),
     "stats_fleet": (["stats", "--fleet"], {}),
+}
+#: Forms refused until the port had the live tools: each now gives the
+#: JAX CLI's answer for the same argv and environment (``off``: the JAX
+#: client would spawn a daemon of its own under ``require``).
+PORTED = {
+    "otlp": (["semdiff", "basebr", "brA"], {"SEMMERGE_OTLP": "http://127.0.0.1:4318",
+                                            "SEMMERGE_DAEMON": "off"}),
+    "top": (["top", "--once"], {}),
     "profile": (["profile", "--daemon"], {}),
 }
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_refused_settings_exit_70_before_reading(name, tmp_path, monkeypatch, capsys):
-    argv, env = REFUSED[name]
+@pytest.fixture
+def gc_state():
+    """The JAX CLI's merge verbs freeze the heap and raise the collector's
+    thresholds (its one-shot GC posture): undone after the test."""
+    threshold = gc.get_threshold()
+    yield
+    gc.unfreeze()
+    gc.set_threshold(*threshold)
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(PORTED))
+def test_refused_settings_exit_70_before_reading(name, tmp_path, monkeypatch, capsys,
+                                                 gc_state):
+    """The refused settings exit 70 before anything is read. The forms
+    of ``PORTED`` exit as the JAX CLI does for the same argv and
+    environment, with its stdout, reading nothing: ``top`` and
+    ``profile`` with no daemon exit 1 with its stderr, ``semdiff`` with
+    ``SEMMERGE_OTLP`` outside a repository exits 3 (inside one, its
+    bytes are the JAX CLI's: ``tests/test_torch_export.py``)."""
+    argv, env = REFUSED.get(name) or PORTED[name]
     monkeypatch.chdir(tmp_path)  # nothing there to read
     for key in [k for k in os.environ if k.startswith("SEMMERGE_")]:
         monkeypatch.delenv(key)
@@ -605,8 +900,18 @@ def test_refused_settings_exit_70_before_reading(name, tmp_path, monkeypatch, ca
         monkeypatch.setenv(key, value)
     capsys.readouterr()
     device = ["--device", "cpu"] if argv[0] in protocol.VERBS else []
-    assert cli.main([*argv, *device]) == 70
-    assert "not implemented by this port" in capsys.readouterr().err
+    code = cli.main([*argv, *device])
+    out, err = capsys.readouterr()
+    if name in REFUSED:
+        assert code == 70 and "not implemented by this port" in err
+    else:
+        jax_code = jax_cli.main(argv)
+        jax_out, jax_err = capsys.readouterr()
+        assert (code, out) == (jax_code, jax_out) and code == (3 if name == "otlp" else 1)
+        if name == "otlp":
+            assert err.splitlines()[-1] == jax_err.splitlines()[-1]
+        else:
+            assert err == jax_err and err.startswith("error: ")
     assert list(tmp_path.iterdir()) == []
 
 

@@ -60,8 +60,10 @@ comparison (:func:`_one_fetch`).
 
 Also: ``stats`` (plain, ``--json``, ``--prometheus``), ``trace
 analyze`` (one file, a directory, ``--json``) and ``trace diff`` print
-the JAX CLI's bytes for the same artifacts; the unported forms exit 70
-before reading anything; ``--profile DIR`` writes
+the JAX CLI's bytes for the same artifacts; the fleet forms exit 70
+before reading anything, ``stats --daemon``, ``profile --daemon`` and
+``perf`` without a daemon or a baseline answer as the JAX CLI does;
+``--profile DIR`` writes
 ``DIR/semmerge-trace.json`` and a torch profiler trace holding a
 ``semmerge/<phase>`` range per phase, twice in one process; without the
 flags nothing is written and no profiler runs.
@@ -581,17 +583,22 @@ def test_trace_analyze_directory_equal(runs, capsys, tmp_path, as_json):
                                   ["perf", "compare", "BENCH_r01.json"]],
                          ids=lambda a: "_".join(a[:2]))
 def test_unported_forms_exit_70_before_reading(capsys, tmp_path, monkeypatch, argv):
-    """``stats --daemon`` is ported with the merge service: with no
-    daemon on the socket it exits 1 and reads nothing, as the JAX CLI's
-    does; the other forms are still refused."""
+    """``stats --daemon`` (the merge service), ``profile --daemon`` and
+    ``perf`` (the live tools) are ported: with no daemon on the socket,
+    and no baseline in the working directory, they answer as the JAX
+    CLI does (1, 1 and 2, its stderr) and read nothing; the fleet forms
+    are still refused."""
     monkeypatch.chdir(tmp_path)  # nothing there to read
     monkeypatch.setenv("SEMMERGE_SERVICE_SOCKET", str(tmp_path / "none.sock"))
     capsys.readouterr()
-    ported = argv == ["stats", "--daemon"]
-    assert cli.main(argv) == (1 if ported else 70)
-    out, err = capsys.readouterr()
-    assert out == "" and ("no merge service daemon reachable" if ported
-                          else "not implemented by this port") in err
+    if "--fleet" in argv:
+        assert cli.main(argv) == 70
+        out, err = capsys.readouterr()
+        assert out == "" and "not implemented by this port" in err
+    else:
+        port, jax = _both(capsys, argv)
+        assert port == jax and port[0] == (2 if argv[0] == "perf" else 1)
+        assert port[1] == "" and port[2].startswith("error: no ")
     assert list(tmp_path.iterdir()) == []
 
 
@@ -632,6 +639,45 @@ def test_untraced_run_records_no_spans_and_starts_no_profiler(runs, capsys, monk
     # The always-on layer still saw the phases (histogram and ring).
     assert {"snapshot", "diff", "scan"} <= set(metrics.phase_totals())
     assert {"snapshot", "diff", "scan"} <= {r["name"] for r in flight.snapshot()}
+
+
+@pytest.mark.parametrize("holder", ["live-thread", "ended-thread"])
+def test_a_session_of_another_thread_is_never_cancelled(tmp_path, holder):
+    """One profiler session per process: while the thread that started
+    the open session runs, a start from another thread is refused
+    (``busy``) and the holder's capture stays whole; once that thread has
+    ended, its session is stale and the next start replaces it."""
+    import threading
+    started, release, box = threading.Event(), threading.Event(), {}
+
+    def hold():
+        box["session"] = port_trace.start_profiler_session(False)
+        started.set()
+        if holder == "live-thread":
+            release.wait(60)
+            box["stopped"] = port_trace.stop_profiler_session(box["session"],
+                                                              str(tmp_path / "holder"))
+
+    thread = threading.Thread(target=hold)
+    thread.start()
+    assert started.wait(60) and box["session"] is not None
+    if holder == "ended-thread":
+        thread.join(60)
+    failures = metrics.REGISTRY.counter(port_trace.PROFILER_FAILURES)
+    busy = failures.value(reason="busy")
+    tracer = port_trace.Tracer(profile_dir=str(tmp_path / "second"), cuda=False)
+    with tracer.phase("second"):
+        sum(range(1000))
+    tracer.write()
+    second_traced = bool(list((tmp_path / "second").glob("*.pt.trace.json")))
+    if holder == "live-thread":
+        assert not second_traced and failures.value(reason="busy") == busy + 1
+        release.set()
+        thread.join(60)
+        assert box["stopped"] and list((tmp_path / "holder").glob("*.pt.trace.json"))
+    else:
+        assert second_traced and failures.value(reason="busy") == busy
+    assert port_trace._open_session is None
 
 
 def test_a_session_left_open_does_not_block_the_next_capture(tmp_path):
