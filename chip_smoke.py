@@ -118,11 +118,13 @@ Phases, each fatal on failure, each printing its seconds:
    one-buffer row, the same ``sha256`` launches (2, over 4C rows each)
    and at most 1.1x the kernels of one one-merge call; its device ms,
    kernels and host ms per call printed beside the one-merge call's.
-5b. trace (in-process, no profiler of this script around it): ``semmerge
-   base side other --inplace --trace --profile DIR`` in a fifth work
-   tree at side: exit 0, the tree and both notes equal the untraced
-   fused semmerge's (phase 4), as many ``sha256`` launches (4, from a
-   cold engine), ``.semmerge-trace.json``, ``.semmerge-events.jsonl``
+5b. trace (in-process, no profiler of this script around it): the
+   fused semmerge of the rung3 repository, untraced (under this script's
+   profiler, as in phase 4) in a work tree at side, then ``semmerge
+   base side other --inplace --trace --profile DIR`` in another: exit 0,
+   the tree and both notes equal the untraced merge's, as many
+   ``sha256`` launches (each from a cold engine), ``.semmerge-trace.json``,
+   ``.semmerge-events.jsonl``
    and ``DIR/semmerge-trace.json`` pass ``scripts/check_trace_schema.py``
    (``validate_trace``, ``validate_events``) with ``platform`` ``gpu``
    and the card's name in the device block, the span tree holds
@@ -158,6 +160,36 @@ Phases, each fatal on failure, each printing its seconds:
    in every such file, no ``sha256`` or ``flash_chunk`` launch (strict
    mode skips the fused engine); prints the resolve phase and each
    gate's ms.
+7a. languages: a mixed repository of the rung3 file count (500 TS
+   files x 6 decls, 300 Java files x 8: a package line and one class
+   with 2 fields, 1 constructor and 4 methods; 200 C# files x 8: a
+   file-scoped namespace, a class with 2 auto-properties, 1 constructor
+   and 3 methods, and a record struct; unique parameter lists, no method
+   signature shared across languages, and the fields, constructors,
+   classes and one property per C# file colliding within their language
+   as real trees do). side renames the second method of every even Java
+   file, ``Head`` of every even C# file and the first function of every
+   16th TS file, and renames AND retypes the first method of 32 Java
+   files; other moves every 4th Java and C# file to a sibling directory;
+   side2 / other2 are a TS-only pair (renames of every 16th file, moves
+   of every 4th). In-process under torch.profiler as in phase 4:
+   ``semmerge base side other --inplace`` with ``[languages.java]`` and
+   ``[languages.csharp]`` enabled and ``change_signature`` plus
+   ``signature_matcher`` on the train phase's checkpoint: exit 0, no
+   conflicts file, ops per language and type as the synthesis gives
+   them (the renames, the moves their addresses make, the retypes as
+   deleteDecl + changeSignature with an addDecl per deleteDecl), every
+   rename and move in the tree, ``flash_chunk`` launched (the matcher
+   refines the Java candidates) and ``sha256`` not (no fused engine on a
+   routed merge); prints the TS, Java and C# scan seconds. Then
+   ``semdiff base side --json-out --backend java`` and ``--backend cs``
+   (no routing): only that language's ops, the synthesis's count. Then
+   the worker seam, each in a ``git clone --local`` at side2 with the
+   plain settings: ``semmerge base side2 other2 --inplace`` in process,
+   ``--backend subprocess`` (the port's worker in a child process on the
+   card; its ``_worker`` phases printed) and the same with
+   ``SEMMERGE_FAULT=worker-serve:exit`` (one degradation to ``host``):
+   exit 0 and the in-process tree and notes each time.
 7b. service: ``python -m semantic_merge_tpu_torch serve --workers 4`` in
    a child (``SEMMERGE_BATCH_WINDOW_MS=2000``): it must come up, answer
    ``serve --status`` with the port's package and platform ``gpu``, and
@@ -206,11 +238,15 @@ Phases, each fatal on failure, each printing its seconds:
    DivergentRename merge with --change-signature that takes the
    two-program path and its compose's host cursor walk), and three
    ``--strict-conflicts`` merges that report DeleteVsEdit,
-   ConcurrentStmtEdit and ExtractVsInline, and three ``--resolve auto``
+   ConcurrentStmtEdit and ExtractVsInline, three ``--resolve auto``
    merges: a DivergentRename resolved for the side with a reference, a
    symmetric rename that ties (exit 1), and disjoint edits of one body
    under ``--strict-conflicts`` merged line by line (the gates' wall
-   times masked in the comparison).
+   times masked in the comparison), and two routed merges with Java and
+   C# enabled: a dozen Java and C# files with colliding signatures
+   (renames, a move, an edit the last-wins map does not see; exit 0) and
+   a C# DivergentRename (exit 1), each through the routed path (no fused
+   engine, one compose on the TS engine).
 
 At the end, pass or fail, every child this run started that still runs
 is stopped, and so is any process whose working directory lies in the
@@ -1433,7 +1469,7 @@ def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict,
     (and ``stmt`` if given), each a commit on ``base`` holding exactly
     its tree, ``side`` checked out. ``extras`` ({branch: (start,
     {path: content})}, in order) adds a commit per branch on its start
-    that writes only those files. One ``git fast-import`` writes every
+    that writes only those files (a content of None deletes the file). One ``git fast-import`` writes every
     commit (no work tree is written but ``side``'s, by the checkout)."""
     env = dict(os.environ, GIT_AUTHOR_NAME="smoke", GIT_AUTHOR_EMAIL="smoke@example.com",
                GIT_COMMITTER_NAME="smoke", GIT_COMMITTER_EMAIL="smoke@example.com")
@@ -1461,6 +1497,9 @@ def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict,
         if whole_tree:
             stream.extend(b"deleteall\n")
         for path, text in files.items():
+            if text is None:
+                stream.extend(f"D {path}\n".encode())
+                continue
             stream.extend(f"M 100644 inline {path}\n".encode())
             data(text.encode())
 
@@ -1475,14 +1514,16 @@ def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict,
     git("checkout", "-q", "-f", "side")
 
 
-def run_cli(torch, repo: pathlib.Path, argv: list):
+def run_cli(torch, repo: pathlib.Path, argv: list, scanners: tuple = ("native",)):
     """Runs the port's ``semdiff`` or ``semmerge`` CLI function for
     ``argv`` in ``repo`` under a torch.profiler device trace, with the
     decl cache emptied and the launch counts and shapes set to 0 just
-    before and read just after; fails unless the native scanner scanned
-    every file the cache missed. Returns the result, the counts, the
-    shapes, the host wall and the device's busy time (union of its
-    activities) in seconds."""
+    before and read just after; fails unless the engine's TypeScript scan
+    is one of ``scanners`` (by default the native scanner, for every file
+    the cache missed; none for the engines that scan no TypeScript in
+    this process: the C-family engine, the worker). Returns the result,
+    the counts, the shapes, the host wall and the device's busy time
+    (union of its activities) in seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     from semantic_merge_tpu_torch import cli, kernels
@@ -1513,8 +1554,10 @@ def run_cli(torch, repo: pathlib.Path, argv: list):
           + json.dumps({k: round(v, 4) if isinstance(v, float) else v
                         for k, v in result.phases.items()}), flush=True)
     phases = result.phases
-    if phases.get("scanner") != "native":
-        fail(f"{argv[0]} scanned with {phases.get('scanner')!r}, expected the native scanner")
+    if not scanners:
+        return result, launches, shapes, wall, busy
+    if phases.get("scanner") not in scanners:
+        fail(f"{argv[0]} scanned with {phases.get('scanner')!r}, expected one of {scanners}")
     print(f"{' '.join(argv)}: scan {phases['scan']:.4f} s, native; decl cache "
           f"{phases['decl_cache_hits']} hits, {phases['decl_cache_misses']} misses",
           flush=True)
@@ -2710,6 +2753,345 @@ def check_resolve_semmerge(work: pathlib.Path, merged, n_rsv: int, n_files: int)
     return {g["gate"]: g["ms"] for g in gates}
 
 
+# --- phase 7a: languages -------------------------------------------------------
+
+#: The mixed repository of the languages phase, at the rung3 file count:
+#: TypeScript, Java and C# files.
+LANG_TS, LANG_JAVA, LANG_CS = 500, 300, 200
+#: Java files whose first method side renames AND retypes: the
+#: matcher's changeSignature candidates.
+LANG_RETYPED = 32
+#: Side renames a function of every 16th TS file; the worker's branch
+#: pair renames one of every 16th (side2) and moves every 4th (other2).
+LANG_TS_EVERY = 16
+#: Parameter types of the Java and the C# methods: no type in both, and
+#: 3 parameters against TS's 4, so that no method's symbol id (its
+#: name-free signature) is another language's. Symbol ids carry no
+#: language, and the one compose of a routed merge would chain ops of
+#: two languages that share one.
+_JAVA_TYPES = ("int", "long", "boolean", "String", "double", "char", "byte", "short",
+               "float", "Object", "Integer")
+_CS_TYPES = ("bool", "string", "object", "decimal", "uint", "ulong", "sbyte", "ushort",
+             "nint", "nuint", "Guid")
+
+
+def _typed_params(idx: int, n_digits: int, types: tuple) -> str:
+    """A parameter list unique to ``idx`` (Java and C# order: type, name)."""
+    digits = []
+    for _ in range(n_digits):
+        digits.append(types[idx % len(types)])
+        idx //= len(types)
+    return ", ".join(f"{t} p{k}" for k, t in enumerate(digits))
+
+
+def _java_path(i: int, moved: bool = False) -> str:
+    return f"java/{'lib' if moved else 'src'}/Cls{i:04d}.java"
+
+
+def _cs_path(i: int, moved: bool = False) -> str:
+    return f"cs/{'lib' if moved else 'src'}/Svc{i:04d}.cs"
+
+
+def _ts_path(i: int, moved: bool = False) -> str:
+    return f"ts/{'lib' if moved else 'src'}/mod{i:05d}.ts"
+
+
+def _java_file(i: int) -> str:
+    """A package line and one public class: 2 fields, 1 constructor and
+    4 methods (8 decls). The fields (``vars{1}``), the constructor
+    (``ctor(int,String)``) and the class (``class{7}``) share their
+    symbol ids with every other Java file's: the collisions of a real
+    Java tree. The methods' parameter lists are unique."""
+    methods = "".join(
+        f"    public int m{i}_{k}({_typed_params(i * 4 + k, 3, _JAVA_TYPES)}) "
+        f"{{ return {k}; }}\n" for k in range(4))
+    return (f"package lang.p{i};\n\npublic class Cls{i} {{\n"
+            "    private int count;\n    private String label;\n\n"
+            f"    public Cls{i}(int count, String label) {{\n"
+            "        this.count = count;\n        this.label = label;\n    }\n\n"
+            f"{methods}}}\n")
+
+
+def _cs_file(i: int) -> str:
+    """A file-scoped namespace, a class with 2 auto-properties (``Head``
+    of the file's own record type, unique; ``Count``, ``prop:int`` like
+    every other file's), 1 constructor and 3 methods, and a ``record
+    struct`` (8 decls)."""
+    methods = "".join(
+        f"    public int M{i}_{k}({_typed_params(i * 3 + k, 3, _CS_TYPES)}) => {k};\n"
+        for k in range(3))
+    return (f"namespace Lang.N{i};\n\npublic class Svc{i}\n{{\n"
+            f"    public Rec{i} Head {{ get; set; }}\n    public int Count {{ get; set; }}\n\n"
+            f"    public Svc{i}(int count) {{ Count = count; }}\n\n{methods}}}\n\n"
+            f"public record struct Rec{i}(int A, int B);\n")
+
+
+def _ts_file(i: int) -> str:
+    return "\n".join(
+        f"export function fn{i}_{d}({_unique_params(i * RUNG3_DECLS + d, 4)})"
+        f": number {{ return {d}; }}" for d in range(RUNG3_DECLS)) + "\n"
+
+
+def lang_trees():
+    """(base, side, other, extras) of the languages phase's repository.
+
+    side renames the second method of every even Java file, the ``Head``
+    property of every even C# file (to ``Lead``) and the first function
+    of every 16th TS file, each to a name of the same length, and renames
+    AND retypes (``int`` -> ``long``) the first method of the first 32
+    odd Java files. A decl's address holds its name and its offset, so
+    each rename also moves its decl (a ``moveDecl``), and each retype
+    moves the 3 methods after it, one character on. other moves every
+    4th Java and C# file from ``src/`` to ``lib/`` (which sorts first,
+    so the colliding decls' last-wins occurrence, in the last file of
+    each language, stays put). The extras are the worker's TS-only pair
+    on base: side2 renames the first function of every 16th TS file,
+    other2 moves every 4th TS file to ``ts/lib/``. Returns the trees and
+    the expected ops per language and type of side's and other's op
+    logs (side's Java ``deleteDecl + changeSignature`` and ``addDecl``
+    left out: the matcher decides between them)."""
+    base, side, other = {"README.md": README}, {"README.md": README}, {"README.md": README}
+    side2, other2 = {}, {}
+    for i in range(LANG_TS):
+        text = _ts_file(i)
+        base[_ts_path(i)] = side[_ts_path(i)] = other[_ts_path(i)] = text
+        if i % LANG_TS_EVERY == 0:
+            side[_ts_path(i)] = side2[_ts_path(i)] = text.replace(
+                f"function fn{i}_0(", f"function tx{i}_0(")
+        if i % 4 == 0:
+            other2[_ts_path(i)] = None
+            other2[_ts_path(i, moved=True)] = text
+    retyped = 0
+    for i in range(LANG_JAVA):
+        text = _java_file(i)
+        base[_java_path(i)] = side[_java_path(i)] = text
+        other[_java_path(i, moved=i % 4 == 0)] = text
+        if i % 2 == 0:
+            side[_java_path(i)] = text.replace(f" m{i}_1(", f" r{i}_1(")
+        elif retyped < LANG_RETYPED:
+            side[_java_path(i)] = text.replace(f"public int m{i}_0(", f"public long s{i}_0(")
+            retyped += 1
+    for i in range(LANG_CS):
+        text = _cs_file(i)
+        base[_cs_path(i)] = side[_cs_path(i)] = text
+        other[_cs_path(i, moved=i % 4 == 0)] = text
+        if i % 2 == 0:
+            side[_cs_path(i)] = text.replace(f"Rec{i} Head ", f"Rec{i} Lead ")
+    n_ts = len(range(0, LANG_TS, LANG_TS_EVERY))
+    expected = {
+        "left": {"ts": {"moveDecl": n_ts, "renameSymbol": n_ts},
+                 "java": {"moveDecl": (LANG_JAVA + 1) // 2 + 3 * LANG_RETYPED,
+                          "renameSymbol": (LANG_JAVA + 1) // 2},
+                 "cs": {"moveDecl": (LANG_CS + 1) // 2, "renameSymbol": (LANG_CS + 1) // 2}},
+        # Each moved file's decls with a symbol id of their own: Java's
+        # 4 methods, C#'s 3 methods and Head.
+        "right": {"java": {"moveDecl": 4 * len(range(0, LANG_JAVA, 4))},
+                  "cs": {"moveDecl": 4 * len(range(0, LANG_CS, 4))}},
+    }
+    extras = {"side2": ("base", side2), "other2": ("base", other2)}
+    return base, side, other, extras, expected
+
+
+def _lang_of(op) -> str:
+    params = op["params"] if isinstance(op, dict) else op.params
+    path = params.get("file") or params.get("newFile") or params.get("oldFile") or ""
+    return {".ts": "ts", ".java": "java", ".cs": "cs"}.get(pathlib.PurePosixPath(path).suffix,
+                                                          "?")
+
+
+def _lang_counts(ops) -> dict:
+    counts: dict = {}
+    for op in ops:
+        kind = op["type"] if isinstance(op, dict) else op.type
+        by_type = counts.setdefault(_lang_of(op), {})
+        by_type[kind] = by_type.get(kind, 0) + 1
+    return {lang: dict(sorted(c.items())) for lang, c in sorted(counts.items())}
+
+
+def lang_config(root: pathlib.Path, ckpt: pathlib.Path, routed: bool = True,
+                matcher: bool = True) -> str:
+    """The repository's ``.semmerge.toml`` (untracked): the settings of
+    :func:`write_config`, with ``matcher`` changeSignature and the
+    matcher on ``ckpt``, with ``routed`` Java and C# enabled. Returns
+    what it set."""
+    text = (f'[engine]\nmatcher_ckpt_dir = "{ckpt}"\n'
+            + ("change_signature = true\nsignature_matcher = true\n" if matcher else "")
+            + '[languages.typescript]\nformatter_cmd = ["true"]\n'
+            + ("[languages.java]\nenabled = true\n[languages.csharp]\nenabled = true\n"
+               if routed else "")
+            + '[ci]\nrequire_typecheck = false\n')
+    (root / ".semmerge.toml").write_text(text)
+    return text
+
+
+def _check_lang_counts(label: str, got: dict, want: dict, retyped: bool) -> None:
+    """``got`` holds exactly ``want``'s ops per language and type, and
+    with ``retyped`` side's 32 Java candidates as deleteDecl +
+    changeSignature and as many addDecl as deleteDecl."""
+    got = {lang: dict(c) for lang, c in got.items()}
+    if retyped:
+        java = got.get("java", {})
+        folded = java.pop("changeSignature", 0)
+        deleted = java.pop("deleteDecl", 0)
+        added = java.pop("addDecl", 0)
+        if folded + deleted != LANG_RETYPED or added != deleted:
+            fail(f"{label}: Java changeSignature {folded} + deleteDecl {deleted} != "
+                 f"{LANG_RETYPED}, or addDecl {added} != deleteDecl")
+    if got != want:
+        fail(f"{label}: ops by language and type {got}, expected {want}")
+
+
+def _clone_at(src: pathlib.Path, dst: pathlib.Path, branch: str, revs: tuple) -> None:
+    """A ``git clone --local`` of ``src`` at ``branch``, with ``revs`` as
+    local branches and an identity for the notes."""
+    subprocess.run(["git", "clone", "-q", "--local", "--no-checkout", str(src), str(dst)],
+                   check=True)
+    for rev in revs:
+        if rev != branch:
+            subprocess.run(["git", "branch", "-q", rev, f"origin/{rev}"], cwd=dst, check=True)
+    subprocess.run(["git", "checkout", "-q", "-B", branch, f"origin/{branch}"], cwd=dst,
+                   check=True)
+    for key, value in (("user.email", "smoke@example.com"), ("user.name", "smoke")):
+        subprocess.run(["git", "config", key, value], cwd=dst, check=True)
+
+
+def _degradations(to: str) -> float:
+    from semantic_merge_tpu_torch.obs import metrics as obs_metrics
+    metric = obs_metrics.REGISTRY.to_dict().get("counters", {}).get(
+        "merge_degradations_total", {})
+    return sum(s["value"] for s in metric.get("series", []) if s["labels"].get("to") == to)
+
+
+def run_languages_phase(torch, work: pathlib.Path, trained: pathlib.Path) -> tuple:
+    """Phase 7a: the multi-language merge, each C-family engine alone and
+    the worker seam, on the card. Returns (its launches and shapes for
+    the kernel line, a summary)."""
+    from semantic_merge_tpu_torch import cli
+
+    repo = work / "lang"
+    base, side, other, extras, expected = lang_trees()
+    make_repo(repo, base, side, other, extras=extras)
+    n_decls = (LANG_TS * RUNG3_DECLS + LANG_JAVA * 8 + LANG_CS * 8)
+    print(f"languages: {LANG_TS} TS files x {RUNG3_DECLS} decls, {LANG_JAVA} Java files x 8, "
+          f"{LANG_CS} C# files x 8 ({n_decls} decls); side: {expected['left']} renames and "
+          f"{LANG_RETYPED} Java methods renamed+retyped; other: every 4th Java and C# file "
+          f"moved src/ -> lib/ ({expected['right']}); matcher: the trained checkpoint of the "
+          "train phase", flush=True)
+    summary = {}
+
+    # 1. The multi-language merge.
+    from semantic_merge_tpu_torch.frontend import native
+    from semantic_merge_tpu_torch.frontend.declcache import global_cache
+
+    config = lang_config(repo, trained)
+    print("languages: .semmerge.toml " + config.replace("\n", "; "), flush=True)
+    # A routed merge reads the incremental scope, whose collision guard
+    # scans the base tree's TS files through the decl cache first: the
+    # engine's scan of the scoped snapshots then hits the cache only.
+    misses = global_cache().misses
+    merged, launches, shapes, wall, busy = run_cli(
+        torch, repo, ["semmerge", "base", "side", "other", "--inplace"],
+        scanners=("native", "cache"))
+    misses = global_cache().misses - misses
+    if misses < LANG_TS or native._lib is None:
+        fail(f"the routed semmerge's scans missed the decl cache {misses} times (the guard "
+             f"scans {LANG_TS} base files), native library loaded: {native._lib is not None}")
+    print(f"languages: routed semmerge: TS scanner {merged.phases.get('scanner')!r} over the "
+          f"scoped snapshots, {misses} decl-cache misses in all, each scanned by the native "
+          "library (ASCII files)", flush=True)
+    expect_launches("multi-language semmerge", launches, {"flash_chunk": None, "sha256": 0})
+    if merged.code != 0 or (repo / ".semmerge-conflicts.json").exists():
+        fail(f"the multi-language semmerge exited {merged.code} (conflicts file: "
+             f"{(repo / '.semmerge-conflicts.json').exists()}), expected 0 and none")
+    left = _lang_counts(merged.result.op_log_left)
+    right = _lang_counts(merged.result.op_log_right)
+    print(f"languages: ops by language and type: A {json.dumps(left)}; B {json.dumps(right)}; "
+          f"composed {json.dumps(_lang_counts(merged.composed))}", flush=True)
+    _check_lang_counts("multi-language semmerge A", left, expected["left"], retyped=True)
+    _check_lang_counts("multi-language semmerge B", right, expected["right"], retyped=False)
+    for i in range(LANG_JAVA):
+        text = (repo / _java_path(i, moved=i % 4 == 0)).read_text()
+        # A retyped method's changeSignature (or delete and add) carries
+        # no text without structured apply: the file keeps base's method,
+        # in the JAX package too.
+        want = [f"m{i}_2(", f"m{i}_3("] + [f"r{i}_1(" if i % 2 == 0 else f"m{i}_1("]
+        if not all(w in text for w in want):
+            fail(f"{_java_path(i, moved=i % 4 == 0)} lacks one of {want}")
+    for i in range(LANG_CS):
+        text = (repo / _cs_path(i, moved=i % 4 == 0)).read_text()
+        want = [f"M{i}_{k}(" for k in range(3)] + [
+            f"Rec{i} Lead " if i % 2 == 0 else f"Rec{i} Head "]
+        if not all(w in text for w in want):
+            fail(f"{_cs_path(i, moved=i % 4 == 0)} lacks one of {want}")
+    for i in range(0, LANG_TS, LANG_TS_EVERY):
+        if f"function tx{i}_0(" not in (repo / _ts_path(i)).read_text():
+            fail(f"{_ts_path(i)} lacks tx{i}_0")
+    scan = {k: round(v, 4) for k, v in merged.phases.items()
+            if k.endswith("scan") and isinstance(v, float)}
+    print(f"languages: multi-language semmerge: exit 0, every rename and move in the tree; "
+          f"wall {wall:.3f} s, idle share {1 - busy / wall:.4f}; scan seconds {scan}",
+          flush=True)
+    summary["multi"] = {"wall_s": round(wall, 3), "busy_s": round(busy, 4), "scan_s": scan,
+                        "launches": launches}
+    runs = {"multi": (launches, shapes)}
+
+    # 2. Each C-family engine alone (no routing: a routed language
+    # beside --backend java would diff the Java files twice, in the JAX
+    # package as here).
+    lang_config(repo, trained, routed=False)
+    for name, lang in (("java", "java"), ("cs", "cs")):
+        result, launches, shapes, wall, busy = run_cli(
+            torch, repo, ["semdiff", "base", "side", "--json-out", "--backend", name],
+            scanners=())
+        got = _lang_counts(result.ops)
+        if set(got) != {lang}:
+            fail(f"semdiff --backend {name} printed ops of {sorted(got)}")
+        _check_lang_counts(f"semdiff --backend {name}", got, {lang: expected["left"][lang]},
+                           retyped=lang == "java")
+        expect_launches(f"semdiff --backend {name}", launches, {"sha256": 0})
+        summary[f"semdiff_{name}"] = {"wall_s": round(wall, 3), "ops": got[lang],
+                                      "launches": launches}
+        runs[f"semdiff_{name}"] = (launches, shapes)
+
+    # 3. The worker seam: the TS-only pair through the port's worker on
+    # the card, against the in-process engine; then with the worker dying.
+    revs = ("base", "side2", "other2")
+    outcome = {}
+    for label, argv_extra, env in (("in-process", [], {}),
+                                   ("worker", ["--backend", "subprocess"], {}),
+                                   ("worker-exit", ["--backend", "subprocess"],
+                                    {"SEMMERGE_FAULT": "worker-serve:exit"})):
+        clone = work / f"lang-{label}"
+        _clone_at(repo, clone, "side2", revs)
+        lang_config(clone, trained, routed=False, matcher=False)
+        degraded = _degradations("host")
+        os.environ.update(env)
+        try:
+            result, launches, shapes, wall, busy = run_cli(
+                torch, clone, ["semmerge", *revs, "--inplace", *argv_extra],
+                scanners=() if argv_extra else ("native",))
+        finally:
+            for key in env:
+                os.environ.pop(key, None)
+        if result.code != 0:
+            fail(f"the {label} semmerge of side2 and other2 exited {result.code}")
+        outcome[label] = (_work_tree(clone), [_note(clone, r) for r in revs[1:]])
+        worker = {k: round(v, 4) for k, v in result.phases.items() if k.startswith("worker")}
+        summary[label] = {"wall_s": round(wall, 3), "worker_phases": worker,
+                          "degradations_to_host": _degradations("host") - degraded}
+        if label == "worker" and not worker.get("worker.buildAndDiff"):
+            fail(f"the worker semmerge reported no _worker phases: {result.phases}")
+        if label == "worker-exit" and summary[label]["degradations_to_host"] != 1:
+            fail("SEMMERGE_FAULT=worker-serve:exit recorded no degradation to host")
+    for label in ("worker", "worker-exit"):
+        if outcome[label] != outcome["in-process"]:
+            fail(f"the {label} semmerge's tree or notes differ from the in-process engine's")
+    print(f"languages: worker seam: side2/other2 through the port's worker on the card "
+          f"(and dying, SEMMERGE_FAULT=worker-serve:exit, degraded to host): the in-process "
+          f"engine's tree and notes; {json.dumps(summary)}", flush=True)
+    return runs, summary
+
+
 _SMALL_UTIL = "export function foo(n: number): number {\n  return n;\n}\n"
 _SMALL_G = "export function g(a: boolean, b: boolean): void {}\n"
 _SMALL_H = "export function h(s: string): string {\n  return s;\n}\n"
@@ -2778,8 +3160,60 @@ SMALL_MERGES = {
                          _SMALL_CALC.replace("n * 2;", "n * 4;"))},
         {"src/util.ts": _SMALL_UTIL, "README.md": README}, 0, "strict"),
 }
-#: Path taken → (fused engine runs, two-program composes, host walks).
-SMALL_PATH_CALLS = {"fused": (1, 0, 0), "two-program": (1, 1, 1), "strict": (0, 1, 0)}
+
+
+def _small_java(k: int, method: str = "") -> str:
+    """Small Java file ``k``: a field, ``run()``, ``f<k>(int)`` and
+    ``h<k>(String)`` share their symbol ids with every other such file's;
+    ``u<k>`` (``k + 1`` long parameters) has one of its own."""
+    longs = ", ".join(f"long a{n}" for n in range(k + 1))
+    return (f"class A{k} {{\n  int x;\n  void run() {{}}\n"
+            f"  int f{k}(int a) {{ return a; }}\n  String h{k}(String s) {{ return s; }}\n"
+            f"  long {method or f'u{k}'}({longs}) {{ return 0; }}\n}}\n")
+
+
+def _small_cs(k: int, prop: str = "Count", only: str = "Only") -> str:
+    """Small C# file ``k``: ``Count`` (``prop:int``), ``F<k>(int)`` and
+    ``G(string)`` collide across files; ``Only`` (``k + 3`` long
+    parameters) does not."""
+    longs = ", ".join(f"long a{n}" for n in range(k + 3))
+    return (f"namespace Small;\n\npublic class S{k}\n{{\n"
+            f"    public int {prop} {{ get; set; }}\n    int F{k}(int a) => a;\n"
+            f"    string G(string s) => s;\n    public long {only}({longs}) => 0;\n}}\n")
+
+
+#: The routed cases' Java and C# files: six of each, path → (base, side,
+#: other). Side renames A0's own method and A1's colliding one (which
+#: the last-wins map does not see) and C# S2's Count; other moves A3 to
+#: ``jl/`` and edits S4's colliding F4 away.
+_SMALL_ROUTED = {
+    **{f"j/A{k}.java": (_small_java(k), _small_java(k), _small_java(k)) for k in range(6)},
+    **{f"c/S{k}.cs": (_small_cs(k), _small_cs(k), _small_cs(k)) for k in range(6)},
+    "j/A0.java": (_small_java(0), _small_java(0, method="renamedU0"), _small_java(0)),
+    "j/A1.java": (_small_java(1), _small_java(1).replace("f1(", "g1("), _small_java(1)),
+    "j/A3.java": (_small_java(3), _small_java(3), None),
+    "jl/A3.java": (None, None, _small_java(3)),
+    "c/S2.cs": (_small_cs(2), _small_cs(2, prop="Total"), _small_cs(2)),
+    "c/S4.cs": (_small_cs(4), _small_cs(4), _small_cs(4).replace("    int F4(int a) => a;\n",
+                                                                 "")),
+}
+SMALL_MERGES.update({
+    "routed_languages": ([], _SMALL_ROUTED, {"src/util.ts": _SMALL_UTIL, "README.md": README},
+                         0, "routed"),
+    "routed_divergent_rename_cs": (
+        [], {**{f"c/S{k}.cs": (_small_cs(k),) * 3 for k in range(5)},
+             "c/S5.cs": (_small_cs(5), _small_cs(5, only="Left"), _small_cs(5, only="Right"))},
+        {"src/util.ts": _SMALL_UTIL, "README.md": README}, 1, "routed"),
+})
+#: The ``.semmerge.toml`` lines each case adds: the routed cases enable
+#: Java and C# beside TypeScript.
+SMALL_TOML = {name: "[languages.java]\nenabled = true\n[languages.csharp]\nenabled = true\n"
+              for name in ("routed_languages", "routed_divergent_rename_cs")}
+#: Path taken → (fused engine runs, two-program composes, host walks). A
+#: routed merge runs no fused engine: the TS engine's build_and_diff, the
+#: C-family engines', one compose on the TS engine's device.
+SMALL_PATH_CALLS = {"fused": (1, 0, 0), "two-program": (1, 1, 1), "strict": (0, 1, 0),
+                    "routed": (0, 1, 1)}
 #: Conflict category each strict case must report.
 SMALL_STRICT_CATEGORY = {"strict_delete_vs_edit": "DeleteVsEdit",
                          "strict_concurrent_stmt_edit": "ConcurrentStmtEdit",
@@ -2833,6 +3267,8 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
             copy = work / name / device
             shutil.copytree(origin, copy)
             write_config(copy, ckpt)
+            with (copy / ".semmerge.toml").open("a") as fh:
+                fh.write(SMALL_TOML.get(name, ""))
             cwd = os.getcwd()
             os.chdir(copy)
             try:
@@ -2844,7 +3280,7 @@ def check_reference_merges(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
             finally:
                 os.chdir(cwd)
             want = SMALL_PATH_CALLS[path]
-            if path == "two-program" and expect != 1:
+            if path in ("two-program", "routed") and expect != 1:
                 want = want[:2] + (0,)
             if (fused_runs.calls, composes.calls, walks.calls) != want:
                 fail(f"small merge {name} on {device}: the fused engine, the two-program "
@@ -3115,14 +3551,27 @@ def main() -> int:
         check_batched_timing(programs)
         t = phase("kernels", t)
 
-        # --trace and --profile: the fused merge again, traced and profiled
-        # by the CLI, in a fifth work tree, against the untraced run's tree,
-        # notes and launches; then the matcher semdiff profiled. After the
-        # kernels phase: its short profiler sessions come first.
+        # --trace and --profile: the fused merge of the rung3 repository,
+        # untraced in one work tree, then traced and profiled by the CLI in
+        # another, against the untraced run's tree, notes and launches (at
+        # rung3: a rung5 merge costs 60-110 s of host disk, and the smoke
+        # must end inside its limit on a slow host); then the matcher
+        # semdiff profiled. After the kernels phase: its short profiler
+        # sessions come first.
         card_name = torch.cuda.get_device_name(0)
-        traced = check_traced_fused_semmerge(repo, fused_tree, WORK / "traced", ckpt,
-                                             untraced, card_name)
-        print(f"trace: semmerge base side other --inplace --trace --profile DIR: wall "
+        trace_ref = WORK / "traced_ref"
+        subprocess.run(["git", "worktree", "add", "-q", "--detach", str(trace_ref), "side"],
+                       cwd=rung3, check=True)
+        write_config(trace_ref, ckpt)
+        merged, launches, shapes, wall, busy = run_cli(
+            torch, trace_ref, ["semmerge", "base", "side", "other", "--inplace"])
+        if merged.code != 0:
+            fail(f"the untraced rung3 fused semmerge exited {merged.code}")
+        untraced3 = {"notes": {rev: _note(rung3, rev) for rev in ("side", "other")},
+                     "sha256": launches["sha256"], "wall": wall}
+        traced = check_traced_fused_semmerge(rung3, trace_ref, WORK / "traced", ckpt,
+                                             untraced3, card_name)
+        print(f"trace: semmerge base side other --inplace --trace --profile DIR (rung3): wall "
               f"{traced['wall_s']:.3f} s (the untraced fused semmerge, under this script's "
               f"profiler: {traced['untraced_wall_s']:.3f} s); tree and notes equal the "
               f"untraced merge's; {json.dumps(traced)}", flush=True)
@@ -3168,6 +3617,16 @@ def main() -> int:
         for row in rows:
             row["launches"]["resolve_semmerge"] = launches.get(row["name"], 0)
         t = phase("resolve semmerge", t)
+
+        # Other languages and the worker seam: a mixed TS + Java + C#
+        # repository merged in one run, each C-family engine alone, and
+        # the merge engine in a supervised child process on the card.
+        lang_runs, lang = run_languages_phase(torch, WORK, WORK / "trained")
+        for label, (launches_, _) in lang_runs.items():
+            for row in rows:
+                row["launches"][f"languages_{label}"] = launches_.get(row["name"], 0)
+        print(f"languages: {json.dumps(lang)}", flush=True)
+        t = phase("languages", t)
 
         # The merge service: the same merges, served by a warm daemon.
         svc = run_service_phase(torch, repo, fused_tree, ckpt, untraced, phase4, rung3)

@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass, field
 from typing import Dict, List
 
 import numpy as np
@@ -65,6 +64,7 @@ from ..ops.compose import compose_oplogs_device
 from ..ops.fused import FusedMergeEngine
 from ..ops.diff import (KIND_ADD, KIND_DELETE, KIND_MOVE, KIND_RENAME,
                         DiffOpsTensor, diff_lift_device, diff_lift_device_pair)
+from .base import BuildAndDiffResult, register_backend, symbol_map
 
 
 #: The process-shared interner of warm residency (see the module
@@ -108,24 +108,122 @@ def ts_files(snap: Snapshot):
     return filter_files(snap, TS_EXTENSIONS)
 
 
-@dataclass
-class BuildAndDiffResult:
-    """Both sides' op logs of a three-way merge (the JAX package's
-    ``backends/base.py::BuildAndDiffResult``; reference worker protocol
-    ``workers/ts/src/protocol.ts:15-27``)."""
+class DeviceDiffBackend:
+    """The two-program path every engine of the port shares: the device
+    diff join of both sides in one call, decoded back into ``Diff``
+    records, the changeSignature refinement (with the embedding matcher,
+    whose encoder runs on the device), the lift, the statement ops, and
+    the compose on the device. A subclass gives ``extensions`` (the files
+    it owns; :meth:`_files` filters a snapshot to them) and its scan
+    (``_scan_encode``); ``phases`` holds the seconds of each phase of the
+    last call."""
 
-    op_log_left: List[Op]
-    op_log_right: List[Op]
-    symbol_maps: Dict[str, List[dict]]
-    diagnostics: List[object] = field(default_factory=list)
+    extensions: frozenset = frozenset()
+
+    def __init__(self, device: str | None = None) -> None:
+        self.device = resolve_device(device)
+        obs_device.note_device(self.device)
+        self.phases: Dict[str, float | int | str] = {}
+        self.path: str | None = None
+
+    def _files(self, snap: Snapshot):
+        return filter_files(snap, self.extensions)
+
+    def _diff_two_program(self, base, right, base_nodes, right_nodes, base_t, right_t, clock,
+                          *, base_rev, seed, timestamp, change_signature, structured_apply,
+                          signature_matcher, statement_ops) -> List[Op]:
+        """:meth:`diff` on the two-program path, after the scan."""
+        self.path = "two-program"
+        t = diff_lift_device(base_t, right_t, self.device)
+        clock.lap("device_diff")
+        diffs = decode_diffs(t, base_t, right_t, base_nodes, right_nodes)
+        clock.lap("decode")
+        return self._lift_side(diffs, base, right, base_nodes, right_nodes, clock, side="R",
+                               base_rev=base_rev, seed=seed, timestamp=timestamp,
+                               change_signature=change_signature,
+                               structured_apply=structured_apply,
+                               signature_matcher=signature_matcher,
+                               statement_ops=statement_ops)
+
+    def _lift_side(self, diffs, base, side_snap, base_nodes, side_nodes, clock, *, side,
+                   base_rev, seed, timestamp, change_signature, structured_apply,
+                   signature_matcher, statement_ops) -> List[Op]:
+        """One side's op log from its decoded diffs (``ts_tpu.py``
+        ``build_and_diff``): the changeSignature refinement, the lift
+        with seed ``seed + "/" + side`` (carrying decl payloads under
+        structured apply), then the statement ops, whose ids continue
+        the lift's index."""
+        want_sources = structured_apply or (change_signature and signature_matcher is not None)
+        files = (self._files(base), self._files(side_snap))
+        sources = source_maps(*files) if want_sources else None
+        if change_signature:
+            diffs = refine_signature_changes(diffs, sources, signature_matcher)
+            clock.lap("refine")
+        stmt: List[Op] = []
+        if statement_ops:
+            stmt = lift_statements(diffs, base_nodes, side_nodes, sources, files,
+                                   base_rev=base_rev, seed=seed, side=side,
+                                   timestamp=timestamp)
+            clock.lap("statements")
+        ops = lift(base_rev, diffs, seed=f"{seed}/{side}", timestamp=timestamp,
+                   sources=sources if structured_apply else None)
+        clock.lap("lift")
+        return ops + stmt
+
+    def build_and_diff(self, base: Snapshot, left: Snapshot, right: Snapshot,
+                       *, base_rev: str = "base", seed: str = "0",
+                       timestamp: str | None = None,
+                       change_signature: bool = False,
+                       structured_apply: bool = False,
+                       signature_matcher=None,
+                       statement_ops: bool = False) -> BuildAndDiffResult:
+        """Both sides' op logs: the three snapshots scanned and interned
+        into one id space, both diffs in one device call, then each side
+        as :meth:`_lift_side` makes it, with sides ``"L"`` and ``"R"``."""
+        clock = _PhaseClock(self.phases)
+        snaps = (base, left, right)
+        nodes, tensors = self._scan_encode(snaps, clock)
+        return self._diff_lift(snaps, nodes, tensors, clock, base_rev=base_rev, seed=seed,
+                               timestamp=timestamp, change_signature=change_signature,
+                               structured_apply=structured_apply,
+                               signature_matcher=signature_matcher,
+                               statement_ops=statement_ops)
+
+    def _diff_lift(self, snaps, nodes, tensors, clock, *, base_rev, seed, timestamp,
+                   change_signature, structured_apply, signature_matcher,
+                   statement_ops) -> BuildAndDiffResult:
+        """:meth:`build_and_diff` after the scan."""
+        self.path = "two-program"
+        ts = timestamp or EPOCH_ISO
+        base, left, right = snaps
+        base_t, left_t, right_t = tensors
+        t_l, t_r = diff_lift_device_pair(base_t, left_t, right_t, self.device)
+        clock.lap("device_diff")
+        diffs_l = decode_diffs(t_l, base_t, left_t, nodes[0], nodes[1])
+        diffs_r = decode_diffs(t_r, base_t, right_t, nodes[0], nodes[2])
+        clock.lap("decode")
+        kw = dict(base_rev=base_rev, seed=seed, timestamp=ts,
+                  change_signature=change_signature, structured_apply=structured_apply,
+                  signature_matcher=signature_matcher, statement_ops=statement_ops)
+        return BuildAndDiffResult(
+            op_log_left=self._lift_side(diffs_l, base, left, nodes[0], nodes[1], clock,
+                                        side="L", **kw),
+            op_log_right=self._lift_side(diffs_r, base, right, nodes[0], nodes[2], clock,
+                                         side="R", **kw),
+            symbol_maps={key: symbol_map(n)
+                         for key, n in zip(("base", "left", "right"), nodes)},
+        )
+
+    def compose(self, delta_a: List[Op], delta_b: List[Op]):
+        """The two op logs composed on the backend's device:
+        ``(composed ops, conflicts)``."""
+        return compose_oplogs_device(delta_a, delta_b, self.device)
+
+    def close(self) -> None:
+        """Nothing to release (the JAX backends' ``close``)."""
 
 
-def symbol_map(nodes) -> List[dict]:
-    """SymbolMaps payload entry (reference ``workers/ts/src/index.ts:30-35``)."""
-    return [{"symbolId": n.symbolId, "addressId": n.addressId} for n in nodes]
-
-
-class TorchTSBackend:
+class TorchTSBackend(DeviceDiffBackend):
     """``device``: ``None``/``"cuda"`` for the card, ``"cpu"`` only when
     asked for. ``host_workers``: the fused path's host-tail workers
     (``[engine] host_workers``; ``None`` = auto). ``native_scan``: scan
@@ -146,13 +244,10 @@ class TorchTSBackend:
     def __init__(self, device: str | None = None,
                  host_workers: int | None = None, *, native_scan: bool = True,
                  decl_cache: DeclCache | None = None) -> None:
-        self.device = resolve_device(device)
-        obs_device.note_device(self.device)
+        super().__init__(device)
         self.host_workers = host_workers
         self.native_scan = native_scan
         self.decl_cache = decl_cache
-        self.phases: Dict[str, float | int | str] = {}
-        self.path: str | None = None
         from ..service import residency
         self._interner = shared_interner() if residency.residency_enabled() else Interner()
         self._fused: FusedMergeEngine | None = None
@@ -260,91 +355,12 @@ class TorchTSBackend:
             if view is not None:
                 self.path = "fused"
                 return view
-        self.path = "two-program"
-        t = diff_lift_device(base_t, right_t, self.device)
-        clock.lap("device_diff")
-        diffs = decode_diffs(t, base_t, right_t, base_nodes, right_nodes)
-        clock.lap("decode")
-        return self._lift_side(diffs, base, right, base_nodes, right_nodes, clock, side="R",
-                               base_rev=base_rev, seed=seed, timestamp=ts,
-                               change_signature=change_signature,
-                               structured_apply=structured_apply,
-                               signature_matcher=signature_matcher,
-                               statement_ops=statement_ops)
-
-    def _lift_side(self, diffs, base, side_snap, base_nodes, side_nodes, clock, *, side,
-                   base_rev, seed, timestamp, change_signature, structured_apply,
-                   signature_matcher, statement_ops) -> List[Op]:
-        """One side's op log from its decoded diffs (``ts_tpu.py``
-        ``build_and_diff``): the changeSignature refinement, the lift
-        with seed ``seed + "/" + side`` (carrying decl payloads under
-        structured apply), then the statement ops, whose ids continue
-        the lift's index."""
-        want_sources = structured_apply or (change_signature and signature_matcher is not None)
-        files = (ts_files(base), ts_files(side_snap))
-        sources = source_maps(*files) if want_sources else None
-        if change_signature:
-            diffs = refine_signature_changes(diffs, sources, signature_matcher)
-            clock.lap("refine")
-        stmt: List[Op] = []
-        if statement_ops:
-            stmt = lift_statements(diffs, base_nodes, side_nodes, sources, files,
-                                   base_rev=base_rev, seed=seed, side=side,
-                                   timestamp=timestamp)
-            clock.lap("statements")
-        ops = lift(base_rev, diffs, seed=f"{seed}/{side}", timestamp=timestamp,
-                   sources=sources if structured_apply else None)
-        clock.lap("lift")
-        return ops + stmt
-
-    def build_and_diff(self, base: Snapshot, left: Snapshot, right: Snapshot,
-                       *, base_rev: str = "base", seed: str = "0",
-                       timestamp: str | None = None,
-                       change_signature: bool = False,
-                       structured_apply: bool = False,
-                       signature_matcher=None,
-                       statement_ops: bool = False) -> BuildAndDiffResult:
-        """Both sides' op logs: the three snapshots scanned and interned
-        into one id space, both diffs in one device call, then each side
-        as :meth:`_lift_side` makes it, with sides ``"L"`` and ``"R"``."""
-        clock = _PhaseClock(self.phases)
-        snaps = (base, left, right)
-        nodes, tensors = self._scan_encode(snaps, clock)
-        return self._diff_lift(snaps, nodes, tensors, clock, base_rev=base_rev, seed=seed,
-                               timestamp=timestamp, change_signature=change_signature,
-                               structured_apply=structured_apply,
-                               signature_matcher=signature_matcher,
-                               statement_ops=statement_ops)
-
-    def _diff_lift(self, snaps, nodes, tensors, clock, *, base_rev, seed, timestamp,
-                   change_signature, structured_apply, signature_matcher,
-                   statement_ops) -> BuildAndDiffResult:
-        """:meth:`build_and_diff` after the scan."""
-        self.path = "two-program"
-        ts = timestamp or EPOCH_ISO
-        base, left, right = snaps
-        base_t, left_t, right_t = tensors
-        t_l, t_r = diff_lift_device_pair(base_t, left_t, right_t, self.device)
-        clock.lap("device_diff")
-        diffs_l = decode_diffs(t_l, base_t, left_t, nodes[0], nodes[1])
-        diffs_r = decode_diffs(t_r, base_t, right_t, nodes[0], nodes[2])
-        clock.lap("decode")
-        kw = dict(base_rev=base_rev, seed=seed, timestamp=ts,
-                  change_signature=change_signature, structured_apply=structured_apply,
-                  signature_matcher=signature_matcher, statement_ops=statement_ops)
-        return BuildAndDiffResult(
-            op_log_left=self._lift_side(diffs_l, base, left, nodes[0], nodes[1], clock,
-                                        side="L", **kw),
-            op_log_right=self._lift_side(diffs_r, base, right, nodes[0], nodes[2], clock,
-                                         side="R", **kw),
-            symbol_maps={key: symbol_map(n)
-                         for key, n in zip(("base", "left", "right"), nodes)},
-        )
-
-    def compose(self, delta_a: List[Op], delta_b: List[Op]):
-        """The two op logs composed on the backend's device:
-        ``(composed ops, conflicts)``."""
-        return compose_oplogs_device(delta_a, delta_b, self.device)
+        return self._diff_two_program(base, right, base_nodes, right_nodes, base_t, right_t,
+                                      clock, base_rev=base_rev, seed=seed, timestamp=ts,
+                                      change_signature=change_signature,
+                                      structured_apply=structured_apply,
+                                      signature_matcher=signature_matcher,
+                                      statement_ops=statement_ops)
 
     def merge(self, base: Snapshot, left: Snapshot, right: Snapshot,
               *, base_rev: str = "base", seed: str = "0",
@@ -467,3 +483,9 @@ def decode_diffs(t: DiffOpsTensor, base_t, side_t,
     return [Diff(kinds[k], a=bget(a), b=sget(b))
             for k, a, b in zip(t.kind[:n].tolist(), t.a_addr[:n].tolist(),
                                t.b_addr[:n].tolist())]
+
+
+#: The JAX package's four names of its TypeScript engines, which give the
+#: same bytes there: each is this engine on the device it is given.
+for _name in ("tpu", "ts_tpu", "host", "ts_host"):
+    register_backend(_name, TorchTSBackend)

@@ -60,15 +60,19 @@ onto ONTO: with ``--inplace`` into the work tree (the crash-safe
 commit), else into a temporary directory whose path it prints; exit 1
 when COMMIT has no note.
 
-The degradation ladder of ``semmerge`` has two rungs: the semantic merge
-on the device, then a whole-tree textual three-way merge (the JAX
-package's ``_textual_rung``: every file through the text layer, no
-formatter, no typecheck; "never worse than git merge"). A fault of the
-semantic rung moves the merge to the text rung, logged as "merge
-degrading torch -> text after ...", unless strict mode is on
-(``--no-degrade`` or ``SEMMERGE_STRICT=1``): then it exits with the
-fault's code and the work tree untouched. There is no rung that runs the
-engine on the host: a device fault never degrades, under any posture,
+The degradation ladder of ``semmerge`` (:func:`_merge_ladder`): the
+semantic merge on the engine in force, then a whole-tree textual
+three-way merge (the JAX package's ``_textual_rung``: every file through
+the text layer, no formatter, no typecheck; "never worse than git
+merge"). For the port's TypeScript engine these are the two rungs, and a
+fault of the semantic rung is logged as "merge degrading torch -> text
+after ..."; for the other engines (``subprocess``/``worker``, ``java``,
+``cs``, a routed ``multi``) the JAX middle rung ``host`` comes between:
+the port's engine on the same device, with the config's language
+routing. In strict mode (``--no-degrade`` or ``SEMMERGE_STRICT=1``) a
+fault exits with its code and the work tree untouched. There is no rung
+that runs the engine on the CPU: a device fault never degrades, under
+any posture,
 and exits with its own code — a ``KernelFault`` of the ``merge``,
 ``kernel`` or ``chain`` stage (11), no CUDA device (11), a failed
 ``nvcc`` build (11) or ``g++`` build of the native scanner (10). The
@@ -92,20 +96,28 @@ when the text rung itself fails, or (11 and 16, 10 for a failed build)
 on a device fault.
 
 ``--backend NAME`` and ``[engine] backend`` (the flag wins) name the
-engine as in the JAX CLI: ``tpu``, ``ts_tpu``, ``host`` and ``ts_host``,
-which give the same bytes there, run this port's engine on the device it
-was given (``host`` does not mean the CPU); a name the JAX CLI does not
-know logs its warning ("Backend 'NAME' unavailable (...); falling back
-to host") and runs as ``host``; the names of other engines are refused
-(below).
+engine as in the JAX CLI (:mod:`semantic_merge_tpu_torch.backends`):
+``tpu``, ``ts_tpu``, ``host`` and ``ts_host``, which give the same bytes
+there, run this port's TypeScript engine on the device it was given
+(``host`` does not mean the CPU); ``java``, ``cs`` and ``csharp`` the
+C-family engine of that language alone; ``subprocess`` and ``worker``
+the engine in a supervised child process (``[engine] worker_cmd``, by
+default ``python -m semantic_merge_tpu_torch.runtime.worker``, on this
+run's device). A name the JAX CLI does not know logs its warning
+("Backend 'NAME' unavailable (...); falling back to host") and runs as
+``host``. ``[languages.java|csharp|cs] enabled = true`` routes those
+files to their C-family engine beside the one in force
+(:mod:`semantic_merge_tpu_torch.backends.multi`): one run merges every
+enabled language semantically, and the text layer only the rest.
 
 ``.semmerge.toml`` applies as in the JAX package: ``[core]
 deterministic_seed``, ``memory_cap_mb`` (the decl cache's budget);
 ``[engine]`` ``change_signature``, ``signature_matcher``,
 ``signature_threshold``, ``matcher_ckpt_dir``, ``conflict_mode``,
 ``statement_ops``, ``structured_apply``, ``text_fallback``,
-``formatter_scope``, ``host_workers``; ``[languages.typescript]
-formatter_cmd``; ``[ci] require_typecheck``.
+``formatter_scope``, ``host_workers``, ``backend``, ``worker_cmd``;
+``[languages.typescript] formatter_cmd``; ``[languages.java|csharp|cs]
+enabled``; ``[ci] require_typecheck``.
 
 The merge service (:mod:`semantic_merge_tpu_torch.service`): ``serve``
 runs a warm daemon on a unix socket (default
@@ -147,24 +159,24 @@ CLI's do.
 
 Refused, with exit 70 before a revision is read or the work tree is
 touched, because the port does not implement what they select:
-``[languages.java|csharp|cs] enabled = true`` (another language's merge
-engine); ``--backend`` or ``[engine] backend`` naming another engine,
-``java``, ``cs``, ``csharp``, ``subprocess`` or ``worker`` (another
-language's engine, or ``worker_cmd``, another program); ``[engine] mesh = "require"`` or
+``[engine] mesh = "require"`` or
 ``SEMMERGE_MESH=require`` (a device mesh); ``SEMMERGE_FLEET=require``
 (the fleet router; ``auto`` finds none and falls through to the daemon
 posture, as the JAX client does); ``serve --socket tcp://...``,
 ``--join``, ``--advertise``, ``--capacity``, ``--member-id`` and
 ``--fleet`` (the fleet).
 
+``incremental`` scopes the scan to the files either side touched for
+every engine but the TypeScript engine alone (:func:`_snapshots`): the
+JAX CLI's collision guard makes the scope give the full tree's op logs
+for TypeScript only.
+
 Read by the JAX package and left alone here, since they do not change
-its output: ``incremental`` (its scope is collision-safe, so the full-tree
-diff here gives the same op logs), ``mesh = "off"|"auto"`` and
+its output: ``mesh = "off"|"auto"`` and
 ``mesh_shape`` (the sharded programs give the single-device bytes),
 ``max_nodes_per_bucket`` (padding only), ``parity_mode``, ``[core]
 formatter``, ``[languages.*] project_globs``, ``[ci] require_tests``
-(read, never used), ``worker_cmd`` (used only by the refused
-``subprocess`` backend).
+(read, never used).
 
 Telemetry (:mod:`semantic_merge_tpu_torch.obs`,
 :mod:`semantic_merge_tpu_torch.runtime.trace`), as the JAX CLI records
@@ -226,7 +238,9 @@ import traceback
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
 
-from .backends.ts_torch import BuildAndDiffResult, TorchTSBackend
+from .backends.base import BuildAndDiffResult, get_backend, run_merge
+from .backends.multi import route_backends
+from .backends.ts_torch import TorchTSBackend
 from .config import load_config, refused_environment, refused_settings, resolve_backend
 from .core.conflict import conflicts_payload
 from .core.strict_conflicts import detect_conflicts_strict
@@ -242,8 +256,9 @@ from .obs import spans as obs_spans
 from .runtime.applier import _normalize_relpath, apply_ops, touched_paths
 from .runtime.emitter import PRETTIER_EXTENSIONS, emit_files
 from .frontend.snapshot import annotate_residency
-from .runtime.git import (archive_bytes, checkout_tree_to_temp, commit_timestamp_iso,
-                          resolve_rev, snapshot_from_bytes, temp_tree, tree_oid)
+from .runtime.git import (archive_bytes, checkout_tree_to_temp, collision_safe_scope,
+                          commit_timestamp_iso, diff_scope, merge_scope, resolve_rev,
+                          snapshot_from_bytes, temp_tree, tree_oid)
 from .runtime.inplace import commit_tree_inplace, recover, repo_lock
 from .runtime.notes import notes_get, notes_put
 from .runtime.textmerge import apply_text_fallback
@@ -325,8 +340,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Engine, as the JAX CLI names it (overrides "
                             "[engine].backend): tpu, ts_tpu, host, ts_host run "
                             "this port's engine on its device; java, cs, "
-                            "csharp, subprocess, worker are refused (exit 70); "
-                            "any other name falls back to host with a warning")
+                            "csharp the C-family engine; subprocess, worker "
+                            "the engine in a supervised child process; any "
+                            "other name falls back to host with a warning")
     p_rebase = sub.add_parser("semrebase",
                               help="Replay a commit's stored op log onto a revision")
     p_rebase.add_argument("commit", help="Commit whose semmerge note holds the op log")
@@ -431,10 +447,25 @@ def _load_config(command: str, backend: str | None = None):
     resolved into ``engine.backend`` and the decl cache's budget applied;
     raises :class:`UnsupportedSetting` on a refused setting."""
     config = load_config()
-    _refuse(refused_settings(config, command, backend))
+    _refuse(refused_settings(config, command))
     config.engine.backend = resolve_backend(config, backend)
     configure_decl_cache(config.core.memory_cap_mb)
     return config
+
+
+def _build_backend(name: str, config, device: str | None):
+    """The engine ``name`` on ``device`` (the JAX CLI's
+    ``_resolve_backend``): the registry's backend
+    (:func:`~semantic_merge_tpu_torch.backends.base.get_backend`), wrapped
+    with one backend per language ``config`` enables beyond TypeScript
+    (:func:`~semantic_merge_tpu_torch.backends.multi.route_backends`),
+    then configured from ``config`` (``[engine] worker_cmd``)."""
+    backend = get_backend(name, device=device, host_workers=config.engine.host_workers)
+    backend = route_backends(backend, config, device=device) or backend
+    configure = getattr(backend, "configure", None)
+    if configure is not None:
+        configure(config)
+    return backend
 
 
 def _tracer(args: argparse.Namespace, device) -> Tracer:
@@ -443,30 +474,54 @@ def _tracer(args: argparse.Namespace, device) -> Tracer:
     return Tracer(enabled=args.trace, profile_dir=args.profile, cuda=device.type == "cuda")
 
 
-def _annotate_base(snap, rev: str) -> None:
+def _annotate_base(snap, rev: str, scope=None) -> None:
     """Key the base snapshot into the warm residency cache (inside the
-    merge service; the JAX CLI's ``annotate_residency`` calls): the base
-    tree repeats across a repository's merges, so a daemon serving the
-    repeats skips its scan, encode and h2d copy. The enabled check
-    comes first, so one-shot runs make no extra ``rev-parse``."""
+    merge service; the JAX CLI's ``annotate_residency`` calls), with its
+    incremental ``scope``: the base tree repeats across a repository's
+    merges, so a daemon serving the repeats skips its scan, encode and
+    h2d copy. The enabled check comes first, so one-shot runs make no
+    extra ``rev-parse``."""
     if residency.residency_enabled():
-        annotate_residency(snap, str(workdir.current()), tree_oid(rev))
+        annotate_residency(snap, str(workdir.current()), tree_oid(rev), scope=scope)
+
+
+def _snapshots(config, backend, tars, base: str, scope_of):
+    """The snapshots of ``tars`` (the base's first) and their scope. The
+    port's TypeScript engine alone scans the full tree: the JAX CLI's
+    incremental scope gives it the same op logs (its collision guard
+    falls back to the full tree whenever a restriction could change a
+    TypeScript join). Every other engine takes that scope as the JAX CLI
+    does (``[engine] incremental``, default on; ``scope_of()`` is
+    :func:`~semantic_merge_tpu_torch.runtime.git.merge_scope` or
+    ``diff_scope``), since the guard indexes TypeScript files only and a
+    Java or C# collision's survivor depends on it."""
+    scope = (scope_of() if backend.name != TorchTSBackend.name and config.engine.incremental
+             else None)
+    snaps = [snapshot_from_bytes(tar, paths=scope) for tar in tars]
+    if scope is not None and collision_safe_scope(scope, tars[0], resolve_rev(base),
+                                                  snaps) is None:
+        logger.info("incremental scope disabled: a scoped symbolId has an out-of-scope twin")
+        scope = None
+        snaps = [snapshot_from_bytes(tar) for tar in tars]
+    _annotate_base(snaps[0], base, scope)
+    return snaps, scope
 
 
 def semdiff(args: argparse.Namespace) -> SemdiffResult:
     """Run ``semdiff`` for parsed ``args`` in the working directory: the
     ``snapshot`` and ``diff`` phases of the JAX CLI's ``cmd_semdiff``."""
-    config = _load_config("semdiff", args.backend).engine
-    backend = TorchTSBackend(device=args.device, host_workers=config.host_workers)
+    full = _load_config("semdiff", args.backend)
+    config = full.engine
+    backend = _build_backend(config.backend, full, args.device)
     change_sig = args.change_signature or config.change_signature
     matcher = _signature_matcher(args, config, change_sig, backend.device)
     tracer = _tracer(args, backend.device)
     try:
         t0 = time.perf_counter()
         with tracer.phase("snapshot"):
-            base_snap = snapshot_from_bytes(archive_bytes(args.rev1))
-            right_snap = snapshot_from_bytes(archive_bytes(args.rev2))
-            _annotate_base(base_snap, args.rev1)
+            (base_snap, right_snap), _ = _snapshots(
+                full, backend, [archive_bytes(rev) for rev in (args.rev1, args.rev2)], args.rev1,
+                lambda: diff_scope(args.rev1, args.rev2))
         phases = {"snapshot": time.perf_counter() - t0}
         with tracer.phase("diff"):
             ops = backend.diff(base_snap, right_snap,
@@ -476,6 +531,7 @@ def semdiff(args: argparse.Namespace) -> SemdiffResult:
                                signature_matcher=matcher,
                                statement_ops=args.statement_ops or config.statement_ops)
     finally:
+        backend.close()
         tracer.close()
     phases.update(backend.phases)
     return SemdiffResult(ops=ops, matcher=matcher, phases=phases, tracer=tracer)
@@ -567,7 +623,7 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
     the degradation ladder under the run's :class:`Tracer`, whose
     artifacts are written on every exit path. A fault that ends the
     merge is reported here (:func:`_fail_fast`) and its code returned."""
-    backend = TorchTSBackend(device=args.device)  # no device: raises here
+    device = resolve_device(args.device)  # no device: raises here
     from . import batch
     if batch.posture() == "require" and batch.current() is None:
         # Outside the merge service no scheduler ever runs: fail before
@@ -592,9 +648,9 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
         # resolved before this merge touches anything.
         with repo_lock():
             recover()
-    tracer = _tracer(args, backend.device)
+    tracer = _tracer(args, device)
     try:
-        return _merge_ladder(args, config, backend, tracer)
+        return _merge_ladder(args, config, tracer)
     finally:
         tracer.write()
         publish_metrics()
@@ -606,34 +662,49 @@ def _breaker_open_fault(rung: str) -> MergeFault:
                        cause="breaker-open")
 
 
-def _merge_ladder(args: argparse.Namespace, config, backend: TorchTSBackend,
-                  tracer: Tracer) -> SemmergeResult:
-    """The degradation ladder of the JAX package's ``cli._merge_ladder``
-    without its host rung. The semantic attempt runs first; a
-    :class:`MergeFault` from it moves the merge to the textual rung
-    unless strict mode is on or it is a device fault
-    (:func:`~semantic_merge_tpu_torch.errors.is_device_fault`): then the
-    merge fails fast with the fault's code, as it does when the textual
-    rung itself fails.
+def _merge_ladder(args: argparse.Namespace, config, tracer: Tracer) -> SemmergeResult:
+    """The degradation ladder of the JAX package's ``cli._merge_ladder``.
+    The semantic attempt on the engine in force runs first. The port's
+    TypeScript engine (rung ``torch``) has no rung below it but the text
+    rung: the JAX host rung would run the same engine on the same device.
+    Every other engine (``subprocess``/``worker``, ``java``, ``cs``, a
+    routed ``multi``) has the JAX middle rung, ``host``: the port's
+    engine on the same device, re-resolved with the config's language
+    routing. A :class:`MergeFault` moves the merge one rung down,
+    recorded as a degradation, unless strict mode is on or it is a
+    device fault (:func:`~semantic_merge_tpu_torch.errors.is_device_fault`):
+    then the merge fails fast with the fault's code, as it does when the
+    textual rung itself fails.
 
-    The semantic rung consults its circuit breaker
+    Each rung consults its circuit breaker under its JAX rung name
     (:mod:`semantic_merge_tpu_torch.service.resilience`; a no-op outside
     the merge service unless ``SEMMERGE_BREAKER=on``): an open breaker
     skips the rung without an attempt, recorded as a degradation with
-    ``cause="breaker-open"`` (exit 12 in strict mode). A result (0, 1,
-    2, 17) counts as the rung's success, a fault that degrades as its
-    failure; a device fault does not count, since it never degrades and
-    must not open a way around the device."""
+    ``cause="breaker-open"`` (exit 12 in strict mode on the first rung).
+    A result (0, 1, 2, 17) counts as the rung's success, a fault that
+    degrades as its failure; a device fault does not count, since it
+    never degrades and must not open a way around the device."""
     board = breakers()
-    rung = backend.name
-    if not board.allow(rung):
-        fault = _breaker_open_fault(rung)
-        if _strict_mode(args):
-            return SemmergeResult(code=_fail_fast(fault))
-        _record_degradation(rung, "text", fault, tracer)
-    else:
+    backend = _build_backend(config.engine.backend, config, args.device)
+    rungs = [backend.name] + (["host"] if backend.name != TorchTSBackend.name else [])
+    for i, rung in enumerate(rungs):
+        below = rungs[i + 1] if i + 1 < len(rungs) else "text"
+        if not board.allow(rung):
+            if i == 0:
+                backend.close()
+            fault = _breaker_open_fault(rung)
+            if i == 0 and _strict_mode(args):
+                return SemmergeResult(code=_fail_fast(fault))
+            _record_degradation(rung, below, fault, tracer)
+            continue
         try:
-            out = _semantic_attempt(args, config, backend, tracer)
+            if i > 0:
+                with fault_boundary("merge"):
+                    backend = _build_backend("host", config, args.device)
+            try:
+                out = _semantic_attempt(args, config, backend, tracer)
+            finally:
+                backend.close()
             board.record_success(rung)
             return out
         except MergeFault as fault:
@@ -642,7 +713,7 @@ def _merge_ladder(args: argparse.Namespace, config, backend: TorchTSBackend,
             board.record_failure(rung)
             if _strict_mode(args):
                 return SemmergeResult(code=_fail_fast(fault))
-            _record_degradation(rung, "text", fault, tracer)
+            _record_degradation(rung, below, fault, tracer)
     t0 = time.perf_counter()
     try:
         code = _textual_rung(args, tracer)
@@ -651,16 +722,20 @@ def _merge_ladder(args: argparse.Namespace, config, backend: TorchTSBackend,
     return SemmergeResult(code=code, phases={"text_merge": time.perf_counter() - t0})
 
 
-def _semantic_attempt(args: argparse.Namespace, config, backend: TorchTSBackend,
+def _semantic_attempt(args: argparse.Namespace, config, backend,
                       tracer: Tracer) -> SemmergeResult:
     """The semantic rung (the JAX package's ``cli._semantic_attempt``).
     Returns the merge's result (exit 0, 1 or 2, or 17 under ``--resolve
     require``); raises :class:`MergeFault` when a stage fails, each
     stage inside a :class:`~semantic_merge_tpu_torch.errors.fault_boundary`
     that classifies its unexpected exceptions. In strict conflict mode
-    the op logs come from :meth:`TorchTSBackend.build_and_diff`, the
-    strict detection drops the conflicting ops from both, and the device
+    the op logs come from the backend's ``build_and_diff``, the strict
+    detection drops the conflicting ops from both, and the backend's
     compose merges the rest, its conflicts appended to the strict ones.
+    Otherwise the merge runs through
+    :func:`~semantic_merge_tpu_torch.backends.base.run_merge`: the
+    TypeScript engine's ``merge``, or ``build_and_diff`` then ``compose``
+    for the engines without one (C-family, routed, the worker).
 
     The tracer's phases and counters are the JAX CLI's: ``snapshot``,
     ``merge`` (or ``build_and_diff`` and ``compose``), ``resolve``,
@@ -668,7 +743,6 @@ def _semantic_attempt(args: argparse.Namespace, config, backend: TorchTSBackend,
     commit is its own spans. ``out.phases`` keeps the port's finer
     split (extract, apply, text, commit) from the same clock."""
     engine = config.engine
-    backend.host_workers = engine.host_workers
     change_sig = args.change_signature or engine.change_signature
     structured = args.structured_apply or engine.structured_apply
     strict = args.strict_conflicts or engine.conflict_mode == "strict"
@@ -688,8 +762,10 @@ def _semantic_attempt(args: argparse.Namespace, config, backend: TorchTSBackend,
 
     with tracer.phase("snapshot"), fault_boundary("snapshot"):
         base_tar, left_tar, right_tar = (archive_bytes(rev) for rev in (args.base, args.a, args.b))
-        snaps = [snapshot_from_bytes(tar) for tar in (base_tar, left_tar, right_tar)]
-        _annotate_base(snaps[0], args.base)
+        snaps, scope = _snapshots(config, backend, (base_tar, left_tar, right_tar), args.base,
+                                  lambda: merge_scope(args.base, args.a, args.b))
+        if scope is not None:
+            tracer.count("scope_files", len(scope))
     base_rev = resolve_rev(args.base)
     seed = args.seed or config.core.deterministic_seed
     if seed == "auto":
@@ -718,8 +794,7 @@ def _semantic_attempt(args: argparse.Namespace, config, backend: TorchTSBackend,
         lap("compose")
     else:
         with tracer.phase("merge", backend=backend.name), fault_boundary("merge"):
-            out.result, out.composed, out.conflicts = backend.merge(*snaps, **kw)
-            _count_merge(backend.name, out)
+            out.result, out.composed, out.conflicts = run_merge(backend, *snaps, **kw)
         phases.update(backend.phases)
     tracer.count("ops_left", len(out.result.op_log_left))
     tracer.count("ops_right", len(out.result.op_log_right))
@@ -831,19 +906,6 @@ def _semantic_attempt(args: argparse.Namespace, config, backend: TorchTSBackend,
     finally:
         if merged_tree is not None:
             shutil.rmtree(merged_tree, ignore_errors=True)
-
-
-def _count_merge(backend_name: str, out: SemmergeResult) -> None:
-    """The merge counters the JAX package's ``backends.base.run_merge``
-    records after a backend merge."""
-    reg = obs_metrics.REGISTRY
-    reg.counter("semmerge_merges_total",
-                "Three-way merges run, by backend").inc(1, backend=backend_name)
-    reg.counter("semmerge_ops_total", "Ops emitted by diff, by side").inc(
-        len(out.result.op_log_left), side="left")
-    reg.counter("semmerge_ops_total").inc(len(out.result.op_log_right), side="right")
-    reg.counter("semmerge_conflicts_total", "Merge conflicts surfaced").inc(
-        len(out.conflicts))
 
 
 def _textual_rung(args: argparse.Namespace, tracer: Tracer) -> int:

@@ -35,14 +35,22 @@ does:
     fast_window_s = 300.0
     slow_window_s = 3600.0
 
+    [engine]
+    backend = "tpu"                # the engine, as the JAX package names it
+    worker_cmd = ["prog", "arg"]   # the subprocess backend's worker
+    incremental = true             # scope the scan to changed files
+                                   # (read by the engines other than the
+                                   # TypeScript engine alone; cli.py)
+
+    [languages.java]               # also [languages.csharp] / [languages.cs]
+    enabled = true                 # route .java (.cs) files to that engine
+
 ``[engine] backend`` (or ``--backend``) names the engine as in the JAX
-package (:func:`resolve_backend`): the port's engine runs for the names
-the JAX package gives the same bytes for, and for names it does not
-know, which it runs as ``host``. It also reads three keys only to
-refuse values it does not implement (:func:`refused_settings`):
-``[engine] backend`` naming another engine, ``[engine] mesh`` and
-``[languages.<name>] enabled``, and refuses the environment postures
-of :func:`refused_environment`. Every other key leaves the output
+package (:func:`resolve_backend`, the names of
+``backends/base.py::get_backend``); a name it does not know runs as
+``host``. It reads ``[engine] mesh`` only to refuse ``"require"``
+(:func:`refused_settings`), and refuses the environment postures of
+:func:`refused_environment`. Every other key leaves the output
 unchanged; ``cli.py``'s docstring says why for each.
 """
 from __future__ import annotations
@@ -76,6 +84,8 @@ class EngineConfig:
     formatter_scope: str = "tree"
     host_workers: int = 0
     mesh: str = "auto"
+    worker_cmd: List[str] | None = None
+    incremental: bool = True
 
 
 @dataclass
@@ -155,6 +165,8 @@ def load_config(start: pathlib.Path | None = None) -> Config:
         host_workers=int(engine.get("host_workers", defaults.host_workers)),
         mesh=_validated(str(engine.get("mesh", defaults.mesh)).strip().lower(),
                         "engine.mesh", ("off", "auto", "require")),
+        worker_cmd=[str(c) for c in _as_list(engine.get("worker_cmd", []))] or None,
+        incremental=bool(engine.get("incremental", defaults.incremental)),
     )
     for lang, ldata in data.get("languages", {}).items():
         config.languages[lang] = LanguageConfig(
@@ -173,48 +185,28 @@ def load_config(start: pathlib.Path | None = None) -> Config:
     return config
 
 
-#: The JAX package's language backends other than TypeScript
-#: (``backends/multi.py::LANGUAGE_BACKENDS``): enabling one routes its
-#: files through another merge engine, which the port does not have.
-OTHER_LANGUAGES = ("cs", "csharp", "java")
-#: ``[engine] backend`` / ``--backend`` names that run the port's engine
-#: on the device it was given (``host`` is not the CPU: the port has no
-#: host engine). The four give the same bytes in the JAX package.
-PORTED_BACKENDS = ("tpu", "ts_tpu", "host", "ts_host")
-#: Names that select another of the JAX package's engines
-#: (``backends/base.py::get_backend``), which the port does not have.
-OTHER_BACKENDS = ("java", "cs", "csharp", "subprocess", "worker")
-
-
 def resolve_backend(config: Config, flag: str | None = None) -> str:
     """The engine name in force, as the JAX CLI's ``_resolve_backend``
     picks it: ``--backend`` (``flag``) over ``[engine] backend``. A name
-    of :data:`PORTED_BACKENDS` or :data:`OTHER_BACKENDS` comes back as it
-    is (:func:`refused_settings` refuses the latter); any other logs the
-    JAX CLI's warning and comes back as ``host``, its fallback."""
+    :func:`~semantic_merge_tpu_torch.backends.base.get_backend` knows
+    comes back as it is; any other logs the JAX CLI's warning and comes
+    back as ``host``, its fallback."""
+    from .backends.base import known_backend
     name = flag or config.engine.backend
-    if name in PORTED_BACKENDS or name in OTHER_BACKENDS:
+    if known_backend(name):
         return name
     logger.warning("Backend %r unavailable (%s); falling back to host", name,
-                   f"unknown backend {name!r}; known: "
-                   f"{', '.join(PORTED_BACKENDS + OTHER_BACKENDS)}")
+                   f"unknown backend {name!r}")
     return "host"
 
 
-def refused_settings(config: Config, command: str,
-                     backend_flag: str | None = None) -> List[str]:
-    """The settings in ``config``, ``--backend`` (``backend_flag``) and
-    the environment that would change the JAX package's op logs, tree,
-    conflicts artifact or exit code and that the port does not
-    implement, each as ``"name = value"``. The CLI refuses to run when
-    this is not empty."""
-    refused = [f"[languages.{lang}] enabled = true"
-               for lang in OTHER_LANGUAGES
-               if lang in config.languages and config.languages[lang].enabled]
-    if backend_flag in OTHER_BACKENDS:
-        refused.append(f"--backend {backend_flag}")
-    elif not backend_flag and config.engine.backend in OTHER_BACKENDS:
-        refused.append(f"[engine] backend = {config.engine.backend!r}")
+def refused_settings(config: Config, command: str) -> List[str]:
+    """The settings in ``config`` and the environment that would change
+    the JAX package's op logs, tree, conflicts artifact or exit code and
+    that the port does not implement (a device mesh, the fleet), each as
+    ``"name = value"``. The CLI refuses to run when this is not empty.
+    No engine name is refused: every one runs."""
+    refused = []
     mesh_env = (reqenv.get("SEMMERGE_MESH") or "").strip().lower()
     if not mesh_env and config.engine.mesh == "require":
         refused.append('[engine] mesh = "require"')

@@ -152,6 +152,8 @@ STAGE_FAULTS = {
     "format": FormatFault,
     "emit": FormatFault,
     "verify": DeadlineFault,
+    "worker": WorkerFault,
+    "worker-serve": WorkerFault,
     "service:accept": WorkerFault,
     "service:dispatch": WorkerFault,
     "service:execute": WorkerFault,

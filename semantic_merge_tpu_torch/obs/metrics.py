@@ -407,6 +407,17 @@ def phase_totals() -> Dict[str, float]:
     return out
 
 
+def phase_totals_since(before: Dict[str, float]) -> Dict[str, float]:
+    """Per-phase wall-seconds delta against a :func:`phase_totals`
+    snapshot (the worker scopes one request's phases with it)."""
+    out = {}
+    for name, total in phase_totals().items():
+        delta = total - before.get(name, 0.0)
+        if delta > 0.0:
+            out[name] = delta
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Exit dump (SEMMERGE_METRICS=path)
 

@@ -355,11 +355,15 @@ class Daemon:
     def _configure_process_env(self) -> None:
         """The daemon's own process posture: never self-delegate, keep
         normal GC cadence (``utils/gctune``: freezing per-request
-        garbage into the permanent generation would leak it); the
-        breakers and warm residency read ``_SEMMERGE_IN_DAEMON``."""
+        garbage into the permanent generation would leak it), share one
+        supervised subprocess worker across requests
+        (``backends/subproc.py``: each one-shot worker pays its own CUDA
+        start); the breakers and warm residency read
+        ``_SEMMERGE_IN_DAEMON``."""
         os.environ["_SEMMERGE_IN_DAEMON"] = "1"
         os.environ["SEMMERGE_DAEMON"] = "off"
         os.environ["SEMMERGE_GC_TUNE"] = "0"
+        os.environ["SEMMERGE_WORKER_KEEPALIVE"] = "1"
 
     def _bind(self):
         """The listening socket; ``None`` when a live port daemon owns
@@ -459,6 +463,8 @@ class Daemon:
             time.sleep(0.05)
         from .. import batch
         batch.deactivate()
+        from ..backends.subproc import shutdown_shared
+        shutdown_shared()
         if self._telemetry is not None:
             self._telemetry.stop()
         if self._recorder is not None:

@@ -8,12 +8,17 @@ commit without contriving real failures. The variable names ONE spec::
     SEMMERGE_FAULT=scan:raise          # RuntimeError on every scan hit
     SEMMERGE_FAULT=apply:fault:2       # ApplyFault on the 2nd hit only
     SEMMERGE_FAULT=commit:kill         # SIGKILL self mid-commit
+    SEMMERGE_FAULT=worker-serve:hang=30   # the worker wedges for 30 s
     SEMMERGE_FAULT=resolver:propose:fault
 
 =================  ===================================================
 stage              call site
 =================  ===================================================
 scan               ``frontend.scanner.scan_snapshot_keyed``
+worker             ``backends.subproc.SubprocessBackend._call`` (client)
+worker-serve       ``runtime.worker.serve`` request loop (the worker
+                   process; kinds ``hang``, ``exit``, ``kill`` and
+                   ``garbage``, which answers a line that is not JSON)
 kernel             ``ops.fused.FusedMergeEngine.merge`` (dispatch)
 apply              ``runtime.applier.apply_ops``
 emit               ``runtime.emitter.emit_files``

@@ -12,9 +12,12 @@
 - A daemon-served ``semmerge --inplace --backend tpu`` (a port daemon on
   the CPU, ``SEMMERGE_DAEMON=require``) gives the one-shot JAX CLI's
   bytes: the flag survives the wire.
-- The names of other engines (``java``, ``cs``, ``csharp``,
-  ``subprocess``, ``worker``), by flag or by key, exit 70 before the work
-  tree is touched, as ``tests/test_torch_strict.py``'s refused settings.
+- The names of the other engines (``java``, ``cs``, ``csharp``,
+  ``subprocess``, ``worker``), by flag or by key, in the same repository
+  with an interrupted commit's journal left in it: the JAX CLI's exit
+  code, stdout, work tree, ``git status`` and notes for ``semdiff`` and
+  ``semmerge --inplace`` (the port refused these names before it had
+  those engines).
 - Without a card and without ``--device cpu`` a name that runs the port's
   engine still exits 2 (``semdiff``) or 11 (``semmerge``): ``host`` does
   not mean the CPU.
@@ -28,13 +31,15 @@ import pytest
 import torch
 
 from semantic_merge_tpu_torch import cli
-from semantic_merge_tpu_torch.config import (OTHER_BACKENDS, PORTED_BACKENDS, load_config,
-                                             refused_settings, resolve_backend)
+from semantic_merge_tpu_torch.config import load_config, refused_settings, resolve_backend
 
 from test_torch_service import (REPOS, WAIT, _env, make_repo, notes, start_daemon, status,
                                 stop, tree_bytes, wait_for_hello)
 from test_torch_strict import _git_status, _run_all
 
+#: The names of the port's TypeScript engine, and of the other engines.
+PORTED_BACKENDS = ("tpu", "ts_tpu", "host", "ts_host")
+OTHER_BACKENDS = ("java", "cs", "csharp", "subprocess", "worker")
 UNKNOWN = "bogus"
 WARNING = f"Backend '{UNKNOWN}' unavailable"
 COMMANDS = {"semdiff": ["semdiff", "basebr", "brA", "--json-out"],
@@ -135,28 +140,53 @@ def test_daemon_serves_the_backend_flag_with_the_one_shot_bytes(runs, served):
     assert served["notes"] == want["notes"]
 
 
+#: An interrupted ``--inplace`` commit's journal and stage: each merge
+#: rolls it forward before anything else.
+JOURNAL = '{"schema": 1, "state": "committing", "writes": ["src/util.ts"], "deletes": []}'
+
+
+@pytest.fixture(scope="module")
+def other_runs(runs, tmp_path_factory):
+    """Each other engine's name, by flag and by key, through both CLIs
+    (``semmerge --inplace`` then ``semdiff`` in one copy per package)."""
+    work = tmp_path_factory.mktemp("backend_other")
+    jobs, roots = {}, {}
+    for name in OTHER_BACKENDS:
+        for via in ("flag", "key"):
+            for side, module, extra in (("jax", "semantic_merge_tpu", []),
+                                        ("port", "semantic_merge_tpu_torch",
+                                         ["--device", "cpu"])):
+                root = roots[name, via, side] = work / f"{name}-{via}-{side}"
+                shutil.copytree(runs["origin"], root)
+                if via == "key":
+                    (root / ".semmerge.toml").write_text(f'[engine]\nbackend = "{name}"\n')
+                (root / ".semmerge-journal.json").write_text(JOURNAL)
+                (root / ".semmerge-stage" / "src").mkdir(parents=True)
+                (root / ".semmerge-stage" / "src" / "util.ts").write_text("staged\n")
+                flag = ["--backend", name] if via == "flag" else []
+                jobs[name, via, side] = (root, [module, *COMMANDS["semmerge"], *flag, *extra])
+    out = {key: {"merge": (code, stdout)} for key, (code, stdout, _)
+           in _run_all(jobs, _env()).items()}
+    for key in jobs:
+        root, argv = jobs[key]
+        jobs[key] = (root, [argv[0], *COMMANDS["semdiff"], *argv[len(COMMANDS["semmerge"]) + 1:]])
+    for key, (code, stdout, _) in _run_all(jobs, _env()).items():
+        root = roots[key]
+        out[key].update(diff=(code, stdout), tree=tree_bytes(root), notes=notes(root),
+                        status=_git_status(root))
+    return out
+
+
 @pytest.mark.parametrize("via", ["flag", "key"])
 @pytest.mark.parametrize("name", OTHER_BACKENDS)
-def test_other_engines_exit_70_before_touching_the_tree(tmp_path, monkeypatch, capsys, name,
-                                                        via):
-    repo = _repo(tmp_path / "repo", f'[engine]\nbackend = "{name}"\n' if via == "key" else None)
-    # A journal an interrupted --inplace commit left: the merge would
-    # roll it forward before anything else, were the name not refused.
-    (repo / ".semmerge-journal.json").write_text(
-        '{"schema": 1, "state": "committing", "writes": ["src/util.ts"], "deletes": []}')
-    (repo / ".semmerge-stage" / "src").mkdir(parents=True)
-    (repo / ".semmerge-stage" / "src" / "util.ts").write_text("staged\n")
-    before, git_status = tree_bytes(repo), _git_status(repo)
-    monkeypatch.setenv("SEMMERGE_DAEMON", "off")
-    monkeypatch.chdir(repo)
-    flag = ["--backend", name] if via == "flag" else []
-    named = f"--backend {name}" if via == "flag" else f"[engine] backend = {name!r}"
-    for command in COMMANDS.values():
-        capsys.readouterr()
-        assert cli.main([*command, *flag, "--device", "cpu"]) == 70
-        err = capsys.readouterr().err
-        assert "UnsupportedSetting" in err and named in err
-    assert tree_bytes(repo) == before and _git_status(repo) == git_status
+def test_other_engines_exit_70_before_touching_the_tree(other_runs, name, via):
+    """Named for when the port refused these engines (exit 70, the tree
+    untouched): they run now, and give the JAX CLI's answer."""
+    want, got = other_runs[name, via, "jax"], other_runs[name, via, "port"]
+    assert want["merge"][0] in (0, 1)
+    assert got == want
+    # The journal was rolled forward, then the merge ran.
+    assert not (set(got["tree"]) & {".semmerge-journal.json"})
 
 
 @pytest.mark.parametrize("command,code", [("semdiff", 2), ("semmerge", 11)])
@@ -189,7 +219,5 @@ def test_resolve_backend_puts_the_flag_over_the_key(tmp_path, monkeypatch, caplo
         assert resolve_backend(config, flag) == want
     warned = [r.getMessage() for r in caplog.records if "falling back to host" in r.getMessage()]
     assert bool(warned) == ((flag or key) == UNKNOWN)
-    refused = refused_settings(config, "semmerge", flag)
-    assert refused == ([f"--backend {flag}"] if flag in OTHER_BACKENDS else
-                       [f"[engine] backend = {key!r}"] if not flag and key in OTHER_BACKENDS
-                       else [])
+    # No engine name is refused: every one runs.
+    assert refused_settings(config, "semmerge") == []

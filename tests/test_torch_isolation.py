@@ -14,6 +14,11 @@
   import the standard library only (and their own package); the
   native scanner is the port's own build of its own copy of the C++
   source, never the JAX package's ``native/`` library.
+- The other languages and the worker seam (``frontend/cfamily.py``,
+  ``backends/``, ``runtime/worker.py``) are among them, and the
+  subprocess backend's default worker is the port's own
+  (``semantic_merge_tpu_torch.runtime.worker``), never the JAX
+  package's, on the card unless the caller is on the CPU.
 - Without a CUDA device the CLI's three commands and ``train-matcher``
   (without ``--device cpu``) and
   ``chip_smoke.py`` exit non-zero and say why; neither carries on on
@@ -153,6 +158,35 @@ def test_training_modules_are_checked_and_stand_alone(module):
     path = PORT / module
     assert path in _port_sources()
     assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+#: The other languages and the worker seam: the C-family scanner, the
+#: backend registry, the C-family, routing and subprocess backends, the
+#: worker.
+LANGUAGE_MODULES = ("frontend/cfamily.py", "backends/base.py", "backends/cfamily.py",
+                    "backends/java.py", "backends/cs.py", "backends/multi.py",
+                    "backends/subproc.py", "runtime/worker.py", "runtime/git.py",
+                    "config.py")
+
+
+@pytest.mark.parametrize("module", LANGUAGE_MODULES)
+def test_language_and_worker_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    roots = _imported_roots(path)
+    assert not roots & set(FORBIDDEN), roots
+    text = path.read_text()
+    assert "semantic_merge_tpu." not in text.replace("semantic_merge_tpu_torch.", "")
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_default_worker_argv_names_only_the_port(device):
+    from semantic_merge_tpu_torch.backends.subproc import default_worker_cmd
+    argv = default_worker_cmd(device)
+    modules = [a for a in argv if a.startswith("semantic_merge_tpu")]
+    assert modules == ["semantic_merge_tpu_torch.runtime.worker"]
+    assert ("--device" in argv) == (device == "cpu")
+    assert argv[argv.index("-m") - 1] == sys.executable
 
 
 def test_client_path_imports_no_torch():

@@ -276,12 +276,15 @@ def test_a_shipped_setting_never_reaches_the_daemons_posture(gc_state, monkeypat
 
 def test_the_daemon_turns_the_posture_off(monkeypatch):
     from semantic_merge_tpu_torch.service.daemon import Daemon
-    for key in ("SEMMERGE_GC_TUNE", "SEMMERGE_DAEMON", "_SEMMERGE_IN_DAEMON"):
+    for key in ("SEMMERGE_GC_TUNE", "SEMMERGE_DAEMON", "_SEMMERGE_IN_DAEMON",
+                "SEMMERGE_WORKER_KEEPALIVE"):
         monkeypatch.setenv(key, "unset")  # recorded, so the posture is undone after
         monkeypatch.delenv(key)
     daemon = Daemon.__new__(Daemon)  # only its process posture, nothing bound
     daemon._configure_process_env()
     assert os.environ["SEMMERGE_GC_TUNE"] == "0" and os.environ["SEMMERGE_DAEMON"] == "off"
+    # The daemon also shares one kept-alive subprocess worker.
+    assert os.environ["SEMMERGE_WORKER_KEEPALIVE"] == "1"
 
 
 #: A command line per CLI command, each of which ends without a daemon,

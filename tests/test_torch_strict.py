@@ -21,7 +21,12 @@ the JAX package.
   ``.semmerge.toml``: exit code, stdout, work tree (with
   ``.semmerge-conflicts.json``) and notes byte-identical.
 - Refused settings: each exits 70 before it reads a revision, leaving
-  the work tree and ``git status`` as they were.
+  the work tree and ``git status`` as they were. The other languages and
+  the worker seam, refused before the port had them
+  (``[languages.java|csharp|cs] enabled``, ``[engine] backend =
+  "subprocess"``), now run: in the same repository (an interrupted
+  commit's journal and all) the port's exit code, stdout, work tree,
+  ``git status`` and notes equal the JAX CLI's.
 """
 import json
 import os
@@ -464,6 +469,9 @@ REFUSED = {
                                     "SEMMERGE_DAEMON=require"),
     "batch_require": ("", {"SEMMERGE_BATCH": "require"}, "SEMMERGE_BATCH=require"),
 }
+#: Settings the port now runs, as the JAX CLI does (they were refused
+#: before it had the C-family engines and the worker seam).
+NOW_RUN = frozenset({"java_enabled", "csharp_enabled", "cs_enabled", "subprocess_backend"})
 #: Postures the merge service now serves: outside it they still fail
 #: before the tree is touched, with their own codes — ``require`` with
 #: no daemon on the socket exits 12 (WorkerFault), ``SEMMERGE_BATCH=
@@ -510,6 +518,9 @@ def test_refused_setting_exits_before_touching_the_tree(tmp_path, monkeypatch, c
     monkeypatch.setenv("SEMMERGE_SERVICE_SOCKET", str(tmp_path / "no-daemon.sock"))
     monkeypatch.setenv("SEMMERGE_SERVICE_RETRIES", "0")
     monkeypatch.setattr(service_client, "_spawn_daemon", lambda path, device=None: _DeadProc())
+    if name in NOW_RUN:
+        _matches_the_jax_cli(tmp_path, repo, monkeypatch, capsys)
+        return
     monkeypatch.chdir(repo)
     code = cli.main(["semmerge", "basebr", "branch-a", "branch-b", "--inplace",
                      "--device", "cpu"])
@@ -524,6 +535,30 @@ def test_refused_setting_exits_before_touching_the_tree(tmp_path, monkeypatch, c
     assert _tree_bytes(repo) == before and _git_status(repo) == status
     if not name.startswith("batch"):  # semdiff refuses them too
         assert cli.main(["semdiff", "basebr", "branch-a", "--device", "cpu"]) == want_code
+
+
+def _matches_the_jax_cli(tmp_path, repo, monkeypatch, capsys):
+    """``semmerge --inplace`` then ``semdiff`` in ``repo`` (in process)
+    and in a copy of it through the JAX CLI: the same exit codes,
+    stdout, work trees, ``git status`` and notes after each."""
+    jax_repo = tmp_path / "jax"
+    shutil.copytree(repo, jax_repo)
+    env = {k: v for k, v in os.environ.items()
+           if k != "XLA_FLAGS" and not k.startswith("SEMMERGE_")}
+    env.update(PYTHONPATH=str(REPO_ROOT), JAX_PLATFORMS="cpu", SEMMERGE_DAEMON="off")
+    monkeypatch.chdir(repo)
+    for argv in (["semmerge", "basebr", "branch-a", "branch-b", "--inplace"],
+                 ["semdiff", "basebr", "branch-a"]):
+        want = subprocess.run([sys.executable, "-m", "semantic_merge_tpu", *argv], cwd=jax_repo,
+                              env=env, capture_output=True, text=True, timeout=300)
+        capsys.readouterr()
+        code = cli.main([*argv, "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert (code, out) == (want.returncode, want.stdout), want.stderr
+        assert _tree_bytes(repo) == _tree_bytes(jax_repo)
+        assert _git_status(repo) == _git_status(jax_repo)
+        assert [_notes(repo, r) for r in ("branch-a", "branch-b")] == \
+            [_notes(jax_repo, r) for r in ("branch-a", "branch-b")]
 
 
 @pytest.mark.parametrize("backend", ["host", "bogus"])
