@@ -231,6 +231,32 @@ Phases, each fatal on failure, each printing its seconds:
    shipped and with ``=0``: byte-identical outputs (op log; exit code,
    stdout, tree, notes); prints every child's wall and its seconds per
    phase (``SEMMERGE_METRICS``).
+7c. fleet, on the rung3 repository: ``fleet --members 2`` (a router on
+   a socket under the scratch directory, two members it supervises) and
+   ``serve --socket tcp://127.0.0.1:0 --join SOCKET --member-id t0``,
+   three CUDA processes beside this one; hedging pushed out of reach,
+   so each request runs on its rendezvous owner. Prints each member's
+   seconds from its start to the ring; every member's status must name
+   the card (``stats --daemon --fleet``). Under
+   ``SEMMERGE_FLEET=require``, from client processes in a clone whose
+   owner is a supervised member: the fused ``semmerge base side other
+   --inplace`` (exit code, tree and notes equal to this process's run of
+   the same merge in another clone; the owner's ``sha256`` launches
+   equal that run's) and the matcher semdiff (its op log; the owner's
+   ``flash_chunk`` launches equal the in-process run's), the launches
+   read from the members' status through the router. Then the owner is
+   SIGKILLed: the next request (a fused semdiff over the wire) is
+   answered by another member's pid, ``fleet_failovers_total`` >= 1.
+   The TCP member drains, leaves (``fleet --drain t0``, ``--leave t0``)
+   and drains to exit 0 on SIGTERM. With both supervised members back
+   and drained (an empty ring), a ``semmerge --inplace`` client
+   (``SEMMERGE_SERVICE_RETRIES=0``) is journaled; the router is
+   SIGKILLed (the client exits 19, its tree untouched) and restarted:
+   the replay runs the merge once (no dispatch before the kill; one
+   dispatch, one ack, one payload; one request served by the new
+   members; tree and notes the in-process merge's). Last a SIGTERM
+   drains the router to exit 0, and no member process is left. Prints
+   every wall beside the card's name and power limit.
 8. reference: small inputs on the card and on the CPU must give
    identical op logs (a matcher semdiff) and identical exit codes,
    trees, conflicts and notes (fused semmerges, one with a
@@ -2655,6 +2681,377 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
     return out
 
 
+# --- the fleet phase ---------------------------------------------------------
+
+#: The fleet phase's time budget (seconds): printed beside its wall.
+FLEET_BUDGET_S = 150.0
+#: The TCP member's id (``serve --join ... --member-id``).
+FLEET_TCP_ID = "t0"
+
+
+def _fleet_env(sock: pathlib.Path, **extra) -> dict:
+    """A fleet process's environment: the service socket, a fast health
+    tick, and hedging pushed out of reach, so each request runs on its
+    rendezvous owner and the owner's launch counts are the request's."""
+    return _svc_env(sock, SEMMERGE_FLEET_HEALTH_INTERVAL="0.25",
+                    SEMMERGE_FLEET_HEDGE_MS="600000", SEMMERGE_FLEET_HEDGE_CAP_MS="600000",
+                    SEMMERGE_FLEET_JOIN_INTERVAL="1", **extra)
+
+
+def _fleet_status(sock: pathlib.Path):
+    from semantic_merge_tpu_torch.service import client
+    try:
+        return client.call_control("status", path=str(sock), timeout=30)
+    except client.DaemonUnavailable:
+        return None
+
+
+def _fleet_cli(sock: pathlib.Path, cwd: pathlib.Path, argv: list, **env):
+    """One CLI process of the port, as a user runs it: its result and
+    wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "semantic_merge_tpu_torch", *argv], cwd=cwd,
+                          env=_fleet_env(sock, **env), stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, timeout=600)
+    return proc, time.perf_counter() - t0
+
+
+def _start_router(sock: pathlib.Path, log) -> subprocess.Popen:
+    return started(subprocess.Popen(
+        [sys.executable, "-m", "semantic_merge_tpu_torch", "fleet", "--socket", str(sock),
+         "--members", "2"], cwd=WORK, stdout=log, stderr=subprocess.STDOUT,
+        env=_fleet_env(sock), start_new_session=True))
+
+
+def _await_ring(sock: pathlib.Path, router: subprocess.Popen, want: int, starts: dict,
+                limit_s: float = 180.0) -> dict:
+    """Polls the router's status until ``want`` members are in the ring;
+    ``starts`` maps a member id to the moment its process was started
+    (``perf_counter``), and gets each member's seconds to the ring."""
+    t0, ring_at = time.perf_counter(), {}
+    while True:
+        st = _fleet_status(sock)
+        for m in (st or {}).get("members", []):
+            if m["in_ring"] and m["id"] not in ring_at:
+                ring_at[m["id"]] = time.perf_counter()
+        if st is not None and st["members_up"] >= want:
+            return {"status": st, "start_s": {mid: at - starts.get(mid, t0)
+                                              for mid, at in sorted(ring_at.items())}}
+        if router.poll() is not None:
+            fail(f"the fleet router exited {router.returncode}: "
+                 f"{(WORK / 'fleet.log').read_text()[-3000:]}")
+        if time.perf_counter() - t0 > limit_s:
+            fail(f"{want} fleet members not up within {limit_s:.0f} s: {json.dumps(st)}")
+        time.sleep(0.2)
+
+
+def _fleet_members(sock: pathlib.Path, cli: bool = False) -> dict:
+    """The router's status and every member's own (``member_status``,
+    what ``stats --daemon --fleet --json`` prints): from this process,
+    or with ``cli`` from a client process running that command."""
+    if not cli:
+        from semantic_merge_tpu_torch.service import client
+        return client.call_control("member_status", path=str(sock), timeout=60)
+    proc, _ = _fleet_cli(sock, WORK, ["stats", "--daemon", "--fleet", "--json"])
+    if proc.returncode != 0:
+        fail(f"stats --daemon --fleet exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)
+
+
+def _launch_delta(after: dict, before: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in sorted(set(after) | set(before))}
+
+
+def _alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie does not)."""
+    try:
+        stat = pathlib.Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+def _owned_clone(rung3: pathlib.Path, ckpt: pathlib.Path, stem: str, ring: list,
+                 local: set) -> tuple:
+    """A clone of the rung3 repository at side whose rendezvous owner in
+    ``ring`` is a router-spawned member (so a SIGKILL of the owner is a
+    crash its supervisor answers)."""
+    from semantic_merge_tpu_torch.fleet import hashring
+    for i in range(64):
+        clone = WORK / f"{stem}{i}"
+        owner = hashring.owner(hashring.repo_key(str(clone)), ring)
+        if owner in local:
+            _clone_at_side(rung3, clone, ckpt)
+            return clone, owner
+    fail(f"no clone name of 64 hashes to a local member of {ring}")
+
+
+def run_fleet_phase(torch, rung3: pathlib.Path, ckpt: pathlib.Path) -> dict:
+    """The fleet on the card: ``fleet --members 2`` and one ``serve
+    --socket tcp://127.0.0.1:0 --join`` member, three CUDA processes;
+    the routed fused semmerge (tree, notes and exit code of the
+    in-process merge of a copy; ``sha256`` in the owner) and matcher
+    semdiff (op log of the in-process one; ``flash_chunk`` in the
+    owner), read from the members through ``stats --daemon --fleet``; a
+    SIGKILL of the owner (the survivor answers, ``fleet_failovers_total``
+    >= 1); the TCP member drained and left; the router SIGKILLed with a
+    request journaled but not acked, restarted, and the WAL replay's
+    one effect; the router drained, no process left. Returns what it
+    measured."""
+    from semantic_merge_tpu_torch.fleet import wal as fleet_wal
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    sock = WORK / "fleet.sock"
+    wal_dir = pathlib.Path(fleet_wal.default_dir(str(sock)))
+    log = open(WORK / "fleet.log", "wb")
+    tcp_log = open(WORK / "fleet_tcp.log", "wb")
+    router = tcp = None
+    pids: set = set()
+    try:
+        # 1. The router with two members, and a TCP member that joins it;
+        # they start while this process runs the in-process references.
+        t0 = time.perf_counter()
+        router = _start_router(sock, log)
+        while _fleet_status(sock) is None:
+            if router.poll() is not None or time.perf_counter() - t0 > 60:
+                fail(f"the fleet router did not answer: "
+                     f"{(WORK / 'fleet.log').read_text()[-3000:]}")
+            time.sleep(0.1)
+        t_tcp = time.perf_counter()
+        tcp = started(subprocess.Popen(
+            [sys.executable, "-m", "semantic_merge_tpu_torch", "serve", "--socket",
+             "tcp://127.0.0.1:0", "--join", str(sock), "--member-id", FLEET_TCP_ID,
+             "--idle-exit", "0"], cwd=WORK, stdout=tcp_log, stderr=subprocess.STDOUT,
+            env=_fleet_env(sock)))
+        out.update(_fleet_steps(torch, rung3, ckpt, sock, wal_dir, log, router, tcp,
+                                {"m0": t0, "m1": t0, FLEET_TCP_ID: t_tcp}, pids))
+        router = out.pop("router")
+    finally:
+        for proc in (router, tcp):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        log.close()
+        tcp_log.close()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["budget_s"] = FLEET_BUDGET_S
+    return out
+
+
+def _fleet_steps(torch, rung3: pathlib.Path, ckpt: pathlib.Path, sock: pathlib.Path,
+                 wal_dir: pathlib.Path, log, router: subprocess.Popen,
+                 tcp: subprocess.Popen, starts: dict, pids: set) -> dict:
+    """Steps 2-7 of the fleet phase, on a router and TCP member just
+    started (``starts``: when each member's process was). Returns what
+    they measured, and the router process last running under
+    ``"router"``."""
+    from semantic_merge_tpu_torch.fleet import wal as fleet_wal
+
+    out: dict = {}
+    # The in-process references, on a copy.
+    ref = WORK / "fleet_ref"
+    _clone_at_side(rung3, ref, ckpt)
+    matcher_argv = ["semdiff", "base", "side", "--json-out", "--change-signature",
+                    "--signature-matcher"]
+    from semantic_merge_tpu_torch import cli
+    result, ref_semdiff_launches, _, _, _ = run_cli(torch, ref, matcher_argv)
+    ref_semdiff = _digest(cli.render(result.ops, True) + "\n")
+    result, _, _, _, _ = run_cli(torch, ref, ["semdiff", "base", "side", "--json-out"])
+    ref_fused_semdiff = _digest(cli.render(result.ops, True) + "\n")
+    merged, ref_merge_launches, _, ref_wall, _ = run_cli(
+        torch, ref, ["semmerge", "base", "side", "other", "--inplace"])
+    ref_tree = _work_tree(ref)
+    ref_notes = {rev: _note(ref, rev) for rev in ("side", "other")}
+    out["in_process"] = {"semmerge_wall_s": ref_wall, "semmerge_launches": ref_merge_launches,
+                         "semdiff_launches": ref_semdiff_launches}
+    # 2. Three members up, each on the card.
+    up = _await_ring(sock, router, 3, starts)
+    out["member_start_s"] = up["start_s"]
+    print(f"fleet: 3 members up; seconds from each member's start to the ring "
+          f"{json.dumps(up['start_s'])} (the in-process rung3 fused semmerge: "
+          f"{ref_wall:.3f} s)", flush=True)
+    agg = _fleet_members(sock)
+    devices = {mid: (m.get("device") or {}).get("platform")
+               for mid, m in agg["members"].items()}
+    if devices != {"m0": "gpu", "m1": "gpu", FLEET_TCP_ID: "gpu"}:
+        fail(f"the fleet's members are not all on the card: {devices}")
+    pids |= {m["pid"] for m in agg["members"].values()}
+    ring = sorted(devices)
+
+    # 3. Routed merges under SEMMERGE_FLEET=require, in a clone whose
+    # owner is a router-spawned member.
+    route, owner = _owned_clone(rung3, ckpt, "fleet_route", ring, {"m0", "m1"})
+    before = agg["members"][owner]["device"]["launches"]
+    proc, wall = _fleet_cli(sock, route, ["semmerge", "base", "side", "other", "--inplace"],
+                            SEMMERGE_FLEET="require")
+    if (proc.returncode, merged.code) != (0, 0):
+        fail(f"the routed semmerge exited {proc.returncode} (in process: {merged.code}): "
+             f"{proc.stderr[-2000:]}")
+    if _work_tree(route) != ref_tree:
+        fail("the routed semmerge's tree differs from the in-process merge's")
+    if {rev: _note(route, rev) for rev in ("side", "other")} != ref_notes:
+        fail("the routed semmerge's notes differ from the in-process merge's")
+    agg = _fleet_members(sock)
+    merge_launches = _launch_delta(agg["members"][owner]["device"]["launches"], before)
+    if merge_launches["sha256"] != ref_merge_launches["sha256"] or \
+            merge_launches["sha256"] < 1:
+        fail(f"the owner {owner} launched {merge_launches} for the routed semmerge "
+             f"(in process: {ref_merge_launches})")
+    out["routed_semmerge"] = {"client_wall_s": wall, "owner": owner,
+                              "owner_launches": merge_launches}
+    before = agg["members"][owner]["device"]["launches"]
+    proc, wall = _fleet_cli(sock, route, matcher_argv, SEMMERGE_FLEET="require")
+    if proc.returncode != 0 or _digest(proc.stdout) != ref_semdiff:
+        fail(f"the routed matcher semdiff exited {proc.returncode} or gave another op log "
+             f"than the in-process one: {proc.stderr[-2000:]}")
+    # 4. The owner's launches, read from its status through the router:
+    # here per request, and by `stats --daemon --fleet` in all.
+    agg = _fleet_members(sock)
+    semdiff_launches = _launch_delta(agg["members"][owner]["device"]["launches"], before)
+    shown = _fleet_members(sock, cli=True)["members"][owner]["device"]["launches"]
+    if shown != agg["members"][owner]["device"]["launches"] or shown["sha256"] != \
+            merge_launches["sha256"] or shown["flash_chunk"] != \
+            semdiff_launches["flash_chunk"]:
+        fail(f"stats --daemon --fleet shows {owner}'s launches {shown}")
+    if semdiff_launches["flash_chunk"] != ref_semdiff_launches["flash_chunk"] or \
+            semdiff_launches["flash_chunk"] < 1:
+        fail(f"the owner {owner} launched {semdiff_launches} for the routed matcher "
+             f"semdiff (in process: {ref_semdiff_launches})")
+    out["routed_semdiff"] = {"client_wall_s": wall, "owner_launches": semdiff_launches}
+    print(f"fleet: routed semmerge and matcher semdiff on {owner}: "
+          f"{json.dumps(out['routed_semmerge'])}; {json.dumps(out['routed_semdiff'])}",
+          flush=True)
+
+    # 5. SIGKILL the owner: the next request is the survivor's.
+    killed = agg["members"][owner]["pid"]
+    os.kill(killed, signal.SIGKILL)
+    t0 = t_kill = time.perf_counter()
+    from semantic_merge_tpu_torch.service import client
+    resp = client.call_verb("semdiff", {"argv": ["base", "side", "--json-out"],
+                                        "cwd": str(route), "env": {}},
+                            path=str(sock), timeout=600)
+    failover_wall = time.perf_counter() - t0
+    result = resp.get("result") or {}
+    st = _fleet_status(sock)
+    failovers = _counter(st, "fleet_failovers_total")
+    if result.get("exit_code") != 0 or _digest(result.get("stdout", "")) != \
+            ref_fused_semdiff or result["meta"]["pid"] == killed or failovers < 1:
+        fail(f"after the owner's SIGKILL: {json.dumps(resp.get('error'))}, answered by "
+             f"{result.get('meta', {}).get('pid')} (killed {killed}), "
+             f"fleet_failovers_total {failovers}")
+    out["failover"] = {"wall_s": failover_wall, "answered_by": result["meta"]["pid"],
+                       "killed": killed, "fleet_failovers_total": failovers}
+    print(f"fleet: {owner} (pid {killed}) SIGKILLed; the next request answered by pid "
+          f"{result['meta']['pid']} in {failover_wall:.3f} s, fleet_failovers_total "
+          f"{failovers}", flush=True)
+
+    # 7a. Drain and leave the TCP member; it drains to exit 0.
+    for verb in ("--drain", "--leave"):
+        proc, _ = _fleet_cli(sock, WORK, ["fleet", "--socket", str(sock), verb,
+                                          FLEET_TCP_ID])
+        if proc.returncode != 0 or not json.loads(proc.stdout).get("ok"):
+            fail(f"fleet {verb} {FLEET_TCP_ID} exited {proc.returncode}: {proc.stdout}")
+    st = _fleet_status(sock)
+    if any(m["id"] == FLEET_TCP_ID for m in st["members"]):
+        fail(f"{FLEET_TCP_ID} is still a member after --leave")
+    tcp.send_signal(signal.SIGTERM)
+    if tcp.wait(timeout=60) != 0:
+        fail(f"the TCP member did not drain to exit 0: {tcp.returncode}")
+
+    # 6. The WAL: every member drained (the ring empty, once the
+    # killed owner is back), a request journaled and never acked
+    # when the router is SIGKILLed; the restarted router replays it.
+    t0 = time.perf_counter()
+    back = _await_ring(sock, router, 2, {owner: t_kill})
+    out["respawn_s"] = back["start_s"].get(owner)
+    pids |= {m["pid"] for m in back["status"]["members"] if m["pid"]}
+    from semantic_merge_tpu_torch.service import client
+    for mid in ("m0", "m1"):
+        ack = client.call_control("drain", {"member": mid}, path=str(sock), timeout=60)
+        if not ack.get("ok"):
+            fail(f"the drain of {mid}: {ack}")
+    if _fleet_status(sock)["members_up"] != 0:
+        fail("members still in the ring after draining both")
+    wal_clone = WORK / "fleet_wal"
+    _clone_at_side(rung3, wal_clone, ckpt)
+    untouched = _work_tree(wal_clone)
+    waiting = started(subprocess.Popen(
+        [sys.executable, "-m", "semantic_merge_tpu_torch", "semmerge", "base", "side",
+         "other", "--inplace"], cwd=wal_clone,
+        env=_fleet_env(sock, SEMMERGE_FLEET="require", SEMMERGE_SERVICE_RETRIES="0"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    key = None
+    while key is None:
+        for rec in fleet_wal.read_records(str(wal_dir)):
+            if rec.get("kind") == "request" and \
+                    (rec.get("params") or {}).get("cwd") == str(wal_clone):
+                key = rec["key"]
+        if waiting.poll() is not None or time.perf_counter() - t0 > 120:
+            fail(f"the request was not journaled (client exit {waiting.poll()})")
+        time.sleep(0.05)
+    st = _fleet_status(sock)
+    if st["wal"]["open"] != 1:
+        fail(f"the WAL holds {st['wal']['open']} open entries before the kill, expected 1")
+    router.send_signal(signal.SIGKILL)
+    router.wait(timeout=30)
+    _o, err = waiting.communicate(timeout=120)
+    if waiting.returncode != 19 or _work_tree(wal_clone) != untouched:
+        fail(f"the client of the killed router exited {waiting.returncode} (expected 19, "
+             f"the tree untouched): {err[-2000:]}")
+    dispatched = sum(1 for r in fleet_wal.read_records(str(wal_dir))
+                     if r.get("kind") == "dispatch" and r.get("key") == key)
+    t0 = time.perf_counter()
+    router = _start_router(sock, log)
+    back = _await_ring(sock, router, 2, {"m0": t0, "m1": t0})
+    out["restart_member_start_s"] = back["start_s"]
+    while True:
+        st = _fleet_status(sock)
+        if st["wal"]["replayed"] >= 1 and st["wal"]["open"] == 0:
+            break
+        if time.perf_counter() - t0 > 240:
+            fail(f"the WAL was not replayed: {json.dumps(st['wal'])}")
+        time.sleep(0.2)
+    out["replay_s"] = time.perf_counter() - t0
+    records = [r for r in fleet_wal.read_records(str(wal_dir)) if r.get("key") == key]
+    kinds = [r["kind"] for r in records]
+    payloads = {json.dumps([r.get("verb"), r.get("params")], sort_keys=True)
+                for r in records if r["kind"] == "request"}
+    agg = _fleet_members(sock)
+    served = {mid: m.get("served_total") for mid, m in agg["members"].items()}
+    if dispatched != 0 or kinds.count("dispatch") != 1 or kinds.count("ack") != 1 or \
+            len(payloads) != 1 or sum(served.values()) != 1 or \
+            st["wal"]["replayed"] != 1:
+        fail(f"the WAL replay's effects: {dispatched} dispatches before the kill, records "
+             f"{kinds}, {len(payloads)} payloads, served {served}, wal {st['wal']}")
+    if _work_tree(wal_clone) != ref_tree or \
+            {rev: _note(wal_clone, rev) for rev in ("side", "other")} != ref_notes:
+        fail("the replayed merge's tree or notes differ from the in-process merge's")
+    replay_launches = {mid: m["device"]["launches"] for mid, m in agg["members"].items()}
+    out["wal"] = {"records": kinds, "served": served, "status": st["wal"],
+                  "launches": replay_launches}
+    pids |= {m["pid"] for m in agg["members"].values()}
+    print(f"fleet: router SIGKILLed with {key} journaled (0 dispatches); restarted, "
+          f"members up {json.dumps(back['start_s'])} s, replayed in "
+          f"{out['replay_s']:.3f} s; records {kinds}; served {served}; tree and notes "
+          "the in-process merge's", flush=True)
+
+    # 7b. Drain the router: it and every member exit; nothing is left.
+    t0 = time.perf_counter()
+    router.send_signal(signal.SIGTERM)
+    rc = router.wait(timeout=120)
+    out["drain_s"] = time.perf_counter() - t0
+    deadline = time.monotonic() + 60
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = sorted(p for p in pids if _alive(p))
+    if rc != 0 or left or sock.exists():
+        fail(f"the fleet drain: router exit {rc}, members left {left}, "
+             f"socket {'left' if sock.exists() else 'gone'}")
+    out["router"] = router
+    return out
+
+
 #: The long-lived children this run started (the daemon, its clients).
 _STARTED: list = []
 
@@ -3632,6 +4029,21 @@ def main() -> int:
         svc = run_service_phase(torch, repo, fused_tree, ckpt, untraced, phase4, rung3)
         print(f"service: {json.dumps(svc)}", flush=True)
         t = phase("service", t)
+
+        # The fleet: a router, two members it supervises and one that
+        # joins over TCP, each on the card; the routed merges' launches
+        # are the owner member's, read from its status.
+        flt = run_fleet_phase(torch, rung3, ckpt)
+        for row in rows:
+            for path, key in (("fleet_semmerge", "routed_semmerge"),
+                              ("fleet_semdiff", "routed_semdiff")):
+                row["launches"][path] = flt[key]["owner_launches"].get(row["name"], 0)
+        print(f"fleet: {json.dumps(flt)}", flush=True)
+        print(f"fleet: phase wall {flt['wall_s']:.3f} s (budget {FLEET_BUDGET_S:.0f} s), "
+              f"members to the ring {json.dumps(flt['member_start_s'])} s, routed semmerge "
+              f"client {flt['routed_semmerge']['client_wall_s']:.3f} s vs in process "
+              f"{flt['in_process']['semmerge_wall_s']:.3f} s; card: {card}", flush=True)
+        t = phase("fleet", t)
 
         emb_err = check_reference(torch, ckpt)
         print(f"reference: small-input op log identical on card and CPU; "

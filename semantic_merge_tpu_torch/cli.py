@@ -157,14 +157,25 @@ posture (:mod:`semantic_merge_tpu_torch.utils.gctune`; off with
 ``SEMMERGE_GC_TUNE=0``, which the daemon sets for itself), as the JAX
 CLI's do.
 
+``fleet`` runs the JAX CLI's routing tier
+(:mod:`semantic_merge_tpu_torch.fleet`): a router on the service socket
+in front of ``--members`` supervised port daemons, each on ``--device``
+(default ``cuda``; without a card and without ``--device cpu`` it exits
+11 before it binds or spawns anything, as ``serve`` does), with
+rendezvous-hash repo affinity, a dispatch WAL, failover and hedged
+reads; ``fleet --status``, ``--drain MEMBER|all`` and ``--leave MEMBER``
+query and steer a running one. ``serve --socket tcp://HOST:PORT --join
+ROUTER`` (``--advertise``, ``--capacity``, ``--member-id``) adds a
+remote member over TCP, mTLS under ``SEMMERGE_FLEET_TLS_*``; ``serve
+--status --fleet`` prints every member's status through the router.
+Under ``SEMMERGE_FLEET=auto|require`` a merge verb routes through the
+router (``require`` with none exits 19, a transport failure 21). Same
+flags, exit codes and stdout as the JAX CLI's.
+
 Refused, with exit 70 before a revision is read or the work tree is
 touched, because the port does not implement what they select:
-``[engine] mesh = "require"`` or
-``SEMMERGE_MESH=require`` (a device mesh); ``SEMMERGE_FLEET=require``
-(the fleet router; ``auto`` finds none and falls through to the daemon
-posture, as the JAX client does); ``serve --socket tcp://...``,
-``--join``, ``--advertise``, ``--capacity``, ``--member-id`` and
-``--fleet`` (the fleet).
+``[engine] mesh = "require"`` or ``SEMMERGE_MESH=require`` (a device
+mesh).
 
 ``incremental`` scopes the scan to the files either side touched for
 every engine but the TypeScript engine alone (:func:`_snapshots`): the
@@ -201,9 +212,9 @@ same artifact. ``perf record|compare`` is the JAX CLI's perf sentinel
 (:mod:`semantic_merge_tpu_torch.obs.perf`) over bench snapshots or a
 live daemon's latency window, with the same output, exit codes and
 baseline format; point ``--baseline`` outside the checkout, whose
-``PERF_BASELINE.json`` holds the TPU's numbers. Refused with exit 70
-before anything is read, since they need the fleet, which is not
-ported: ``stats --fleet`` and ``trace analyze --fleet``.
+``PERF_BASELINE.json`` holds the TPU's numbers. ``stats --daemon
+--fleet`` renders a fleet router's aggregated status, ``trace analyze
+--fleet`` the router-hop breakdown of a stitched fleet trace.
 
 ``train-matcher`` trains the signature matcher's encoder as the JAX
 package's ``train-matcher`` does (InfoNCE over synthetic declaration
@@ -355,9 +366,24 @@ def build_parser() -> argparse.ArgumentParser:
                              help="Run the warm-state merge service daemon on a "
                                   "unix socket")
     p_serve.add_argument("--socket", default=None,
-                         help="Unix socket path (default: SEMMERGE_SERVICE_SOCKET, "
+                         help="Unix socket path or tcp://host:port (tcp://host:0 "
+                              "picks an ephemeral port; mTLS via "
+                              "SEMMERGE_FLEET_TLS_*). Default: SEMMERGE_SERVICE_SOCKET, "
                               "else $XDG_RUNTIME_DIR/semmerge-torch.sock, else "
-                              "/tmp/semmerge-torch-<uid>.sock); tcp:// is refused")
+                              "/tmp/semmerge-torch-<uid>.sock")
+    p_serve.add_argument("--join", default=None, metavar="ROUTER",
+                         help="Announce this daemon to a fleet router (unix path or "
+                              "tcp://host:port) and keep re-announcing every "
+                              "SEMMERGE_FLEET_JOIN_INTERVAL seconds")
+    p_serve.add_argument("--advertise", default=None, metavar="ADDR",
+                         help="Address the router should dial this member on "
+                              "(default: the bound --socket)")
+    p_serve.add_argument("--capacity", type=int, default=None,
+                         help="Relative capacity announced in the join handshake "
+                              "(default 1)")
+    p_serve.add_argument("--member-id", default=None,
+                         help="Stable member id to join as (default: router-assigned "
+                              "r1, r2, ...)")
     p_serve.add_argument("--workers", type=int, default=None,
                          help="Executor threads (SEMMERGE_SERVICE_WORKERS, default 4)")
     p_serve.add_argument("--queue", type=int, default=None,
@@ -378,12 +404,42 @@ def build_parser() -> argparse.ArgumentParser:
                               "daemon with capped backoff")
     p_serve.add_argument("--device", choices=("cuda", "cpu"), default=None,
                          help="The daemon's device (default: cuda; cpu only when asked)")
-    for flag, kw in (("--join", {}), ("--advertise", {}),
-                     ("--capacity", {"type": int}), ("--member-id", {})):
-        p_serve.add_argument(flag, default=None, help="Refused (exit 70): the fleet "
-                             "is not ported", **kw)
     p_serve.add_argument("--fleet", action="store_true",
-                         help="Refused (exit 70): the fleet is not ported")
+                         help="With --status against a fleet router: include every "
+                              "member's status block, aggregated through the router")
+    p_fleet = sub.add_parser(
+        "fleet",
+        help="Run a fault-tolerant routing tier over N supervised merge daemons: "
+             "consistent-hash repo affinity, health-aware failover, a durable "
+             "dispatch WAL, and hedged reads")
+    p_fleet.add_argument("--socket", default=None,
+                         help="Client-facing unix socket or tcp://host:port (same "
+                              "resolution chain as serve; mTLS via "
+                              "SEMMERGE_FLEET_TLS_*); local members bind <socket>.m0, "
+                              ".m1, ...")
+    p_fleet.add_argument("--members", type=int, default=None,
+                         help="Local member daemons to supervise (SEMMERGE_FLEET_MEMBERS, "
+                              "default 3; 0 = pure-remote fleet serving only members "
+                              "that `serve --join` in)")
+    p_fleet.add_argument("--workers", type=int, default=None,
+                         help="Executor threads per member (SEMMERGE_SERVICE_WORKERS, "
+                              "default 4)")
+    p_fleet.add_argument("--queue", type=int, default=None,
+                         help="Admission queue bound per member")
+    p_fleet.add_argument("--wal-dir", default=None,
+                         help="Dispatch WAL directory (SEMMERGE_FLEET_WAL_DIR, default "
+                              "<socket>.semmerge-fleet-wal/)")
+    p_fleet.add_argument("--status", action="store_true",
+                         help="Query a running router's status and exit")
+    p_fleet.add_argument("--drain", default=None, metavar="MEMBER",
+                         help="Drain one member (e.g. m1) out of a running fleet and "
+                              "exit; 'all' drains the router itself")
+    p_fleet.add_argument("--leave", default=None, metavar="MEMBER",
+                         help="Remove a joined remote member (by id or advertised "
+                              "address) from a running fleet and exit")
+    p_fleet.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                         help="The members' device (default: cuda; cpu only when "
+                              "asked); the router itself never touches it")
     p_train = sub.add_parser("train-matcher",
                              help="Train the decl-similarity matcher (torch "
                                   "checkpoints; resumes from the latest)")
@@ -965,15 +1021,11 @@ def serve(args: argparse.Namespace) -> int:
     binds: without a card (and without ``--device cpu``) it raises
     :class:`DeviceUnavailable`, which :func:`main` turns into exit 11."""
     from .service import client as service_client
-    refused = [f"serve {flag}" for flag, on in (
-        ("--socket tcp://", str(args.socket or "").startswith("tcp://")),
-        ("--join", args.join), ("--advertise", args.advertise),
-        ("--capacity", args.capacity is not None), ("--member-id", args.member_id),
-        ("--fleet", args.fleet)) if on]
-    _refuse(refused + refused_environment("serve"))
+    _refuse(refused_environment("serve"))
     if args.status:
+        method = "member_status" if args.fleet else "status"
         try:
-            status = service_client.call_control("status", path=args.socket)
+            status = service_client.call_control(method, path=args.socket)
         except service_client.DaemonUnavailable as exc:
             print(f"semmerge serve: no daemon running ({exc})", file=sys.stderr)
             return 1
@@ -986,8 +1038,42 @@ def serve(args: argparse.Namespace) -> int:
     from .service.daemon import Daemon
     daemon = Daemon(socket_path=args.socket, workers=args.workers,
                     queue_size=args.queue, idle_exit=args.idle_exit,
-                    events_path=args.events, device=args.device)
+                    events_path=args.events, device=args.device, join=args.join,
+                    advertise=args.advertise, capacity=args.capacity,
+                    member_id=args.member_id)
     return daemon.serve_forever()
+
+
+def fleet(args: argparse.Namespace) -> int:
+    """Start (or query, drain, or remove a member of) the fleet router,
+    as the JAX CLI's ``cmd_fleet``. Before the router binds or spawns a
+    member, the members' device is checked in this process (no card and
+    no ``--device cpu``: :class:`DeviceUnavailable`, exit 11); the check
+    asks only whether CUDA is available, which makes no CUDA context,
+    and the router module imports no torch."""
+    from .service import client as service_client
+    control = None
+    if args.status:
+        control = ("status", {})
+    elif args.drain:
+        control = ("drain", {} if args.drain == "all" else {"member": args.drain})
+    elif args.leave:
+        control = ("leave", {"member": args.leave})
+    if control is not None:
+        try:
+            result = service_client.call_control(control[0], params=control[1],
+                                                 path=args.socket)
+        except service_client.DaemonUnavailable as exc:
+            print(f"semmerge fleet: no router running ({exc})", file=sys.stderr)
+            return 1
+        print(json.dumps(result, indent=2, default=str))
+        return 0 if result.get("fleet" if args.status else "ok") else 1
+    resolve_device(args.device)
+    from .fleet.router import FleetRouter
+    router = FleetRouter(socket_path=args.socket, members=args.members,
+                         workers=args.workers, queue_size=args.queue,
+                         wal_dir=args.wal_dir, device=args.device or "cuda")
+    return router.serve_forever()
 
 
 def train_matcher(args) -> int:
@@ -1051,6 +1137,8 @@ def main(argv: Sequence[str] | None = None, *, delegate: bool = True) -> int:
             return report.run(args)
         if args.command == "serve":
             return serve(args)
+        if args.command == "fleet":
+            return fleet(args)
         if args.command == "train-matcher":
             return train_matcher(args)
         _refuse(refused_environment(args.command))

@@ -203,7 +203,7 @@ def resolve_backend(config: Config, flag: str | None = None) -> str:
 def refused_settings(config: Config, command: str) -> List[str]:
     """The settings in ``config`` and the environment that would change
     the JAX package's op logs, tree, conflicts artifact or exit code and
-    that the port does not implement (a device mesh, the fleet), each as
+    that the port does not implement (a device mesh), each as
     ``"name = value"``. The CLI refuses to run when this is not empty.
     No engine name is refused: every one runs."""
     refused = []
@@ -216,18 +216,16 @@ def refused_settings(config: Config, command: str) -> List[str]:
 def refused_environment(command: str) -> List[str]:
     """The environment settings the port cannot honour for ``command``
     (``semdiff``, ``semmerge``, ``semrebase`` or ``serve``), read
-    through the request overlay: ``SEMMERGE_FLEET=require`` (there is no
-    fleet router; ``auto`` finds none and falls through to the daemon
-    posture, as the JAX client does) and ``SEMMERGE_MESH=require`` (a
-    device mesh). No OTLP variable is refused: as in the JAX package,
+    through the request overlay: ``SEMMERGE_MESH=require`` (a device
+    mesh). ``SEMMERGE_FLEET`` is the client's, read before the CLI runs
+    (:mod:`semantic_merge_tpu_torch.service.client`). No OTLP variable is
+    refused: as in the JAX package,
     only the daemon exports (``SEMMERGE_OTLP_ENDPOINT``,
     :mod:`semantic_merge_tpu_torch.obs.export`), and nothing reads
     ``SEMMERGE_OTLP``."""
     refused = []
     if (reqenv.get("SEMMERGE_MESH") or "").strip().lower() == "require":
         refused.append("SEMMERGE_MESH=require")
-    if (reqenv.get("SEMMERGE_FLEET") or "").strip().lower() == "require":
-        refused.append("SEMMERGE_FLEET=require")
     return refused
 
 

@@ -26,6 +26,10 @@ code  meaning
       ``SEMMERGE_BATCH=require``, or that posture could not be met
 17    ``ResolveFault`` — the conflict-resolution tier failed under
       ``--resolve require``
+19    ``FleetFault`` — the fleet router could not route or serve a
+      request under ``SEMMERGE_FLEET=require``
+21    ``TransportFault`` — a fleet transport call failed (dial refused,
+      read deadline, half-open partition) under ``SEMMERGE_FLEET=require``
 70    ``UnsupportedSetting`` — a setting the port does not implement
 ====  =============================================================
 """
@@ -135,6 +139,29 @@ class ResolveFault(MergeFault):
     default_stage = "resolve"
 
 
+class FleetFault(MergeFault):
+    """The fleet tier (``fleet/``) could not route or serve a request.
+    Under ``SEMMERGE_FLEET=auto`` the client falls through to the daemon
+    posture instead, so this exits only under ``require``; inside the
+    router it also classifies unexpected routing, WAL and dispatch
+    errors."""
+
+    exit_code = 19
+    default_stage = "fleet"
+
+
+class TransportFault(MergeFault):
+    """A fleet transport call (``fleet/transport.py``) failed: the dial
+    was refused or timed out, a read deadline expired, or a heartbeat
+    found the connection half-open. Under ``SEMMERGE_FLEET=auto`` the
+    caller degrades (the router ejects the member and fails over; the
+    client falls through to the daemon posture); it exits only under
+    ``require``."""
+
+    exit_code = 21
+    default_stage = "transport"
+
+
 #: The class each stage of the port wraps its *unexpected* exceptions
 #: into (the JAX package's table, for the stages the port has).
 STAGE_FAULTS = {
@@ -162,13 +189,27 @@ STAGE_FAULTS = {
     "batch:mesh": BatchFault,
     "batch:dispatch": BatchFault,
     "batch:scatter": BatchFault,
+    # The fleet router's stages; a member's own faults keep their class
+    # from the member's wire error.
+    "fleet": FleetFault,
+    "fleet:route": FleetFault,
+    "fleet:dispatch": FleetFault,
+    "fleet:failover": FleetFault,
+    "fleet:replay": FleetFault,
+    # The member transport, injected net:* faults included: one class
+    # for the network (require exits 21, auto degrades).
+    "transport": TransportFault,
+    "net:connect": TransportFault,
+    "net:read": TransportFault,
+    "net:partition": TransportFault,
+    "net:slow": TransportFault,
 }
 
 #: The documented fault exit codes of the port's classes, by class name
 #: (each equal to the JAX package's).
 EXIT_CODES = {cls.__name__: cls.exit_code for cls in
               (ParseFault, KernelFault, WorkerFault, ApplyFault, FormatFault,
-               DeadlineFault, BatchFault, ResolveFault)}
+               DeadlineFault, BatchFault, ResolveFault, FleetFault, TransportFault)}
 
 #: Stages whose :class:`KernelFault` is the device's.
 DEVICE_STAGES = frozenset(("merge", "kernel", "chain"))

@@ -16,9 +16,11 @@ latency window. ``perf`` writes its baseline where ``--baseline`` says,
 else ``PERF_BASELINE.json`` in the request root: the checkout's own
 file of that name holds the TPU's numbers, so point it elsewhere.
 
-Refused with exit 70 before anything is read (the fleet is not
-ported): ``stats --fleet``, ``trace analyze --fleet`` and a ``tcp://``
-``--socket`` for ``top``, ``profile`` or ``perf``. Stdlib only.
+``stats --daemon --fleet`` renders a fleet router's aggregated status
+(one ``member_status`` round trip; ``--prometheus`` its federated
+``/metrics``), ``trace analyze --fleet`` the router-hop breakdown of a
+stitched fleet trace, and a ``tcp://`` ``--socket`` reaches a daemon or
+router over the fleet transport. Stdlib only.
 """
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ import sys
 import time
 from typing import List
 
-from ..errors import UnsupportedSetting
 from . import anomaly as obs_anomaly
 from .metrics import render_prometheus_from_dict
 
@@ -55,7 +56,9 @@ def add_parsers(sub) -> None:
                               "service daemon (SEMMERGE_SERVICE_SOCKET or the "
                               "default socket) instead of an artifact")
     p_stats.add_argument("--fleet", action="store_true",
-                         help="Refused (exit 70): the fleet is not ported")
+                         help="With --daemon against a fleet router: the router "
+                              "status plus every member's block (one member_status "
+                              "round trip); with --prometheus the federated /metrics")
     p_trace = sub.add_parser("trace", help="Trace-artifact tooling")
     trace_sub = p_trace.add_subparsers(dest="trace_command", required=True)
     p_analyze = trace_sub.add_parser(
@@ -69,7 +72,9 @@ def add_parsers(sub) -> None:
     p_analyze.add_argument("--json", action="store_true",
                            help="Emit the breakdown as JSON")
     p_analyze.add_argument("--fleet", action="store_true",
-                           help="Refused (exit 70): the fleet is not ported")
+                           help="Router-hop attribution for stitched fleet traces "
+                                "(route / wal_fsync / relay / hedge_wait / "
+                                "member_execute)")
     p_analyze.add_argument("--since", default=None, metavar="DURATION",
                            help="Directory mode: only artifacts modified "
                                 "within DURATION (e.g. 90s, 15m, 2h, 1d)")
@@ -161,17 +166,9 @@ def add_parsers(sub) -> None:
                        help="Emit findings as JSON")
 
 
-def _refuse(what: str) -> None:
-    raise UnsupportedSetting(f"{what}: not implemented by this port (it needs the "
-                             "fleet); use python -m semantic_merge_tpu",
-                             stage="config")
-
-
 def run(args: argparse.Namespace) -> int:
     """Run one of the artifact or live-service commands for parsed
     ``args``."""
-    if str(getattr(args, "socket", None) or "").startswith("tcp://"):
-        _refuse(f"{args.command} --socket tcp://")  # a fleet member's transport
     if args.command == "profile":
         return cmd_profile(args)
     if args.command == "perf":
@@ -179,16 +176,84 @@ def run(args: argparse.Namespace) -> int:
     if args.command == "top":
         return cmd_top(args)
     if args.command == "stats":
-        if args.fleet:
-            _refuse("stats --fleet")
         if args.daemon:
+            if args.fleet:
+                return cmd_stats_fleet(args)
             return cmd_stats_daemon(args)
         return cmd_stats(args)
     if args.trace_command == "analyze":
-        if args.fleet:
-            _refuse("trace analyze --fleet")
         return cmd_trace_analyze(args)
     return cmd_trace_diff(args)
+
+
+def cmd_stats_fleet(args: argparse.Namespace) -> int:
+    """``stats --daemon --fleet``: one router round-trip
+    (``member_status`` / federated ``metrics``) instead of N per-member
+    socket addresses."""
+    from ..service import client as service_client
+    if getattr(args, "prometheus", False):
+        try:
+            result = service_client.call_control("metrics")
+        except service_client.DaemonUnavailable as exc:
+            print(f"error: no fleet router reachable ({exc})",
+                  file=sys.stderr)
+            return 1
+        print(result.get("prometheus", ""), end="")
+        return 0
+    try:
+        agg = service_client.call_control("member_status")
+    except service_client.DaemonUnavailable as exc:
+        print(f"error: no fleet router reachable ({exc})", file=sys.stderr)
+        return 1
+    if not isinstance(agg, dict) or "router" not in agg:
+        print("error: peer is not a fleet router (plain daemon? drop "
+              "--fleet)", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(agg, indent=2, default=str))
+        return 0
+    router = agg.get("router") or {}
+    members = agg.get("members") or {}
+    up = router.get("members_up", 0)
+    print(f"fleet pid={router.get('pid')} "
+          f"uptime={router.get('uptime_s', 0.0):.1f}s "
+          f"socket={router.get('socket')} "
+          f"members_up={up}/{len(members)}")
+    wal = router.get("wal") or {}
+    print(f"requests: served={router.get('served_total', 0)} "
+          f"in_flight={router.get('in_flight', 0)} "
+          f"wal_open={wal.get('open', 0)} "
+          f"wal_replayed={wal.get('replayed', 0)}")
+    slo = router.get("slo")
+    if slo:
+        print(f"slo: {'healthy' if slo.get('healthy') else 'BURNING'}")
+        for row in slo.get("objectives", ()):
+            mark = "TRIPPED" if row.get("tripped") else "ok"
+            print(f"  {mark:8s} {row.get('objective')}: "
+                  f"burn fast={row.get('burn_fast', 0.0):.2f}x "
+                  f"slow={row.get('burn_slow', 0.0):.2f}x")
+    for member_id in sorted(members):
+        st = members[member_id]
+        if not isinstance(st, dict):
+            print(f"member {member_id}: unreachable")
+            continue
+        state = st.get("state")
+        if not st.get("ok"):
+            # draining is a deliberate departure; dead is a failure —
+            # the rollup keeps them distinct.
+            print(f"member {member_id}: {state or 'unreachable'}")
+            continue
+        decl_rate = st.get("declcache_hit_rate", 0.0) or 0.0
+        res_rate = (st.get("residency") or {}).get("hit_rate", 0.0) or 0.0
+        print(f"member {member_id}: "
+              f"{state or 'ready'} pid={st.get('pid')} "
+              f"served={st.get('served_total', 0)} "
+              f"queue_depth={st.get('queue_depth', 0)} "
+              f"in_flight={st.get('in_flight', 0)} "
+              f"rss_mb={st.get('rss_mb', 0.0):.1f} "
+              f"declcache_hit_rate={decl_rate:.3f} "
+              f"residency_hit_rate={res_rate:.3f}")
+    return 0
 
 
 def cmd_stats_daemon(args: argparse.Namespace) -> int:
@@ -371,6 +436,11 @@ def _render_stats(data: dict) -> List[str]:
 
 #: Critical-path buckets of ``semmerge trace analyze`` — where one
 #: request's wall time went, in pipeline order.
+#: Router-hop buckets of ``trace analyze --fleet`` — where one routed
+#: request's wall time went across the fleet, in hop order.
+FLEET_PATH_BUCKETS = ("route", "wal_fsync", "relay", "hedge_wait",
+                      "member_execute")
+
 CRITICAL_PATH_BUCKETS = ("queue_wait", "batch_window", "pack", "kernel",
                          "host_tail", "apply")
 
@@ -486,6 +556,64 @@ def _analyze_artifact(path: pathlib.Path) -> dict | None:
     return result
 
 
+def _analyze_fleet_artifact(path: pathlib.Path) -> dict | None:
+    """One *stitched* fleet-trace artifact's router-hop breakdown, or
+    None when the file is not span-shaped. Buckets are non-overlapping:
+    member execute time is carved out of the relay legs that carried
+    it, relay out of the route spans that contain them — so the shares
+    attribute rather than double count."""
+    data, corrupt = _load_span_artifact(path)
+    if not isinstance(data, dict) or not isinstance(data.get("spans"), list):
+        return None
+    wal = hedge_wait = relay_ok = route_like = 0.0
+    member_exec = member_queue = 0.0
+    for row in data["spans"]:
+        if not isinstance(row, dict):
+            continue
+        name = row.get("name") or ""
+        meta = row.get("meta") if isinstance(row.get("meta"), dict) else {}
+        try:
+            secs = float(row.get("seconds") or 0.0)
+        except (TypeError, ValueError):
+            continue
+        if name == "fleet.wal_fsync":
+            wal += secs
+        elif name == "fleet.hedge_wait":
+            hedge_wait += secs
+        elif name == "fleet.relay" and meta.get("outcome") == "ok":
+            relay_ok += secs
+        elif name in ("fleet.route", "fleet.failover"):
+            route_like += secs
+        elif name == "service.execute" and "member" in meta:
+            member_exec += secs
+        elif name == "service.queue_wait" and "member" in meta:
+            member_queue += secs
+    buckets = {
+        # Router-side routing overhead: the route/failover windows
+        # minus the relay legs and hedge wait nested inside them.
+        "route": max(route_like - relay_ok - hedge_wait, 0.0),
+        "wal_fsync": wal,
+        # Wire + framing overhead of the winning legs, net of the
+        # member-side work the legs carried.
+        "relay": max(relay_ok - member_exec - member_queue, 0.0),
+        "hedge_wait": hedge_wait,
+        "member_execute": member_exec,
+    }
+    total = wal + route_like
+    accounted = sum(buckets.values())
+    result = {
+        "artifact": str(path),
+        "trace_id": data.get("trace_id"),
+        "reason": data.get("reason"),
+        "total_seconds": round(total, 6),
+        "buckets": {b: round(v, 6) for b, v in buckets.items()},
+        "other_seconds": round(max(total - accounted, 0.0), 6),
+    }
+    if corrupt:
+        result["corrupt_lines"] = corrupt
+    return result
+
+
 def _pctl(values: List[float], q: float) -> float:
     if not values:
         return 0.0
@@ -497,8 +625,9 @@ def cmd_trace_analyze(args: argparse.Namespace) -> int:
     """Per-request latency attribution from trace/postmortem artifacts:
     one file → its critical-path breakdown; a directory → p50/p99 per
     bucket over every span-shaped artifact in it."""
-    analyze = _analyze_artifact
-    order = CRITICAL_PATH_BUCKETS
+    fleet = bool(getattr(args, "fleet", False))
+    analyze = _analyze_fleet_artifact if fleet else _analyze_artifact
+    order = FLEET_PATH_BUCKETS if fleet else CRITICAL_PATH_BUCKETS
     path = pathlib.Path(args.artifact)
     since_s = None
     if getattr(args, "since", None):
@@ -560,7 +689,8 @@ def cmd_trace_analyze(args: argparse.Namespace) -> int:
         if args.json:
             print(json.dumps(summary, indent=2))
             return 0
-        print(f"critical path over {len(results)} request artifact(s):")
+        what = "router-hop path" if fleet else "critical path"
+        print(f"{what} over {len(results)} request artifact(s):")
         print(f"{'bucket':<14} {'p50 ms':>10} {'p99 ms':>10}")
         for bucket in order + ("other_seconds", "total_seconds"):
             label = bucket.replace("_seconds", "")

@@ -164,6 +164,36 @@ class SpanRecorder:
             for e in events:
                 self.events.append(dict(e, t_start=round(e["t_start"] + shift, 6)))
 
+    def absorb_dicts(self, rows: List[dict], *, t_base: float = 0.0,
+                     parent_id: int = -1, depth: int = 0,
+                     **extra_meta: Any) -> None:
+        """Graft plain span dicts (the wire form of :meth:`span_dicts`)
+        into this recorder — the cross-process half of :meth:`absorb`
+        (the fleet router grafts a member's shipped tree). ``perf_counter``
+        epochs are not comparable between processes, so the caller
+        anchors the grafted subtree at ``t_base`` (seconds relative to
+        this recorder's epoch). Ids are remapped with parent links
+        preserved inside the absorbed set; absorbed roots are re-parented
+        under ``parent_id`` with their depth shifted by ``depth``;
+        ``extra_meta`` (``member=...``, ``attempt=...``) is stamped on
+        every span; ``seconds`` is carried through untouched."""
+        keyed = [(row, self._new_id()) for row in rows]
+        id_map = {row["span_id"]: new_id for row, new_id in keyed
+                  if isinstance(row.get("span_id"), int)}
+        with self._lock:
+            for row, new_id in keyed:
+                old_parent = row.get("parent_id", -1)
+                self.spans.append(SpanRecord(
+                    name=str(row.get("name", "")), layer=row.get("layer"),
+                    t_start=float(row.get("t_start", 0.0)) + t_base,
+                    seconds=float(row.get("seconds", 0.0)),
+                    depth=int(row.get("depth", 0)) + depth,
+                    span_id=id_map.get(row.get("span_id"), new_id),
+                    parent_id=id_map.get(old_parent, parent_id),
+                    thread=str(row.get("thread", "")),
+                    status=str(row.get("status", "ok")), error=row.get("error"),
+                    meta=dict(row.get("meta") or {}, **extra_meta)))
+
     # -- views ------------------------------------------------------------
 
     def span_dicts(self) -> List[dict]:

@@ -24,8 +24,20 @@ Only a daemon that answers ``hello`` for this package counts: a daemon
 of the JAX package on the socket (a shared ``SEMMERGE_SERVICE_SOCKET``)
 is no daemon, so ``auto`` runs one-shot on the card and ``require``
 exits 12 — never a merge quietly run by another engine.
-``SEMMERGE_FLEET=auto`` finds no fleet router in the port and falls
-through to this posture; ``require`` is refused by the CLI (exit 70).
+
+``SEMMERGE_FLEET`` layers fleet discovery on top, as in the JAX client:
+``auto`` prefers an already-listening fleet router of this package on
+the service socket (never spawns one) and falls back to the plain
+``SEMMERGE_DAEMON`` posture; ``require`` demands the socket answer *as
+a fleet router* (its hello carries ``fleet: true``) and fails with the
+``FleetFault`` exit (19) otherwise. The fleet dial goes through
+:mod:`semantic_merge_tpu_torch.fleet.transport` (a ``tcp://`` socket
+reaches a remote router, mTLS under ``SEMMERGE_FLEET_TLS_*``; the
+``net:*`` fault stages fire there): a
+:class:`~semantic_merge_tpu_torch.errors.TransportFault` exits 21 under
+``require`` with the work tree untouched, and falls through under
+``auto``. A routed request runs in a member daemon, never in this
+process, unless the posture is ``auto`` and no router answers.
 
 :func:`delegate` is called from the package's ``__main__`` before the
 CLI (and with it torch) is imported: the client path stays light.
@@ -42,11 +54,16 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from . import protocol
+from ..errors import TransportFault  # stdlib-only module: stays cheap
 
 #: Exit for ``require`` mode with no usable daemon — the WorkerFault
 #: code (errors.EXIT_CODES), hardcoded so this module never imports
 #: the heavy package half.
 _REQUIRE_FAILED_EXIT = 12
+
+#: Exit for ``SEMMERGE_FLEET=require`` with no fleet router — the
+#: FleetFault code (errors.EXIT_CODES), hardcoded for the same reason.
+_FLEET_REQUIRE_EXIT = 19
 
 _Conn = Tuple[socket.socket, Any, Any]  # (sock, rfile, wfile)
 
@@ -72,6 +89,15 @@ def mode() -> str:
     return os.environ.get("SEMMERGE_DAEMON", "off").strip().lower()
 
 
+def fleet_mode() -> str:
+    """The ``SEMMERGE_FLEET`` posture, parsed here (not through
+    ``fleet.mode``) so the client path keeps its import set."""
+    raw = os.environ.get("SEMMERGE_FLEET", "").strip().lower()
+    if raw in ("auto", "require"):
+        return raw
+    return "off"
+
+
 def delegate(argv: Sequence[str]) -> Optional[int]:
     """Run ``argv`` (full CLI argv, ``argv[0]`` the subcommand) on the
     daemon. Returns the exit code, or ``None`` when the invocation
@@ -86,6 +112,28 @@ def delegate(argv: Sequence[str]) -> Optional[int]:
     from ..config import refused_environment
     if refused_environment(argv[0]):
         return None
+    fm = fleet_mode()
+    if fm in ("auto", "require"):
+        # Fleet discovery: reach for a listening router first. Never
+        # spawns — a client-spawned daemon would not be a fleet — and
+        # only a socket that answers AS a fleet router counts.
+        try:
+            return _run_on_daemon(argv[0], argv[1:], spawn=False,
+                                  require_fleet=True)
+        except TransportFault as exc:
+            # The transport refused to carry the request; nothing ran
+            # and the work tree is untouched.
+            if fm == "require":
+                sys.stderr.write(f"semmerge: fleet transport failed: "
+                                 f"{exc} (exit {exc.exit_code})\n")
+                return exc.exit_code
+        except DaemonUnavailable as exc:
+            if fm == "require":
+                sys.stderr.write(f"semmerge: fleet required but "
+                                 f"unavailable: {exc} "
+                                 f"(exit {_FLEET_REQUIRE_EXIT})\n")
+                return _FLEET_REQUIRE_EXIT
+            # fleet auto: no router listening — the plain daemon posture.
     m = mode()
     if m not in ("auto", "require"):
         return None
@@ -99,7 +147,8 @@ def delegate(argv: Sequence[str]) -> Optional[int]:
         return None  # auto: warm path failed, run one-shot
 
 
-def _run_on_daemon(verb: str, rest: List[str], *, spawn: bool = True) -> int:
+def _run_on_daemon(verb: str, rest: List[str], *, spawn: bool = True,
+                   require_fleet: bool = False) -> int:
     """Delegate with bounded retries. Two retry-worthy outcomes exist:
 
     - a **transient admission rejection** (``retry_after_ms`` on the
@@ -129,10 +178,11 @@ def _run_on_daemon(verb: str, rest: List[str], *, spawn: bool = True) -> int:
     while True:
         try:
             return _attempt_on_daemon(verb, rest, deadline, idem_key,
-                                      trace_id, spawn=spawn, device=device)
+                                      trace_id, spawn=spawn, device=device,
+                                      require_fleet=require_fleet)
         except _RetryableRejection as rej:
             if attempt >= retries:
-                if mode() == "require":
+                if mode() == "require" or require_fleet:
                     if rej.message:
                         sys.stderr.write(f"semmerge: {rej.message} "
                                          f"(exit {rej.exit_code})\n")
@@ -163,8 +213,10 @@ def _reconnect_backoff_s(prev: float, base: float = 0.05,
 
 def _attempt_on_daemon(verb: str, rest: List[str], deadline: float,
                        idem_key: str, trace_id: str, *,
-                       spawn: bool = True, device: Optional[str] = None) -> int:
-    sock, rfile, wfile = _connect_or_spawn(spawn=spawn, device=device)
+                       spawn: bool = True, device: Optional[str] = None,
+                       require_fleet: bool = False) -> int:
+    sock, rfile, wfile = _connect_or_spawn(spawn=spawn, device=device,
+                                           require_fleet=require_fleet)
     try:
         params: Dict[str, Any] = {
             "argv": rest,
@@ -243,21 +295,38 @@ def _close(sock, rfile, wfile) -> None:
             pass
 
 
-def _handshake(path: str, timeout: float):
+def _handshake(path: str, timeout: float, via_transport: bool = False):
     """Connect + ``hello``: ``(sock, rfile, wfile, hello result)``, or
     ``None`` when nothing on ``path`` completes the handshake (an absent
-    or stale socket, a peer that does not speak the protocol)."""
-    if not os.path.exists(path):
-        return None
-    sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    or stale socket, a peer that does not speak the protocol).
+
+    A ``tcp://`` address, and every dial with ``via_transport`` (the
+    fleet dial), goes through the fleet transport, which handles TLS and
+    fires the ``net:*`` fault stages: an injected fault raises
+    :class:`TransportFault` out of here, while a real dead address stays
+    ``None``."""
+    check_read = None
+    if via_transport or path.startswith("tcp://"):
+        from ..fleet import transport as fleet_transport
+        sock = fleet_transport.dial(path, timeout=timeout)
+        if sock is None:
+            return None
+        check_read = fleet_transport.check_read_faults
+    else:
+        if not os.path.exists(path):
+            return None
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
     sock.settimeout(timeout)
     try:
-        sock.connect(path)
+        if check_read is None:
+            sock.connect(path)
         rfile = sock.makefile("r", encoding="utf-8")
         wfile = sock.makefile("w", encoding="utf-8")
         protocol.write_message(wfile, {
             "id": 0, "method": "hello",
             "params": {"version": protocol.PROTOCOL_VERSION}})
+        if check_read is not None:
+            check_read()
         resp = protocol.read_message(rfile)
     except (OSError, ValueError, protocol.ProtocolError):
         with contextlib.suppress(OSError):
@@ -271,16 +340,19 @@ def _handshake(path: str, timeout: float):
     return sock, rfile, wfile, resp["result"]
 
 
-def _try_connect(path: str, timeout: float = 5.0) -> Optional[_Conn]:
+def _try_connect(path: str, timeout: float = 5.0,
+                 require_fleet: bool = False) -> Optional[_Conn]:
     """A connection to this package's daemon on ``path``, handshake
     done; ``None`` when nothing usable listens there — a daemon of
     another package or another checkout (:func:`protocol.is_ours`)
-    included."""
-    got = _handshake(path, timeout)
+    included. With ``require_fleet`` the peer must answer as a fleet
+    router (``fleet: true`` in its hello): a plain daemon on the path
+    counts as unusable."""
+    got = _handshake(path, timeout, via_transport=require_fleet)
     if got is None:
         return None
     sock, rfile, wfile, answer = got
-    if not protocol.is_ours(answer):
+    if not protocol.is_ours(answer) or (require_fleet and not answer.get("fleet")):
         _close(sock, rfile, wfile)
         return None
     sock.settimeout(None)
@@ -318,13 +390,16 @@ def _spawn_daemon(path: str, device: Optional[str] = None) -> subprocess.Popen:
             cwd="/", env=env, start_new_session=True)
 
 
-def _connect_or_spawn(*, spawn: bool = True, device: Optional[str] = None) -> _Conn:
+def _connect_or_spawn(*, spawn: bool = True, device: Optional[str] = None,
+                      require_fleet: bool = False) -> _Conn:
     path = protocol.socket_path()
-    conn = _try_connect(path)
+    conn = _try_connect(path, require_fleet=require_fleet)
     if conn is not None:
         return conn
     if not spawn:
-        raise DaemonUnavailable(f"no daemon listening on {path}")
+        raise DaemonUnavailable(
+            f"no {'fleet router' if require_fleet else 'daemon'} "
+            f"listening on {path}")
     spawn_timeout = _env_float("SEMMERGE_SERVICE_SPAWN_TIMEOUT", 30.0)
     proc = _spawn_daemon(path, device)
     t0 = time.monotonic()

@@ -46,8 +46,9 @@ Live tools, as in the JAX daemon:
   request's trace (its span rows, under its ``trace_id``) is shipped
   through :func:`~semantic_merge_tpu_torch.obs.export.maybe_exporter`
   after its telemetry is finished; a dead collector only counts in
-  ``otlp_errors_total``, never in the request's answer. Every port
-  daemon is standalone (there is no fleet member).
+  ``otlp_errors_total``, never in the request's answer. A fleet member
+  exports nothing itself: it ships the span tree to the router (below),
+  which exports the stitched trace once.
 - **Profile capture** (the ``profile`` control method, ``profile
   --daemon``): a bounded ``torch.profiler`` window (0.1-60 s) over
   whatever the daemon serves meanwhile, with CUDA activity when the
@@ -67,9 +68,24 @@ Live tools, as in the JAX daemon:
   life starts one capture.
 
 The daemon keeps normal GC cadence (``SEMMERGE_GC_TUNE=0``,
-:mod:`semantic_merge_tpu_torch.utils.gctune`). Not ported (the CLI
-refuses them with exit 70): the fleet membership (``tcp://`` sockets,
-``--join``).
+:mod:`semantic_merge_tpu_torch.utils.gctune`).
+
+Fleet membership, as in the JAX daemon
+(:mod:`semantic_merge_tpu_torch.fleet`): a router-spawned member runs
+with ``SEMMERGE_FLEET_MEMBER`` set; its ``hello`` (the router's
+heartbeat) carries ``fleet_member``, and under ``SEMMERGE_FLEET_STITCH``
+(default on) each response ships the request's span tree in
+``meta.spans`` for the router to graft into one stitched trace. A
+``tcp://host:port`` socket listens on TCP (mTLS when
+``SEMMERGE_FLEET_TLS_*`` is set; ``:0`` picks an ephemeral port,
+resolved before anything is advertised). ``--join ROUTER`` announces
+this daemon to a fleet router with a ``join`` handshake carrying the
+advertised address, capacity and an announce epoch, re-announces every
+``SEMMERGE_FLEET_JOIN_INTERVAL`` seconds (so an ejected member rejoins
+once reachable), stops announcing while draining, and sends a
+best-effort ``leave`` on shutdown. The ``prewarm`` verb (the router's
+affinity handoff) resolves a repository's HEAD tree without touching
+the device.
 """
 from __future__ import annotations
 
@@ -81,6 +97,7 @@ import pathlib
 import queue
 import signal
 import socket
+import ssl
 import sys
 import threading
 import time
@@ -88,6 +105,7 @@ from collections import OrderedDict
 from typing import Any, Dict, Optional
 
 from ..errors import DeadlineFault, MergeFault, WorkerFault, fault_boundary
+from ..fleet import transport as fleet_transport
 from ..obs import agg as obs_agg
 from ..obs import anomaly as obs_anomaly
 from ..obs import export as obs_export
@@ -225,10 +243,33 @@ class Daemon:
                  idle_exit: Optional[float] = None,
                  repo_ttl: Optional[float] = None,
                  events_path: Optional[str] = None,
-                 device: Optional[str] = None) -> None:
+                 device: Optional[str] = None,
+                 join: Optional[str] = None,
+                 advertise: Optional[str] = None,
+                 capacity: Optional[int] = None,
+                 member_id: Optional[str] = None) -> None:
         from ..device import resolve_device
         self._device = resolve_device(device)
         self._socket_path = protocol.socket_path(socket_path)
+        # Elastic membership: announce to a fleet router instead of
+        # being a router-spawned subprocess. The advertised address
+        # defaults to the bound socket (resolved after an ephemeral :0
+        # bind).
+        self._join_addr = (join or os.environ.get("SEMMERGE_FLEET_JOIN", "").strip()
+                           or None)
+        self._advertise = (advertise
+                           or os.environ.get("SEMMERGE_FLEET_ADVERTISE", "").strip()
+                           or None)
+        self._capacity = max(1, capacity if capacity is not None else
+                             _env_int("SEMMERGE_FLEET_CAPACITY", 1))
+        self._member_id = (member_id
+                           or os.environ.get("SEMMERGE_FLEET_MEMBER_ID", "").strip()
+                           or None)
+        self._join_epoch = 0
+        self._joined_as: Optional[str] = None
+        # A router-spawned member: its id names it in the hello, the
+        # sampling verdicts and the shipped span trees.
+        self._fleet_member = os.environ.get("SEMMERGE_FLEET_MEMBER") or None
         self._workers_n = workers if workers is not None else \
             max(1, _env_int("SEMMERGE_SERVICE_WORKERS", 4))
         qsize = queue_size if queue_size is not None else \
@@ -291,7 +332,8 @@ class Daemon:
         # regressions into triage bundles. The trace store is only
         # live when SEMMERGE_TRACE_DIR points somewhere.
         self._window = obs_agg.WindowAggregator()
-        self._sampler = obs_sampling.SamplingPolicy(minted_by="daemon")
+        self._sampler = obs_sampling.SamplingPolicy(
+            minted_by=self._fleet_member or "daemon")
         self._anomaly = obs_anomaly.AnomalyTriage()
         self._trace_store = obs_sampling.TraceStore.from_env()
         # One profile capture at a time (``profile`` wire verb, SLO
@@ -344,6 +386,9 @@ class Daemon:
         if self._telemetry is not None:
             logger.info("telemetry listening on 127.0.0.1:%d "
                         "(/metrics, /healthz)", self._telemetry.port)
+        if self._join_addr:
+            threading.Thread(target=self._join_loop, daemon=True,
+                             name="svc-fleet-join").start()
         logger.info("merge service listening on %s (%d workers, queue %d)",
                     self._socket_path, self._workers_n, self._queue.maxsize)
         try:
@@ -370,6 +415,22 @@ class Daemon:
         the path, :data:`_FOREIGN` when a daemon of another package or
         checkout does; a dead daemon's leftover socket is replaced."""
         path = self._socket_path
+        if fleet_transport.is_tcp(path):
+            try:
+                sock = fleet_transport.listen(path)
+            except OSError:
+                # Port taken: a live port daemon there serves the
+                # requests (as on the unix path); anything else that
+                # answers is foreign; a dead port is a real bind error.
+                from .client import hello
+                answer = hello(path, timeout=2.0)
+                if answer is not None:
+                    return None if protocol.is_ours(answer) else _FOREIGN
+                raise
+            # An ephemeral :0 bind resolves here, so logs, status and
+            # the join announce all advertise something dialable.
+            self._socket_path = fleet_transport.bound_address(sock, path)
+            return sock
         if os.path.exists(path):
             from .client import hello
             answer = hello(path, timeout=2.0)
@@ -424,6 +485,10 @@ class Daemon:
             except socket.timeout:
                 self._maybe_idle_exit()
                 continue
+            except ssl.SSLError:
+                # One client's failed TLS handshake must not stop the
+                # accept loop.
+                continue
             except OSError:
                 break
             threading.Thread(target=self._handle_conn, args=(conn,),
@@ -446,10 +511,17 @@ class Daemon:
         # process finishes its in-flight work, so new requests land on
         # the replacement instead of racing the shutdown. Clients
         # already connected keep their established connections.
-        with contextlib.suppress(OSError):
-            sock.close()
-        with contextlib.suppress(OSError):
-            os.unlink(self._socket_path)
+        fleet_transport.close_listener(sock)
+        if not fleet_transport.is_tcp(self._socket_path):
+            with contextlib.suppress(OSError):
+                os.unlink(self._socket_path)
+        if self._join_addr and self._joined_as:
+            # Deliberate departure: tell the router, so the ring update
+            # is a "leave", not a heartbeat-timeout eject.
+            with contextlib.suppress(Exception):
+                fleet_transport.call(self._join_addr, "leave",
+                                     {"member": self._joined_as},
+                                     timeout=2.0, retries=0)
         drain = env_seconds("SEMMERGE_SERVICE_DRAIN_TIMEOUT", 30.0)
         deadline = time.monotonic() + drain if drain > 0 else None
         while True:
@@ -505,12 +577,16 @@ class Daemon:
                 if method == "hello":
                     # The hello names the package and the checkout: a
                     # client of another package or checkout treats this
-                    # daemon as no daemon.
+                    # daemon as no daemon. It doubles as the fleet
+                    # heartbeat: the router reads `draining` off it.
                     hello = {"ok": True, "pid": os.getpid(),
                              "version": protocol.PROTOCOL_VERSION,
                              "draining": self._draining,
                              "package": protocol.PACKAGE,
                              "checkout": protocol.CHECKOUT}
+                    member = self._fleet_member or self._joined_as
+                    if member is not None:
+                        hello["fleet_member"] = member
                     protocol.write_message(wfile,
                                            {"id": req_id, "result": hello})
                     continue
@@ -552,6 +628,12 @@ class Daemon:
                     protocol.write_message(wfile, {
                         "id": req_id,
                         "result": self._capture_profile(params)})
+                    continue
+                if method == "prewarm":
+                    # Affinity handoff: the router warms a rehashed repo
+                    # key onto its new owner before traffic lands there.
+                    protocol.write_message(wfile, {
+                        "id": req_id, "result": self._prewarm(params)})
                     continue
                 if method == "shutdown":
                     protocol.write_message(wfile,
@@ -786,6 +868,12 @@ class Daemon:
                     req.response["result"]["meta"]["phases"] = {
                         k: round(v, 6) if isinstance(v, float) else v
                         for k, v in req.phases.items()}
+                if self._fleet_member is not None and os.environ.get(
+                        "SEMMERGE_FLEET_STITCH", "on").strip() != "off":
+                    # Fleet member: ship the request's span tree back so
+                    # the router grafts it into one stitched trace.
+                    req.response["result"]["meta"]["spans"] = \
+                        req.recorder.span_dicts()
                 obs_metrics.REGISTRY.histogram(
                     "service_request_seconds", _LATENCY_HELP).observe(
                         queue_wait + duration, exemplar=req.trace_id,
@@ -817,16 +905,19 @@ class Daemon:
                     # so the events artifact still covers everything.
                     self._recorder.absorb(req.recorder,
                                           trace_id=req.trace_id)
-                # Every port daemon is standalone: export this request's
-                # trace directly. Export never reaches the request: a
-                # dead collector only counts in otlp_errors_total.
-                try:
-                    exporter = obs_export.maybe_exporter()
-                    if exporter is not None:
-                        exporter.export_trace(req.trace_id,
-                                              req.recorder.span_dicts())
-                except Exception:
-                    logger.debug("OTLP export error", exc_info=True)
+                # A standalone daemon exports this request's trace; a
+                # fleet member ships its spans to the router, which
+                # exports the stitched tree once. Export never reaches
+                # the request: a dead collector only counts in
+                # otlp_errors_total.
+                if self._fleet_member is None:
+                    try:
+                        exporter = obs_export.maybe_exporter()
+                        if exporter is not None:
+                            exporter.export_trace(req.trace_id,
+                                                  req.recorder.span_dicts())
+                    except Exception:
+                        logger.debug("OTLP export error", exc_info=True)
 
     def _run_cli(self, req: _Request):
         """The actual CLI invocation: ``service.execute`` span, request
@@ -1076,6 +1167,57 @@ class Daemon:
         finally:
             self._profile_lock.release()
 
+    def _prewarm(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Warm a repo key this daemon just became the owner of: one
+        bounded ``git rev-parse`` against the repo (no device work); a
+        prewarm failure is an answer, never a fault."""
+        cwd = str(params.get("cwd") or "").strip()
+        if not cwd or not os.path.isdir(cwd):
+            return {"ok": False, "cwd": cwd, "error": "no such directory"}
+        import subprocess
+        try:
+            proc = subprocess.run(["git", "-C", cwd, "rev-parse", "HEAD^{tree}"],
+                                  capture_output=True, text=True, timeout=10.0)
+        except (OSError, subprocess.SubprocessError) as exc:
+            return {"ok": False, "cwd": cwd, "error": f"{type(exc).__name__}: {exc}"}
+        if proc.returncode != 0:
+            return {"ok": False, "cwd": cwd, "error": (proc.stderr or "").strip()[:200]}
+        with self._locks_lock:
+            entry = self._repo_locks.setdefault(
+                cwd, {"lock": threading.Lock(), "last": 0.0})
+            entry["last"] = time.time()
+        return {"ok": True, "cwd": cwd, "tree_oid": proc.stdout.strip()}
+
+    def _join_loop(self) -> None:
+        """Announce this daemon to the fleet router, then keep
+        re-announcing — the re-announce is also the rejoin path after a
+        partition eject. Draining suppresses the announce so a
+        deliberate departure never looks alive again."""
+        advertise = self._advertise or self._socket_path
+        interval = max(0.2, env_seconds("SEMMERGE_FLEET_JOIN_INTERVAL", 5.0))
+        while True:
+            if not self._draining:
+                self._join_epoch += 1
+                params = {"address": advertise, "capacity": self._capacity,
+                          "epoch": self._join_epoch}
+                if self._member_id:
+                    params["member"] = self._member_id
+                elif self._joined_as:
+                    params["member"] = self._joined_as
+                result = fleet_transport.call(
+                    self._join_addr, "join", params,
+                    timeout=fleet_transport.connect_timeout(), retries=0)
+                if result and result.get("ok"):
+                    member = str(result.get("member") or "")
+                    if member and member != self._joined_as:
+                        self._joined_as = member
+                        logger.info("joined fleet %s as member %s (advertising %s)",
+                                    self._join_addr, member, advertise)
+                elif result is not None:
+                    logger.warning("fleet join rejected: %s", result.get("error"))
+            if self._stop.wait(interval):
+                return
+
     def _reaper(self) -> None:
         """Evict per-repo state idle past the TTL."""
         interval = max(1.0, min(self._repo_ttl / 2.0, 60.0))
@@ -1101,10 +1243,9 @@ class Daemon:
                 self._queue.qsize())
 
     def status(self) -> Dict[str, Any]:
-        """The JAX daemon's status block (same keys; the fleet ones
-        ``None``, ``transport`` ``"unix"``), plus ``package`` and
-        ``device`` (``platform`` ``gpu`` or ``cpu``, ``kind`` the card's
-        name)."""
+        """The JAX daemon's status block (same keys), plus ``package``
+        and ``device`` (``platform`` ``gpu`` or ``cpu``, ``kind`` the
+        card's name, ``launches`` the hand kernels' launches so far)."""
         from ..frontend.declcache import global_cache
         decl = global_cache().stats()
         hits = decl.get("hits", 0)
@@ -1126,9 +1267,17 @@ class Daemon:
             "served_total": served,
             "workers": self._workers_n,
             "draining": self._draining,
-            "fleet_member": None,
-            "fleet_join": None,
-            "transport": "unix",
+            "fleet_member": self._fleet_member or self._joined_as,
+            "fleet_join": ({"router": self._join_addr,
+                            "advertise": self._advertise or self._socket_path,
+                            "capacity": self._capacity,
+                            "joined_as": self._joined_as,
+                            "announces": self._join_epoch}
+                           if self._join_addr else None),
+            "transport": ("tcp+tls" if fleet_transport.is_tcp(self._socket_path)
+                          and fleet_transport.tls_enabled()
+                          else "tcp" if fleet_transport.is_tcp(self._socket_path)
+                          else "unix"),
             "repos_tracked": len(self._repo_locks),
             "rss_mb": round(_rss_mb(), 3),
             "metrics_port": (self._telemetry.port

@@ -84,9 +84,116 @@ def serve_argv(args) -> List[str]:
         argv += ["--idle-exit", str(args.idle_exit)]
     if getattr(args, "events", None):
         argv += ["--events", str(args.events)]
+    if getattr(args, "join", None):
+        argv += ["--join", str(args.join)]
+    if getattr(args, "advertise", None):
+        argv += ["--advertise", str(args.advertise)]
+    if getattr(args, "capacity", None) is not None:
+        argv += ["--capacity", str(args.capacity)]
+    if getattr(args, "member_id", None):
+        argv += ["--member-id", str(args.member_id)]
     if getattr(args, "device", None):
         argv += ["--device", str(args.device)]
     return argv
+
+
+class MemberSupervisor:
+    """Per-child respawn policy for the fleet router (``fleet/``), as
+    in the JAX package. Each child is a fresh ``subprocess`` (never a
+    ``fork``) of the port's daemon: the router holds no CUDA context
+    for it to inherit.
+
+    :class:`Supervisor` is a blocking run loop around one child; the
+    fleet router supervises N member daemons from a single health
+    thread, so this is the same policy — exponential backoff from
+    ``SEMMERGE_SUPERVISE_BACKOFF`` capped at
+    ``SEMMERGE_SUPERVISE_BACKOFF_CAP``, ladder reset after
+    :data:`STABLE_SECONDS` of uptime — as a poll-style state machine.
+    :meth:`ensure` is called periodically; it reaps a dead child,
+    schedules the respawn, and spawns when the backoff elapses. Each
+    member carries its own ladder: one crash-looping member settles at
+    the cap without delaying its siblings' respawns.
+    """
+
+    def __init__(self, member_id: str, argv: Sequence[str], *,
+                 env: Optional[dict] = None,
+                 backoff: Optional[float] = None,
+                 backoff_cap: Optional[float] = None) -> None:
+        self.member_id = member_id
+        self._argv = list(argv)
+        self._env = dict(env) if env is not None else None
+        self._backoff = backoff if backoff is not None else _env_float(
+            "SEMMERGE_SUPERVISE_BACKOFF", 0.2)
+        self._cap = backoff_cap if backoff_cap is not None else _env_float(
+            "SEMMERGE_SUPERVISE_BACKOFF_CAP", 5.0)
+        self.proc: Optional[subprocess.Popen] = None
+        self.restarts = 0
+        self.last_rc: Optional[int] = None
+        self._attempt = 0
+        self._started_at = 0.0
+        self._respawn_at: Optional[float] = None
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self.proc.pid if self.proc is not None else None
+
+    def running(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def ensure(self) -> Optional[str]:
+        """Advance the state machine one tick.
+
+        Returns ``"spawned"`` when this tick (re)spawned the child,
+        ``"died"`` on the tick that reaped a death (the respawn is
+        scheduled, not taken, so the caller can eject the member from
+        the ring immediately), ``None`` otherwise.
+        """
+        now = time.monotonic()
+        if self.proc is not None:
+            rc = self.proc.poll()
+            if rc is None:
+                return None
+            self.last_rc = rc
+            self.proc = None
+            if now - self._started_at >= STABLE_SECONDS:
+                self._attempt = 0
+            self._attempt += 1
+            delay = min(self._backoff * (2 ** (self._attempt - 1)),
+                        self._cap)
+            self._respawn_at = now + delay
+            logger.warning(
+                "fleet member %s died (rc=%s); respawn in %.2fs "
+                "(attempt %d)", self.member_id, rc, delay, self._attempt)
+            return "died"
+        if self._respawn_at is not None and now < self._respawn_at:
+            return None
+        self._respawn_at = None
+        env = self._env if self._env is not None else dict(os.environ)
+        env = dict(env)
+        env.pop("SEMMERGE_METRICS", None)
+        try:
+            self.proc = subprocess.Popen(self._argv, env=env)
+        except OSError as exc:
+            logger.error("could not spawn fleet member %s: %s",
+                         self.member_id, exc)
+            self._respawn_at = now + self._cap
+            return None
+        self._started_at = now
+        if self.last_rc is not None:
+            self.restarts += 1
+        logger.info("fleet member %s pid=%d up", self.member_id,
+                    self.proc.pid)
+        return "spawned"
+
+    def terminate(self) -> None:
+        if self.running():
+            with contextlib.suppress(OSError):
+                self.proc.send_signal(signal.SIGTERM)
+
+    def kill(self) -> None:
+        if self.proc is not None:
+            with contextlib.suppress(OSError):
+                self.proc.kill()
 
 
 class Supervisor:

@@ -20,10 +20,13 @@ reported in the daemon ``status()`` payload (``metrics_port``) so
 tests and tooling can discover it. Unset/empty disables the listener
 entirely — the daemon never opens a TCP socket unless asked.
 
-``SEMMERGE_METRICS_BIND=<host>`` widens the bind address in the JAX
-package, under its fleet's TLS material; the port has no fleet
-transport, so a non-loopback bind is **refused** (the listener stays
-dark, loudly).
+``SEMMERGE_METRICS_BIND=<host>`` widens the bind address so cross-host
+fleets can scrape members directly — but only under TLS, as in the JAX
+package: a non-loopback bind is **refused** (the listener stays dark,
+loudly) unless the fleet's TLS material (``SEMMERGE_FLEET_TLS_CERT`` /
+``_KEY`` / ``_CA``, :mod:`semantic_merge_tpu_torch.fleet.transport`) is
+configured, in which case the listener serves HTTPS with the same cert,
+and a configured CA makes it mutual.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
+from ..fleet import transport as fleet_transport
 from ..obs import metrics as obs_metrics
 from ..utils.loggingx import logger
 
@@ -96,17 +100,25 @@ class TelemetryServer:
                  metrics_fn: Optional[Callable[[], str]] = None,
                  host: Optional[str] = None) -> None:
         bind = host if host is not None else _bind_host()
+        tls_ctx = None
         if bind not in _LOOPBACK:
-            # Plaintext metrics on a routable interface leak repo paths;
-            # the JAX package serves them there only under its fleet TLS.
-            raise ValueError(f"refusing non-loopback metrics bind {bind!r}: "
-                             "the port serves telemetry on loopback only")
+            # Widened bind: TLS or nothing. Plaintext metrics on a
+            # routable interface leak repo paths and member topology.
+            tls_ctx = fleet_transport.server_context()
+            if tls_ctx is None:
+                raise ValueError(
+                    f"refusing non-loopback metrics bind {bind!r} "
+                    f"without SEMMERGE_FLEET_TLS_CERT material")
         self._httpd = ThreadingHTTPServer((bind, port), _Handler)
-        self.tls = False
+        if tls_ctx is not None:
+            self._httpd.socket = tls_ctx.wrap_socket(
+                self._httpd.socket, server_side=True)
+        self.tls = tls_ctx is not None
         self._httpd.daemon_threads = True
         self._httpd.semmerge_health = health_fn  # type: ignore[attr-defined]
-        # Optional exposition override (the daemon publishes its window
-        # gauges before rendering).
+        # Optional exposition override: the daemon publishes its window
+        # gauges before rendering; the fleet router serves its federated
+        # view (member scrapes + rollups).
         self._httpd.semmerge_metrics = metrics_fn  # type: ignore[attr-defined]
         self._thread: Optional[threading.Thread] = None
 

@@ -27,7 +27,19 @@ commit             ``runtime.inplace.commit_tree_inplace`` (after the
 resolver:propose   ``resolve.engine.resolve_conflicts`` (propose)
 resolver:verify    ``resolve.engine.resolve_conflicts`` (before the
                    gates)
+net:connect        ``fleet.transport.dial``, before the connect
+net:read           ``fleet.transport`` and the router's member relay,
+                   before each reply read
+net:partition      both of those seams (half-open: the dial succeeds
+                   upstream, every read fails)
+net:slow           ``fleet.transport.dial``: the verbatim kind (e.g.
+                   ``net:slow:lag``) sleeps ``SEMMERGE_FAULT_NET_SLOW_S``
+                   (default 0.2 s) per dial, then proceeds
 =================  ===================================================
+
+The ``net:*`` stages classify as
+:class:`~semantic_merge_tpu_torch.errors.TransportFault` (exit 21 under
+``SEMMERGE_FLEET=require``; the ladder falls through under ``auto``).
 
 Kinds:
 

@@ -19,6 +19,9 @@
   subprocess backend's default worker is the port's own
   (``semantic_merge_tpu_torch.runtime.worker``), never the JAX
   package's, on the card unless the caller is on the CPU.
+- The fleet (``fleet/``: the router, hash ring, WAL and transport) is
+  among them and imports the standard library only (and its own
+  package); importing the router loads neither torch nor JAX.
 - Without a CUDA device the CLI's three commands and ``train-matcher``
   (without ``--device cpu``) and
   ``chip_smoke.py`` exit non-zero and say why; neither carries on on
@@ -177,6 +180,35 @@ def test_language_and_worker_modules_are_checked_and_stand_alone(module):
     assert not roots & set(FORBIDDEN), roots
     text = path.read_text()
     assert "semantic_merge_tpu." not in text.replace("semantic_merge_tpu_torch.", "")
+
+
+#: The fleet slice: the routing tier and the member side it needs.
+FLEET_MODULES = ("fleet/__init__.py", "fleet/hashring.py", "fleet/wal.py",
+                 "fleet/transport.py", "fleet/router.py", "service/supervisor.py",
+                 "service/telemetry.py", "service/client.py", "service/daemon.py")
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_fleet_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    roots = _imported_roots(path)
+    assert not roots & set(FORBIDDEN), roots
+    allowed = {"torch"} if module == "service/daemon.py" else set()
+    assert roots <= set(sys.stdlib_module_names) | {"__future__"} | allowed, roots
+    text = path.read_text()
+    assert "semantic_merge_tpu." not in text.replace("semantic_merge_tpu_torch.", "")
+
+
+def test_router_import_loads_no_torch_and_no_jax():
+    code = ("import sys\nimport semantic_merge_tpu_torch.fleet.router\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch', 'numpy') + FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO_ROOT,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])

@@ -310,7 +310,8 @@ def test_exit_codes_are_the_jax_packages():
                                  for name in errors.EXIT_CODES}
     assert set(errors.EXIT_CODES) == {"ParseFault", "KernelFault", "WorkerFault",
                                       "ApplyFault", "FormatFault", "DeadlineFault",
-                                      "BatchFault", "ResolveFault"}
+                                      "BatchFault", "ResolveFault", "FleetFault",
+                                      "TransportFault"}
     assert errors.UnsupportedSetting.exit_code == 70
 
 

@@ -850,25 +850,34 @@ def test_device_faults_never_feed_the_breaker(world, tmp_path, monkeypatch):
 # --- refusals and the device contract --------------------------------------------------------
 
 REFUSED = {
-    "serve_tcp": (["serve", "--socket", "tcp://127.0.0.1:0"], {}),
-    "serve_join": (["serve", "--join", "x.sock"], {}),
-    "serve_advertise": (["serve", "--advertise", "a"], {}),
-    "serve_capacity": (["serve", "--capacity", "2"], {}),
-    "serve_member_id": (["serve", "--member-id", "m"], {}),
-    "serve_fleet": (["serve", "--status", "--fleet"], {}),
-    "fleet_require": (["semmerge", "basebr", "brA", "brB"], {"SEMMERGE_FLEET": "require"}),
     "mesh_require": (["semdiff", "basebr", "brA"], {"SEMMERGE_MESH": "require"}),
-    "stats_fleet": (["stats", "--fleet"], {}),
 }
-#: Forms refused until the port had the live tools: each now gives the
-#: JAX CLI's answer for the same argv and environment (``off``: the JAX
-#: client would spawn a daemon of its own under ``require``).
+#: Forms refused until the port had the live tools and the fleet: each
+#: now gives the JAX CLI's answer for the same argv and environment
+#: (``off``: the JAX client would spawn a daemon of its own under
+#: ``require``). The ``serve`` fleet flags ask for ``--status``, which
+#: reads nothing and starts nothing (without it both CLIs would serve);
+#: ``fleet_require`` runs both packages' entry points, where the client
+#: reads the posture before the CLI.
 PORTED = {
     "otlp": (["semdiff", "basebr", "brA"], {"SEMMERGE_OTLP": "http://127.0.0.1:4318",
                                             "SEMMERGE_DAEMON": "off"}),
     "top": (["top", "--once"], {}),
     "profile": (["profile", "--daemon"], {}),
+    "serve_tcp": (["serve", "--status", "--socket", "tcp://127.0.0.1:1"], {}),
+    "serve_join": (["serve", "--status", "--join", "x.sock"], {}),
+    "serve_advertise": (["serve", "--status", "--advertise", "a"], {}),
+    "serve_capacity": (["serve", "--status", "--capacity", "2"], {}),
+    "serve_member_id": (["serve", "--status", "--member-id", "m"], {}),
+    "serve_fleet": (["serve", "--status", "--fleet"], {}),
+    "fleet_require": (["semmerge", "basebr", "brA", "brB"], {"SEMMERGE_FLEET": "require"}),
+    "stats_fleet": (["stats", "--fleet"], {}),
+    "stats_daemon_fleet": (["stats", "--daemon", "--fleet"], {}),
+    "top_tcp": (["top", "--once", "--socket", "tcp://127.0.0.1:1"], {}),
+    "profile_tcp": (["profile", "--daemon", "--socket", "tcp://127.0.0.1:1"], {}),
 }
+#: The exit each ported form gives with nothing to read (both CLIs).
+PORTED_CODES = {"otlp": 3, "fleet_require": 19}
 
 
 @pytest.fixture
@@ -886,10 +895,13 @@ def test_refused_settings_exit_70_before_reading(name, tmp_path, monkeypatch, ca
                                                  gc_state):
     """The refused settings exit 70 before anything is read. The forms
     of ``PORTED`` exit as the JAX CLI does for the same argv and
-    environment, with its stdout, reading nothing: ``top`` and
-    ``profile`` with no daemon exit 1 with its stderr, ``semdiff`` with
-    ``SEMMERGE_OTLP`` outside a repository exits 3 (inside one, its
-    bytes are the JAX CLI's: ``tests/test_torch_export.py``)."""
+    environment, with its stdout, reading nothing: ``top``, ``profile``,
+    ``serve --status`` (the fleet flags too), ``stats --fleet`` (no
+    trace artifact) and ``stats --daemon --fleet`` with no daemon exit 1
+    with its stderr, ``SEMMERGE_FLEET=require`` with no router 19 with
+    its stderr, ``semdiff`` with ``SEMMERGE_OTLP`` outside a repository
+    exits 3 (inside one, its bytes are the JAX CLI's:
+    ``tests/test_torch_export.py``)."""
     argv, env = REFUSED.get(name) or PORTED[name]
     monkeypatch.chdir(tmp_path)  # nothing there to read
     for key in [k for k in os.environ if k.startswith("SEMMERGE_")]:
@@ -905,13 +917,17 @@ def test_refused_settings_exit_70_before_reading(name, tmp_path, monkeypatch, ca
     if name in REFUSED:
         assert code == 70 and "not implemented by this port" in err
     else:
-        jax_code = jax_cli.main(argv)
+        # The JAX package's entry point: its client reads SEMMERGE_FLEET
+        # before its CLI (the port's main delegates the same way).
+        from semantic_merge_tpu import __main__ as jax_main
+        jax_code = jax_main._main(argv)
         jax_out, jax_err = capsys.readouterr()
-        assert (code, out) == (jax_code, jax_out) and code == (3 if name == "otlp" else 1)
+        assert (code, out) == (jax_code, jax_out) and code == PORTED_CODES.get(name, 1)
         if name == "otlp":
             assert err.splitlines()[-1] == jax_err.splitlines()[-1]
         else:
-            assert err == jax_err and err.startswith("error: ")
+            assert err == jax_err and err.startswith(
+                "semmerge" if name.startswith(("serve", "fleet")) else "error: ")
     assert list(tmp_path.iterdir()) == []
 
 

@@ -60,9 +60,10 @@ comparison (:func:`_one_fetch`).
 
 Also: ``stats`` (plain, ``--json``, ``--prometheus``), ``trace
 analyze`` (one file, a directory, ``--json``) and ``trace diff`` print
-the JAX CLI's bytes for the same artifacts; the fleet forms exit 70
-before reading anything, ``stats --daemon``, ``profile --daemon`` and
-``perf`` without a daemon or a baseline answer as the JAX CLI does;
+the JAX CLI's bytes for the same artifacts; ``stats --daemon``,
+``profile --daemon``, ``perf`` and the fleet forms without a daemon, an
+artifact or a baseline answer as the JAX CLI does (the fleet forms on
+live artifacts: ``tests/test_torch_fleet_obs.py``);
 ``--profile DIR`` writes
 ``DIR/semmerge-trace.json`` and a torch profiler trace holding a
 ``semmerge/<phase>`` range per phase, twice in one process; without the
@@ -584,21 +585,17 @@ def test_trace_analyze_directory_equal(runs, capsys, tmp_path, as_json):
                          ids=lambda a: "_".join(a[:2]))
 def test_unported_forms_exit_70_before_reading(capsys, tmp_path, monkeypatch, argv):
     """``stats --daemon`` (the merge service), ``profile --daemon`` and
-    ``perf`` (the live tools) are ported: with no daemon on the socket,
-    and no baseline in the working directory, they answer as the JAX
-    CLI does (1, 1 and 2, its stderr) and read nothing; the fleet forms
-    are still refused."""
+    ``perf`` (the live tools) and the fleet forms (``stats --fleet``
+    reads a trace artifact, ``trace analyze --fleet`` a stitched one)
+    are ported: with no daemon on the socket, no artifact and no
+    baseline in the working directory, they answer as the JAX CLI does
+    (1, 1, 2, 1 and 1, its stderr) and read nothing."""
     monkeypatch.chdir(tmp_path)  # nothing there to read
     monkeypatch.setenv("SEMMERGE_SERVICE_SOCKET", str(tmp_path / "none.sock"))
     capsys.readouterr()
-    if "--fleet" in argv:
-        assert cli.main(argv) == 70
-        out, err = capsys.readouterr()
-        assert out == "" and "not implemented by this port" in err
-    else:
-        port, jax = _both(capsys, argv)
-        assert port == jax and port[0] == (2 if argv[0] == "perf" else 1)
-        assert port[1] == "" and port[2].startswith("error: no ")
+    port, jax = _both(capsys, argv)
+    assert port == jax and port[0] == (2 if argv[0] == "perf" else 1)
+    assert port[1] == "" and port[2].startswith("error: no ")
     assert list(tmp_path.iterdir()) == []
 
 
