@@ -21,7 +21,9 @@ Phases, each fatal on failure, each printing its seconds:
    ``sha256`` (fails without SHF, the rotates; its bound in phase 5 is
    counted from these, so it fails there without cuobjdump). Then
    ``g++`` builds the native scanner
-   (``frontend/semmerge_native.cpp``); prints its build seconds.
+   (``frontend/semmerge_native.cpp``), then the C op factory
+   (``frontend/opfactory.c``, against the interpreter's headers), which
+   must load; prints their build seconds.
 2b. train, before any matcher runs: ``train-matcher --steps 200
    --ckpt-dir DIR --ckpt-every 100 --eval`` in this process at the
    default width (batch 32, seq 64): exit 0, its two output lines, a
@@ -42,11 +44,11 @@ Phases, each fatal on failure, each printing its seconds:
 3. repo: a git repository of the bench's ``synth_repo`` shape at its
    rung5 size (10,000 files x 4 decls): the side branch renames
    functions in every even file and renames AND retypes the first
-   function of 256 other files, the other branch moves every 4th file
-   to ``lib/``, and the stmt branch edits the body of the last function
-   of every 3rd file. Beside it a repository of the same shape at the
+   function of 256 other files, and the other branch moves every 4th
+   file to ``lib/``. Beside it a repository of the same shape at the
    bench's rung3 size (1,000 files x 6 decls, side and other alike) for
-   the driver, resolve and concurrent service merges: its drv branch
+   the strict, driver, resolve and concurrent service merges: its stmt
+   branch edits the body of the last function of every 3rd file, its drv branch
    renames the last function of every 16th file (63), and its rsv_base
    gives the last function of every 4th file (250) a three-line body
    whose first line rsv_a edits and whose second rsv_b edits. A matcher
@@ -75,7 +77,9 @@ Phases, each fatal on failure, each printing its seconds:
      edits, each note's op count and bytes (device-rendered) equal to
      ``_json_rows``'s rendering, and ``compose_oplogs_device`` on the
      card over the materialized op logs equal to the fused composed
-     stream;
+     stream; then each op log through the port's native C++ serializer
+     and the Python one (both equal to the note) and through the C op
+     factory and the Python builder (equal ops), each timed;
    - matcher semmerge: ``semmerge base side other --inplace
      --change-signature --signature-matcher``: the fused engine runs
      first (4 ``sha256`` launches) and its result is set aside, since
@@ -85,7 +89,9 @@ Phases, each fatal on failure, each printing its seconds:
      timed alone;
    - strict semmerge: ``semmerge base side stmt --inplace
      --strict-conflicts --structured-apply --change-signature
-     --signature-matcher`` in a third work tree: no fused engine (0
+     --signature-matcher`` in a work tree of the rung3 repository (its
+     depth cut from rung5 to keep the smoke inside its time limit; 334
+     body edits): no fused engine (0
      ``sha256``), 8 ``flash_chunk`` launches (the matcher refines A as
      in the matcher semdiff), exit 0 with no conflict, B's op log one
      ``editStmtBlock`` per edited body, every edited body and every
@@ -118,6 +124,13 @@ Phases, each fatal on failure, each printing its seconds:
    one-buffer row, the same ``sha256`` launches (2, over 4C rows each)
    and at most 1.1x the kernels of one one-merge call; its device ms,
    kernels and host ms per call printed beside the one-merge call's.
+5a. crdt: 1,024 RGA lists of 1 to 64 elements with moves and
+   tombstones through ``ops/crdt.py::materialize_batch`` on the card,
+   equal to the host RGA's and to the same tensor code on the CPU; then
+   1,024 ``reorderImports`` ops (files of 1 to 64 import lines) through
+   the object applier with ``device_crdt`` on the card: one program
+   launch, a tree equal to the host RGA's; the program timed as the
+   fused programs are.
 5b. trace (in-process, no profiler of this script around it): the
    fused semmerge of the rung3 repository, untraced (under this script's
    profiler, as in phase 4) in a work tree at side, then ``semmerge
@@ -136,6 +149,16 @@ Phases, each fatal on failure, each printing its seconds:
    8 records in its profile, its phase ranges, a valid
    ``DIR2/semmerge-trace.json``. Prints the traced merge's wall beside
    the untraced one's and each profile's size.
+5c. scope: every run of phase 4 and the rung3 merge print their
+   ``scope_files`` (the incremental scope's path count) beside their
+   ``scan`` and ``encode`` seconds; the rung3 notes came from the native
+   serializer (the device render below 4,096 rows is off). The rung3
+   fused semmerge again in another work tree with ``[engine]
+   incremental = false``: the scoped merge's tree and notes. A small
+   repository whose collision guard falls back to the full tree (A
+   renames a function beside one whose signature an untouched file
+   shares): the fallback merge's tree and notes equal an unscoped
+   merge's in a clone.
 6. driver merge (not in-process): ``git merge --no-ff drv`` on side in
    a clone of the rung3 repository, with ``python -m semantic_merge_tpu_torch.driver %O %A %B
    %P`` registered as ``merge.semmerge.driver`` for ``*.ts`` in
@@ -196,7 +219,9 @@ Phases, each fatal on failure, each printing its seconds:
    hold the card (used memory up 100 MiB or more while it serves the
    cold merge). Then, ``SEMMERGE_DAEMON=require``: the cold ``semmerge
    base side other --inplace`` from a client process in a sixth work
-   tree (exit 0, tree and notes equal phase 4's fused semmerge's, 1
+   tree, whose ``.semmerge.toml`` turns the incremental scope off (a
+   resident base is keyed by its scope; exit 0, tree and notes equal
+   phase 4's scoped fused semmerge's, 1
    request and 4 ``sha256`` launches in the daemon's status); the warm
    ``semdiff base side --json-out`` (op log equal to phase 4's, one
    residency hit; its scan and encode seconds printed beside phase
@@ -231,7 +256,9 @@ Phases, each fatal on failure, each printing its seconds:
    shipped and with ``=0``: byte-identical outputs (op log; exit code,
    stdout, tree, notes); prints every child's wall and its seconds per
    phase (``SEMMERGE_METRICS``).
-7c. fleet, on the rung3 repository: ``fleet --members 2`` (a router on
+7c. fleet, on a repository of the rung3 shape at 250 files (its depth
+   cut from rung3's 1,000 files to keep the smoke inside its time
+   limit): ``fleet --members 2`` (a router on
    a socket under the scratch directory, two members it supervises) and
    ``serve --socket tcp://127.0.0.1:0 --join SOCKET --member-id t0``,
    three CUDA processes beside this one; hedging pushed out of reach,
@@ -257,6 +284,14 @@ Phases, each fatal on failure, each printing its seconds:
    members; tree and notes the in-process merge's). Last a SIGTERM
    drains the router to exit 0, and no member process is left. Prints
    every wall beside the card's name and power limit.
+7d. soak: the port's chaos soak (``python -m
+   semantic_merge_tpu_torch.scripts.chaos_soak``, a child process) with
+   a CUDA daemon (``serve --supervise`` on the card): 24 mixed requests
+   (clean, degrade-scan, degrade-apply, strict-scan, resolve),
+   concurrency 4, one daemon SIGKILL mid-soak; every invariant of the
+   soak must hold (byte-exact settled trees, documented exits only, a
+   respawned pid, the supervisor's restart count) within 240 s, and no
+   process of it may be left; prints its report and wall.
 8. reference: small inputs on the card and on the CPU must give
    identical op logs (a matcher semdiff) and identical exit codes,
    trees, conflicts and notes (fused semmerges, one with a
@@ -282,6 +317,7 @@ Prints the kernels' JSON line, the card line, and last the device JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -959,20 +995,22 @@ def time_programs(torch, captured: dict) -> dict:
 
 class Capture:
     """Wraps ``module.name`` so that its first and last calls' arguments
-    are kept (the function then runs as before); counts its calls."""
+    and its last return value are kept (the function then runs as
+    before); counts its calls."""
 
     def __init__(self, module, name: str) -> None:
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.calls = 0
-        self.first = self.last = None
+        self.first = self.last = self.returned = None
 
     def __enter__(self):
         def wrapper(*args, **kwargs):
             self.calls += 1
             self.last = (self.fn, args, kwargs)
             self.first = self.first or self.last
-            return self.fn(*args, **kwargs)
+            self.returned = self.fn(*args, **kwargs)
+            return self.returned
 
         setattr(self.module, self.name, wrapper)
         return self
@@ -1433,6 +1471,9 @@ def synth_trees(n_files: int, decls: int, n_retyped: int):
 #: slow the run would outgrow its time limit), and so do the service's
 #: concurrent merges and the GC posture's.
 RUNG3_FILES, RUNG3_DECLS = 1_000, 6
+#: The fleet phase's repository: the rung3 shape at a quarter of its
+#: files (its depth cut so that the smoke stays inside its time limit).
+FLEET_FILES = 250
 #: In it the driver merge's branch edits every 16th file (63 driver
 #: starts) and the resolve merge's branches every 4th (250 conflicts).
 DRV_EVERY, RSV_EVERY = 16, 4
@@ -1540,16 +1581,43 @@ def make_repo(root: pathlib.Path, base: dict, side: dict, other: dict,
     git("checkout", "-q", "-f", "side")
 
 
+def _scans_of_run():
+    """Wraps ``frontend.scanner.scan_snapshot_keyed`` for the callers that
+    look it up at call time (the incremental scope's collision guard,
+    ``runtime/git.py``; the engine binds its own): returns the wrapper's
+    restore function and the :class:`ScanStats` its calls add up to."""
+    from semantic_merge_tpu_torch.frontend import scanner
+
+    total, orig = scanner.ScanStats(), scanner.scan_snapshot_keyed
+
+    def counting(files, **kwargs):
+        own = kwargs.get("stats")
+        kwargs["stats"] = stats = scanner.ScanStats()
+        try:
+            return orig(files, **kwargs)
+        finally:
+            for name in ("native_files", "python_files", "hits", "misses"):
+                setattr(total, name, getattr(total, name) + getattr(stats, name))
+                if own is not None:
+                    setattr(own, name, getattr(own, name) + getattr(stats, name))
+
+    scanner.scan_snapshot_keyed = counting
+    return (lambda: setattr(scanner, "scan_snapshot_keyed", orig)), total
+
+
 def run_cli(torch, repo: pathlib.Path, argv: list, scanners: tuple = ("native",)):
     """Runs the port's ``semdiff`` or ``semmerge`` CLI function for
     ``argv`` in ``repo`` under a torch.profiler device trace, with the
     decl cache emptied and the launch counts and shapes set to 0 just
-    before and read just after; fails unless the engine's TypeScript scan
-    is one of ``scanners`` (by default the native scanner, for every file
+    before and read just after; fails unless the run's TypeScript scans
+    are one of ``scanners`` (by default the native scanner, for every file
     the cache missed; none for the engines that scan no TypeScript in
-    this process: the C-family engine, the worker). Returns the result,
-    the counts, the shapes, the host wall and the device's busy time
-    (union of its activities) in seconds."""
+    this process: the C-family engine, the worker). With the incremental
+    scope the collision guard scans first (in the snapshot phase) and the
+    engine's scan may then be all cache hits of this run's own native
+    scans: the guard's scans count too. Returns the result, the counts,
+    the shapes, the host wall and the device's busy time (union of its
+    activities) in seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     from semantic_merge_tpu_torch import cli, kernels
@@ -1559,6 +1627,7 @@ def run_cli(torch, repo: pathlib.Path, argv: list, scanners: tuple = ("native",)
     run = cli.semdiff if argv[0] == "semdiff" else cli.semmerge
     cwd = os.getcwd()
     os.chdir(repo)
+    restore, guard = _scans_of_run()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # The CLI runs in this process: a cache warm from the last run
@@ -1572,6 +1641,7 @@ def run_cli(torch, repo: pathlib.Path, argv: list, scanners: tuple = ("native",)
             launches = dict(kernels.LAUNCHES)
             shapes = {k: dict(v) for k, v in kernels.LAUNCH_SHAPES.items()}
     finally:
+        restore()
         os.chdir(cwd)
     busy = _busy_us([(s, e) for _, s, e in _device_events(prof)]) / 1e6
     print(f"{' '.join(argv)}: wall {wall:.3f} s (under a torch.profiler trace); device busy "
@@ -1582,11 +1652,16 @@ def run_cli(torch, repo: pathlib.Path, argv: list, scanners: tuple = ("native",)
     phases = result.phases
     if not scanners:
         return result, launches, shapes, wall, busy
-    if phases.get("scanner") not in scanners:
-        fail(f"{argv[0]} scanned with {phases.get('scanner')!r}, expected one of {scanners}")
-    print(f"{' '.join(argv)}: scan {phases['scan']:.4f} s, native; decl cache "
-          f"{phases['decl_cache_hits']} hits, {phases['decl_cache_misses']} misses",
-          flush=True)
+    engine = phases.get("scanner")
+    ran = {engine} | ({guard.scanner} if guard.native_files or guard.python_files else set())
+    ran.discard("cache")
+    if engine not in scanners and not (engine == "cache" and ran and ran <= set(scanners)):
+        fail(f"{argv[0]} scanned with {engine!r} (the scope's guard: {guard.scanner!r}), "
+             f"expected one of {scanners}")
+    print(f"{' '.join(argv)}: scan {phases['scan']:.4f} s, {engine}; decl cache "
+          f"{phases['decl_cache_hits']} hits, {phases['decl_cache_misses']} misses; the "
+          f"scope's guard scanned {guard.native_files} files natively, "
+          f"{guard.python_files} in Python ({guard.hits} hits)", flush=True)
     return result, launches, shapes, wall, busy
 
 
@@ -1600,12 +1675,14 @@ def expect_launches(path: str, launches: dict, want: dict) -> None:
                  f"{'at least 1' if n is None else n}")
 
 
-def write_config(root: pathlib.Path, ckpt: pathlib.Path) -> str:
+def write_config(root: pathlib.Path, ckpt: pathlib.Path, incremental: bool = True) -> str:
     """Writes the repository's ``.semmerge.toml`` (untracked, so no
     revision holds it): the matcher's checkpoint, a formatter that does
     nothing and no typecheck, so that the merge never waits on an
-    ``npx`` without a network. Returns what it set."""
+    ``npx`` without a network; ``incremental = false`` unless
+    ``incremental``. Returns what it set."""
     text = (f'[engine]\nmatcher_ckpt_dir = "{ckpt}"\n'
+            + ("" if incremental else "incremental = false\n") +
             '[languages.typescript]\nformatter_cmd = ["true"]\n'
             '[ci]\nrequire_typecheck = false\n')
     (root / ".semmerge.toml").write_text(text)
@@ -1729,8 +1806,10 @@ def check_fused_semmerge(torch, work: pathlib.Path, merged) -> dict:
     return counts
 
 
-def check_strict_semmerge(work: pathlib.Path, side: dict, merged) -> dict:
-    """The strict merge of side and stmt: exit 0 and no conflict, taken
+def check_strict_semmerge(work: pathlib.Path, side: dict, merged, n_files: int,
+                          decls: int) -> dict:
+    """The strict merge of side and stmt (of a repository of ``n_files``
+    files x ``decls`` decls): exit 0 and no conflict, taken
     without the fused engine (build-and-diff, strict detection, device
     compose), B's op log one ``editStmtBlock`` per edited body, every
     edited body and every function of side (renamed, retyped, added) in
@@ -1743,10 +1822,10 @@ def check_strict_semmerge(work: pathlib.Path, side: dict, merged) -> dict:
     left, right = merged.result.op_log_left, merged.result.op_log_right
     counts = {"A": _counts(left), "B": _counts(right), "composed": _counts(merged.composed)}
     print(f"strict semmerge ops by type {json.dumps(counts)}", flush=True)
-    edited = range(0, N_FILES, 3)
+    edited = range(0, n_files, 3)
     if counts["B"] != {"editStmtBlock": len(edited)}:
         fail(f"B's op log is {counts['B']}, expected {len(edited)} editStmtBlock ops")
-    last = DECLS - 1
+    last = decls - 1
     for i in edited:
         text = (work / "src" / f"mod{i:05d}.ts").read_text()
         if f"{{ return {last} + {i}; }}" not in text:
@@ -1990,10 +2069,12 @@ def run_cli_traced(repo: pathlib.Path, argv: list):
     return result, launches, wall
 
 
-def _work_tree(root: pathlib.Path) -> dict:
+def _work_tree(root: pathlib.Path, config: bool = True) -> dict:
     """{path: bytes} of every file of a work tree but ``.git`` and the
-    trace artifacts."""
+    trace artifacts (and, unless ``config``, its ``.semmerge.toml``)."""
     skip = {".git", ".semmerge-trace.json", ".semmerge-events.jsonl", ".semmerge-postmortem"}
+    if not config:
+        skip.add(".semmerge.toml")
     return {p.relative_to(root).as_posix(): p.read_bytes() for p in sorted(root.rglob("*"))
             if p.is_file() and not skip & set(p.relative_to(root).parts)}
 
@@ -2508,7 +2589,10 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
     svc_tree = WORK / "service"
     subprocess.run(["git", "worktree", "add", "-q", "--detach", str(svc_tree), "side"],
                    cwd=repo, check=True)
-    write_config(svc_tree, ckpt)
+    # The whole tree: a resident base is keyed by its incremental scope,
+    # and the warm semdiff must find the cold merge's base (whose scope,
+    # with the scope on, would be the merge's, not the diff's).
+    write_config(svc_tree, ckpt, incremental=False)
     log = open(WORK / "svc.log", "wb")
     out: dict = {}
     with GpuSampler() as sampler:
@@ -2549,7 +2633,7 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
         out["card_used_rise_mib"] = sampler.rise_mib
         if sampler.rise_mib < CONTEXT_MIB:
             fail(f"the daemon held no context on the card: {json.dumps(out)}")
-        if _work_tree(svc_tree) != _work_tree(fused_tree):
+        if _work_tree(svc_tree, config=False) != _work_tree(fused_tree, config=False):
             fail("the daemon-served semmerge's tree differs from phase 4's fused semmerge's")
         if {rev: _note(repo, rev) for rev in ("side", "other")} != untraced["notes"]:
             fail("the daemon-served semmerge's notes differ from phase 4's")
@@ -2771,9 +2855,9 @@ def _alive(pid: int) -> bool:
     return stat.rsplit(")", 1)[1].split()[0] != "Z"
 
 
-def _owned_clone(rung3: pathlib.Path, ckpt: pathlib.Path, stem: str, ring: list,
+def _owned_clone(repo: pathlib.Path, ckpt: pathlib.Path, stem: str, ring: list,
                  local: set) -> tuple:
-    """A clone of the rung3 repository at side whose rendezvous owner in
+    """A clone of ``repo`` at side whose rendezvous owner in
     ``ring`` is a router-spawned member (so a SIGKILL of the owner is a
     crash its supervisor answers)."""
     from semantic_merge_tpu_torch.fleet import hashring
@@ -2781,12 +2865,12 @@ def _owned_clone(rung3: pathlib.Path, ckpt: pathlib.Path, stem: str, ring: list,
         clone = WORK / f"{stem}{i}"
         owner = hashring.owner(hashring.repo_key(str(clone)), ring)
         if owner in local:
-            _clone_at_side(rung3, clone, ckpt)
+            _clone_at_side(repo, clone, ckpt)
             return clone, owner
     fail(f"no clone name of 64 hashes to a local member of {ring}")
 
 
-def run_fleet_phase(torch, rung3: pathlib.Path, ckpt: pathlib.Path) -> dict:
+def run_fleet_phase(torch, repo: pathlib.Path, ckpt: pathlib.Path) -> dict:
     """The fleet on the card: ``fleet --members 2`` and one ``serve
     --socket tcp://127.0.0.1:0 --join`` member, three CUDA processes;
     the routed fused semmerge (tree, notes and exit code of the
@@ -2824,7 +2908,7 @@ def run_fleet_phase(torch, rung3: pathlib.Path, ckpt: pathlib.Path) -> dict:
              "tcp://127.0.0.1:0", "--join", str(sock), "--member-id", FLEET_TCP_ID,
              "--idle-exit", "0"], cwd=WORK, stdout=tcp_log, stderr=subprocess.STDOUT,
             env=_fleet_env(sock)))
-        out.update(_fleet_steps(torch, rung3, ckpt, sock, wal_dir, log, router, tcp,
+        out.update(_fleet_steps(torch, repo, ckpt, sock, wal_dir, log, router, tcp,
                                 {"m0": t0, "m1": t0, FLEET_TCP_ID: t_tcp}, pids))
         router = out.pop("router")
     finally:
@@ -2839,7 +2923,7 @@ def run_fleet_phase(torch, rung3: pathlib.Path, ckpt: pathlib.Path) -> dict:
     return out
 
 
-def _fleet_steps(torch, rung3: pathlib.Path, ckpt: pathlib.Path, sock: pathlib.Path,
+def _fleet_steps(torch, repo: pathlib.Path, ckpt: pathlib.Path, sock: pathlib.Path,
                  wal_dir: pathlib.Path, log, router: subprocess.Popen,
                  tcp: subprocess.Popen, starts: dict, pids: set) -> dict:
     """Steps 2-7 of the fleet phase, on a router and TCP member just
@@ -2851,7 +2935,7 @@ def _fleet_steps(torch, rung3: pathlib.Path, ckpt: pathlib.Path, sock: pathlib.P
     out: dict = {}
     # The in-process references, on a copy.
     ref = WORK / "fleet_ref"
-    _clone_at_side(rung3, ref, ckpt)
+    _clone_at_side(repo, ref, ckpt)
     matcher_argv = ["semdiff", "base", "side", "--json-out", "--change-signature",
                     "--signature-matcher"]
     from semantic_merge_tpu_torch import cli
@@ -2869,7 +2953,7 @@ def _fleet_steps(torch, rung3: pathlib.Path, ckpt: pathlib.Path, sock: pathlib.P
     up = _await_ring(sock, router, 3, starts)
     out["member_start_s"] = up["start_s"]
     print(f"fleet: 3 members up; seconds from each member's start to the ring "
-          f"{json.dumps(up['start_s'])} (the in-process rung3 fused semmerge: "
+          f"{json.dumps(up['start_s'])} (the in-process fused semmerge: "
           f"{ref_wall:.3f} s)", flush=True)
     agg = _fleet_members(sock)
     devices = {mid: (m.get("device") or {}).get("platform")
@@ -2881,7 +2965,7 @@ def _fleet_steps(torch, rung3: pathlib.Path, ckpt: pathlib.Path, sock: pathlib.P
 
     # 3. Routed merges under SEMMERGE_FLEET=require, in a clone whose
     # owner is a router-spawned member.
-    route, owner = _owned_clone(rung3, ckpt, "fleet_route", ring, {"m0", "m1"})
+    route, owner = _owned_clone(repo, ckpt, "fleet_route", ring, {"m0", "m1"})
     before = agg["members"][owner]["device"]["launches"]
     proc, wall = _fleet_cli(sock, route, ["semmerge", "base", "side", "other", "--inplace"],
                             SEMMERGE_FLEET="require")
@@ -2974,7 +3058,7 @@ def _fleet_steps(torch, rung3: pathlib.Path, ckpt: pathlib.Path, sock: pathlib.P
     if _fleet_status(sock)["members_up"] != 0:
         fail("members still in the ring after draining both")
     wal_clone = WORK / "fleet_wal"
-    _clone_at_side(rung3, wal_clone, ckpt)
+    _clone_at_side(repo, wal_clone, ckpt)
     untouched = _work_tree(wal_clone)
     waiting = started(subprocess.Popen(
         [sys.executable, "-m", "semantic_merge_tpu_torch", "semmerge", "base", "side",
@@ -3744,6 +3828,322 @@ def check_reference(torch, ckpt: pathlib.Path) -> float:
     return err
 
 
+# --- slice 15: scope, serializers, the device CRDT, the soak -------------------
+
+def report_scope(label: str, snaps: "Capture", result) -> dict:
+    """The incremental scope the CLI's ``_snapshots`` returned for one run
+    (``scope_files``: its path count; ``None`` for the full tree) beside
+    the run's ``scan`` and ``encode`` seconds."""
+    scope = snaps.returned[1] if snaps.returned is not None else None
+    phases = result.phases
+    out = {"scope_files": None if scope is None else len(scope),
+           "scan_s": phases.get("scan"), "encode_s": phases.get("encode")}
+    print(f"scope: {label}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def check_serializers(merged, repo: pathlib.Path) -> dict:
+    """The rung5 fused semmerge's op logs through every serializer and
+    op builder: the notes came from the device render (``serializer``);
+    the port's native C++ serializer (``smn_oplog_json``) and the Python
+    serializer give the notes' bytes; the C op factory's ops equal the
+    Python builder's, by ``to_dict``. Each timed on the host clock."""
+    from semantic_merge_tpu_torch.core.ops import Op, Target
+    from semantic_merge_tpu_torch.frontend import native
+
+    fac = native.load_opfactory()
+    out = {}
+    for rev, view in (("side", merged.result.op_log_left), ("other", merged.result.op_log_right)):
+        note = _note(repo, rev).rstrip(b"\n")
+        t0 = time.perf_counter()
+        raw = view._to_json_native_bytes()
+        t1 = time.perf_counter()
+        py = view._to_json_py_bytes()
+        t2 = time.perf_counter()
+        if raw is None:
+            fail("the native op-log serializer did not run (SEMMERGE_NATIVE=0?)")
+        if not (raw == py == note):
+            fail(f"the native serializer's bytes of {rev}'s op log differ from the Python "
+                 "serializer's or the note's")
+        t3 = time.perf_counter()
+        built = fac.stream_ops(*view._c_stream_args(), view.prov, Op, Target)
+        t4 = time.perf_counter()
+        plain = [view._build_one(i) for i in range(len(view))]
+        t5 = time.perf_counter()
+        if [o.to_dict() for o in built] != [o.to_dict() for o in plain]:
+            fail(f"the op factory's ops of {rev}'s op log differ from the Python builder's")
+        out[rev] = {"ops": len(view), "notes_serializer": view.serializer,
+                    "native_ms": (t1 - t0) * 1e3, "python_ms": (t2 - t1) * 1e3,
+                    "opfactory_ms": (t4 - t3) * 1e3, "python_build_ms": (t5 - t4) * 1e3,
+                    "bytes": len(raw)}
+    print(f"serializers: rung5 fused semmerge op logs: native serializer bytes == Python "
+          f"serializer bytes == notes; op factory ops == Python ops; {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+#: The device CRDT phase: lists and their longest length.
+CRDT_LISTS, CRDT_MAX = 1024, 64
+
+
+def crdt_rgas(n_lists: int, seed: int):
+    """``n_lists`` RGA lists of 1 to :data:`CRDT_MAX` inserts each, with
+    moves and tombstones, from ``seed``."""
+    import random
+
+    from semantic_merge_tpu_torch.core.crdt import RGA, Key
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(n_lists):
+        r = RGA()
+        n = 1 + (i * 37) % CRDT_MAX
+        for j in range(n):
+            r.insert(Key(rng.choice("pqrs"), rng.randint(0, 50), rng.choice("uvw"),
+                         f"op{i}.{j}"), f"v{j}")
+        for j in range(n // 5):
+            r.move(f"v{rng.randrange(n)}", Key(rng.choice("pqrs"), rng.randint(0, 50), "m",
+                                               f"mv{i}.{j}"))
+        for _ in range(n // 7):
+            r.delete(f"v{rng.randrange(n)}")
+        out.append(r)
+    return out
+
+
+def crdt_tree_and_ops(root: pathlib.Path, n_files: int, seed: int):
+    """A tree of ``n_files`` TypeScript files with 1 to :data:`CRDT_MAX`
+    import lines each and one ``reorderImports`` op per file whose CRDT
+    order reshuffles them."""
+    import random
+
+    from semantic_merge_tpu_torch.core.ops import Op, Target
+
+    rng = random.Random(seed)
+    ops = []
+    for i in range(n_files):
+        n = 1 + (i * 37) % CRDT_MAX
+        lines = [f'import {{ v{j} }} from "./dep{j}";' for j in range(n)]
+        path = root / "src" / f"imp{i:05d}.ts"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text("\n".join(lines) + f"\nexport function f{i}(): number {{\n"
+                        "  return 1;\n}\n")
+        order = [{"value": v, "anchor": rng.choice("xyz"), "t": rng.randint(0, 9),
+                  "author": rng.choice("uv"), "opid": f"o{i}.{k}"}
+                 for k, v in enumerate(rng.sample(lines, n))]
+        ops.append(Op.new("reorderImports", Target(symbolId=f"imp{i}", addressId=None),
+                          params={"file": f"src/imp{i:05d}.ts", "order": order},
+                          op_id=f"{i:032x}"))
+    return ops
+
+
+def run_crdt_phase(torch, work: pathlib.Path) -> dict:
+    """The device RGA materialization (``ops/crdt.py``): 1,024 lists of
+    up to 64 elements with moves and tombstones through
+    ``materialize_batch`` on the card, against the host RGA and the same
+    tensor code on the CPU; then a synthetic op log of 1,024
+    ``reorderImports`` ops through the object applier with
+    ``device_crdt`` on the card (one program launch, counted), against
+    the host RGA's tree; the program timed as the other non-Pallas
+    programs."""
+    from semantic_merge_tpu_torch.ops import crdt
+    from semantic_merge_tpu_torch.runtime.applier import apply_ops
+
+    rgas = crdt_rgas(CRDT_LISTS, seed=15)
+    t0 = time.perf_counter()
+    on_card = crdt.materialize_batch(rgas, "cuda")
+    t1 = time.perf_counter()
+    host = [list(r.materialize()) for r in rgas]
+    t2 = time.perf_counter()
+    if on_card != host or on_card != crdt.materialize_batch(rgas, "cpu"):
+        fail("materialize_batch on the card differs from the host RGA or the CPU run")
+    n_dead = sum(e.tombstone for r in rgas for e in r.elems)
+    base = work / "crdt_base"
+    ops = crdt_tree_and_ops(base, CRDT_LISTS, seed=16)
+    trees = {}
+    with Capture(crdt, "_materialize_program") as program:
+        t3 = time.perf_counter()
+        merged = apply_ops(base, ops, device_crdt=True, device=torch.device("cuda"))
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t3
+    launches = program.calls
+    if launches != 1:
+        fail(f"the object applier launched the CRDT program {launches} times, expected 1")
+    for label, tree in (("card", merged), ("host", apply_ops(base, ops))):
+        trees[label] = _work_tree(tree)
+        shutil.rmtree(tree, ignore_errors=True)
+    if trees["card"] != trees["host"]:
+        fail("the applier's tree with the CRDT on the card differs from the host RGA's")
+    if trees["card"] == _work_tree(base):
+        fail("the reorderImports ops changed no file")
+    timed = time_programs(torch, {"crdt program": program.last})["crdt program"]
+    out = {"lists": CRDT_LISTS, "elements": sum(len(r.elems) for r in rgas),
+           "tombstones": n_dead, "batch_card_ms": (t1 - t0) * 1e3,
+           "batch_host_rga_ms": (t2 - t1) * 1e3, "apply_ops": len(ops),
+           "apply_s": apply_s, "launches": launches, "program": timed}
+    print(f"crdt: materialize_batch on the card == host RGA == CPU tensor code; object "
+          f"applier tree (device_crdt, card) == host RGA's; {json.dumps(out)}", flush=True)
+    return out
+
+
+def _twin_trees():
+    """A small repository whose incremental scope the collision guard
+    drops: A renames a function in a file whose other function shares
+    its structural signature with a function in an untouched file."""
+    def decl(i, name):
+        params = ", ".join(f"p{k}: number" for k in range(i + 1))
+        return f"export function {name}({params}): number {{\n  return {i};\n}}\n"
+
+    dup = "export function %s(a: string, b: string, c: string): string { return a; }\n"
+    base = {f"src/m{i}.ts": decl(i, f"fn{i}") for i in range(12)}
+    base["src/m0.ts"] += dup % "dupScoped"
+    base["src/zzz_twin.ts"] = dup % "dupTwin"
+    side = dict(base, **{"src/m0.ts": decl(0, "renamed0") + dup % "dupRenamed"})
+    other = {k: v for k, v in base.items() if k != "src/m3.ts"}
+    other["lib/m3.ts"] = base["src/m3.ts"]
+    return base, side, other
+
+
+def check_scope_equivalence(torch, rung3: pathlib.Path, scoped_tree: pathlib.Path,
+                            scoped_notes: dict, ckpt: pathlib.Path) -> dict:
+    """The incremental scope changes no byte: the rung3 fused semmerge
+    (scoped, run in ``scoped_tree``) against the same merge with
+    ``[engine] incremental = false`` in another work tree (tree and
+    notes); then a small repository whose collision guard falls back to
+    the full tree (scope None though either side touched files), against
+    its unscoped merge in a clone."""
+    from semantic_merge_tpu_torch import cli
+
+    out = {}
+    full = WORK / "unscoped3"
+    subprocess.run(["git", "worktree", "add", "-q", "--detach", str(full), "side"],
+                   cwd=rung3, check=True)
+    write_config(full, ckpt, incremental=False)
+    with Capture(cli, "_snapshots") as snaps:
+        merged, _, _, wall, _ = run_cli(torch, full, ["semmerge", "base", "side", "other",
+                                                      "--inplace"])
+    if merged.code != 0 or snaps.returned[1] is not None:
+        fail(f"the unscoped rung3 semmerge exited {merged.code} or ran scoped")
+    want, got = _work_tree(scoped_tree, config=False), _work_tree(full, config=False)
+    notes = {rev: _note(rung3, rev) for rev in ("side", "other")}
+    if got != want or notes != scoped_notes:
+        fail("the rung3 semmerge with incremental = false differs from the scoped merge "
+             "(tree or notes)")
+    out["rung3_unscoped"] = {"wall_s": wall, "scan_s": merged.phases.get("scan"),
+                             "encode_s": merged.phases.get("encode")}
+    twin = WORK / "twin"
+    make_repo(twin, *_twin_trees())
+    write_config(twin, ckpt)
+    runs = {}
+    for label, root in (("scoped", twin), ("unscoped", WORK / "twin_full")):
+        if label == "unscoped":
+            subprocess.run(["git", "clone", "-q", "--shared", str(twin), str(root)], check=True)
+            for args in (["branch", "-q", "base", "origin/base"],
+                         ["branch", "-q", "other", "origin/other"],
+                         ["config", "user.email", "smoke@example.com"],  # for git notes
+                         ["config", "user.name", "smoke"]):
+                subprocess.run(["git", *args], cwd=root, check=True)
+            write_config(root, ckpt, incremental=False)
+        with Capture(cli, "_snapshots") as snaps:
+            merged, _, _, wall, _ = run_cli(torch, root, ["semmerge", "base", "side", "other",
+                                                          "--inplace"])
+        if merged.code != 0:
+            fail(f"the {label} twin semmerge exited {merged.code}")
+        runs[label] = {"tree": _work_tree(root, config=False),
+                       "notes": {rev: _note(root, rev) for rev in ("side", "other")},
+                       "scope": snaps.returned[1], "wall_s": wall}
+    if runs["scoped"]["scope"] is not None:
+        fail("the collision guard did not fall back to the full tree on the twin repository")
+    if runs["scoped"]["tree"] != runs["unscoped"]["tree"] or \
+            runs["scoped"]["notes"] != runs["unscoped"]["notes"]:
+        fail("the twin repository's fallback merge differs from its unscoped merge")
+    if b"renamed0" not in runs["scoped"]["tree"]["src/m0.ts"]:
+        fail("the twin repository's merge lacks A's rename")
+    out["twin_fallback"] = {label: {"wall_s": r["wall_s"]} for label, r in runs.items()}
+    print(f"scope: the rung3 semmerge with incremental = false gives the scoped merge's tree "
+          f"and notes; the twin repository's guard fell back to the full tree, with the "
+          f"unscoped merge's tree and notes; {json.dumps(out)}", flush=True)
+    return out
+
+
+#: The short soak on the card: requests, repositories, concurrency, kills.
+SOAK = {"requests": 24, "repos": 4, "concurrency": 4, "kills": 1, "seed": 1}
+#: Seconds the soak may take (it took 41-48 s beside an H100 80GB HBM3).
+SOAK_BUDGET_S = 240.0
+
+
+def _soak_processes(workdir: pathlib.Path) -> list:
+    """Pids of the processes whose argv names ``workdir`` (the soak's
+    supervisor and daemon: their socket lies under it)."""
+    pids, key = [], str(workdir).encode()
+    for entry in pathlib.Path("/proc").iterdir():
+        if entry.name.isdigit() and int(entry.name) != os.getpid():
+            try:
+                if key in (entry / "cmdline").read_bytes():
+                    pids.append(int(entry.name))
+            except OSError:
+                continue
+    return pids
+
+
+def run_soak_phase() -> dict:
+    """The port's chaos soak (``scripts/chaos_soak.py``) with a CUDA
+    daemon, as its command line runs it, in a child process:
+    :data:`SOAK`'s mixed traffic against ``serve --supervise`` on the
+    card, one daemon SIGKILL mid-soak; every invariant of the soak must
+    hold, within :data:`SOAK_BUDGET_S` (past it the child and the soak's
+    daemons are killed and the daemons' log tail printed). The daemons
+    find a stub ``npx`` that fails first on their PATH: the card's
+    machine has no network, where an ``npx`` would wait on the registry;
+    the formatter then logs and the typecheck passes vacuously, as where
+    ``npx`` is absent."""
+    work = WORK / "soak"
+    stub = WORK / "soak_bin"
+    stub.mkdir(parents=True, exist_ok=True)
+    (stub / "npx").write_text("#!/bin/sh\nexit 1\n")
+    (stub / "npx").chmod(0o755)
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               PATH=f"{stub}{os.pathsep}{os.environ.get('PATH', '')}")
+    argv = [sys.executable, "-m", "semantic_merge_tpu_torch.scripts.chaos_soak", "--json",
+            "--hard-mb", "16384", "--workdir", str(work),
+            *[a for k, v in SOAK.items() for a in (f"--{k}", str(v))]]
+    print(f"soak: {' '.join(argv[1:])} (npx outside the stub: {shutil.which('npx')})",
+          flush=True)
+    t0 = time.perf_counter()
+    proc = started(subprocess.Popen(argv, cwd=WORK, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+    try:
+        stdout, stderr = proc.communicate(timeout=SOAK_BUDGET_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+        log = work / "chaos.sock.log"
+        tail = log.read_text(errors="replace")[-6000:] if log.is_file() else "(no log)"
+        for pid in _soak_processes(work):
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        fail(f"the soak did not end within {SOAK_BUDGET_S:.0f} s; its stderr: "
+             f"{stderr[-3000:]}; its daemons' log: {tail}")
+    wall = time.perf_counter() - t0
+    try:
+        report = json.loads(stdout)
+    except ValueError:
+        fail(f"the soak exited {proc.returncode} without a report: {stderr[-3000:]}")
+    if proc.returncode != 0 or not report["ok"]:
+        fail("the soak on the card failed: " + "; ".join(report["errors"][:10]))
+    if report["kills"] != SOAK["kills"] or report["daemon_pids_seen"] < 2 or \
+            not report["supervisor_restarts"]:
+        fail(f"the soak's kill did not land or no respawn was seen: {json.dumps(report)}")
+    if _soak_processes(work):
+        fail(f"the soak left processes running: {_soak_processes(work)}")
+    keep = ("outcomes", "kills", "daemon_pids_seen", "supervisor_restarts",
+            "transport_retries", "breaker_transitions", "breaker_rungs", "final_rss_mb",
+            "served_total", "elapsed_s")
+    out = {k: report.get(k) for k in keep}
+    out["wall_s"] = wall
+    print(f"soak: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     global N_FILES, N_RETYPED
     import argparse
@@ -3796,6 +4196,14 @@ def main() -> int:
     print(f"native scanner: {native.library_path().relative_to(REPO)} built in "
           f"{native_s:.3f} s (g++ {' '.join(native.CXX_FLAGS)}; 0 = already built)",
           flush=True)
+    try:
+        factory_s = native.build_opfactory()
+        native.load_opfactory()
+    except ParseFault as exc:
+        fail(f"the op factory did not build or load: {exc}")
+    print(f"op factory: {native.opfactory_path().relative_to(REPO)} built in "
+          f"{factory_s:.3f} s (g++ {' '.join(native.OPFACTORY_FLAGS)} against "
+          f"{native._python_include()}; 0 = already built)", flush=True)
     t = phase("build", t)
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -3810,11 +4218,11 @@ def main() -> int:
         repo, ckpt, fused_tree = WORK / "repo", WORK / "ckpt", WORK / "fused"
         strict_tree, rsv_tree = WORK / "strict", WORK / "resolve"
         trees = synth_trees(N_FILES, DECLS, N_RETYPED)
-        make_repo(repo, *trees)
+        make_repo(repo, *trees[:3])
         rung3 = WORK / "rung3"
         rung3_trees = synth_trees(RUNG3_FILES, RUNG3_DECLS, RUNG3_FILES * N_RETYPED // N_FILES)
         extras = extra_branches(rung3_trees[0], RUNG3_FILES, RUNG3_DECLS)
-        make_repo(rung3, *rung3_trees[:3], extras=extras)
+        make_repo(rung3, *rung3_trees, extras=extras)
         encoder = Encoder(EncoderConfig(), generator=torch.Generator().manual_seed(0))
         save_matcher_checkpoint(ckpt, encoder.state_dict())
         config = write_config(repo, ckpt)
@@ -3822,9 +4230,9 @@ def main() -> int:
         print(f"repo: {N_FILES} files x {DECLS} decls and a README.md; side (A): "
               f"{(N_FILES + 1) // 2} renames, {N_RETYPED} renamed+retyped, README line 2; "
               f"other (B): {(N_FILES + 3) // 4} files moved src/ -> lib/, {N_RETYPED} other "
-              f"files renamed+retyped, README line 19; stmt: {len(range(0, N_FILES, 3))} "
-              f"body edits of fn<i>_{DECLS - 1}; the rung3 repository ({RUNG3_FILES} files "
-              f"x {RUNG3_DECLS} decls, side and other alike) adds drv: "
+              f"files renamed+retyped, README line 19; the rung3 repository ({RUNG3_FILES} "
+              f"files x {RUNG3_DECLS} decls, side and other alike) adds stmt: "
+              f"{len(range(0, RUNG3_FILES, 3))} body edits of fn<i>_{RUNG3_DECLS - 1}; drv: "
               f"{len(extras['drv'][1])} renames of fn<i>_{last3} (every {DRV_EVERY}th "
               f"file); rsv_base: {len(extras['rsv_base'][1])} three-line bodies of "
               f"fn<i>_{last3} (every {RSV_EVERY}th file), rsv_a / rsv_b: an edit of line 1 / "
@@ -3833,10 +4241,15 @@ def main() -> int:
               + config.replace("\n", "; "), flush=True)
         t = phase("repo", t)
 
-        # The matcher semdiff (two-program path).
-        result, launches, shapes, wall, busy = run_cli(
-            torch, repo, ["semdiff", "base", "side", "--json-out", "--change-signature",
-                          "--signature-matcher"])
+        # The matcher semdiff (two-program path). Every semdiff and
+        # semmerge below scans the incremental scope (scope_files).
+        from semantic_merge_tpu_torch import cli
+        scopes = {}
+        with Capture(cli, "_snapshots") as snaps:
+            result, launches, shapes, wall, busy = run_cli(
+                torch, repo, ["semdiff", "base", "side", "--json-out", "--change-signature",
+                              "--signature-matcher"])
+        scopes["matcher_semdiff"] = report_scope("matcher semdiff", snaps, result)
         expect_launches("matcher semdiff", launches,
                         {"flash_chunk": 8, "flash_chunk_bwd": 0, "sha256": 0})
         if result.matcher is None or result.matcher.encoder is None:
@@ -3844,7 +4257,6 @@ def main() -> int:
         devices = {p.device.type for p in result.matcher.encoder.parameters()}
         if devices != {"cuda"}:
             fail(f"encoder parameters on {devices}, expected cuda")
-        from semantic_merge_tpu_torch import cli
         phase4 = {"matcher_semdiff": _digest(cli.render(result.ops, True) + "\n")}
         counts = _counts(result.ops)
         print(f"matcher semdiff ops by type {json.dumps(counts)}", flush=True)
@@ -3856,9 +4268,11 @@ def main() -> int:
         t = phase("semdiff", t)
 
         # The fused semdiff.
-        with Capture(fused, "_fused_diff_program") as diff_program:
+        with Capture(fused, "_fused_diff_program") as diff_program, \
+                Capture(cli, "_snapshots") as snaps:
             result, launches, shapes, wall, busy = run_cli(
                 torch, repo, ["semdiff", "base", "side", "--json-out"])
+        scopes["fused_semdiff"] = report_scope("fused semdiff", snaps, result)
         expect_launches("fused semdiff", launches, {"flash_chunk": 0, "sha256": None})
         phase4["fused_semdiff"] = _digest(cli.render(result.ops, True) + "\n")
         phase4["fused_semdiff_phases"] = dict(result.phases)
@@ -3873,20 +4287,25 @@ def main() -> int:
                        cwd=repo, check=True)
         write_config(fused_tree, ckpt)
         with Capture(fused, "_fused_merge_program") as merge_program, \
-                Capture(render, "_render_program") as render_program:
+                Capture(render, "_render_program") as render_program, \
+                Capture(cli, "_snapshots") as snaps:
             merged, launches, shapes, wall, busy = run_cli(
                 torch, fused_tree, ["semmerge", "base", "side", "other", "--inplace"])
+        scopes["fused_semmerge"] = report_scope("fused semmerge", snaps, merged)
         expect_launches("fused semmerge", launches, {"flash_chunk": 0, "sha256": 4})
         check_fused_semmerge(torch, fused_tree, merged)
+        serializers = check_serializers(merged, fused_tree)
         runs["fused_semmerge"] = (launches, shapes)
         untraced = {"notes": {rev: _note(repo, rev) for rev in ("side", "other")},
                     "sha256": launches["sha256"], "wall": wall}
         t = phase("fused semmerge", t)
 
         # The matcher semmerge (two-program path), in the first work tree.
-        merged, launches, shapes, wall, busy = run_cli(
-            torch, repo, ["semmerge", "base", "side", "other", "--inplace",
-                          "--change-signature", "--signature-matcher"])
+        with Capture(cli, "_snapshots") as snaps:
+            merged, launches, shapes, wall, busy = run_cli(
+                torch, repo, ["semmerge", "base", "side", "other", "--inplace",
+                              "--change-signature", "--signature-matcher"])
+        scopes["matcher_semmerge"] = report_scope("matcher semmerge", snaps, merged)
         # The fused engine runs first, as in the JAX package, and its
         # result is set aside: the matcher could pair its deletes and adds.
         expect_launches("matcher semmerge", launches,
@@ -3906,18 +4325,21 @@ def main() -> int:
         t = phase("compose", t)
 
         # The strict merge with structured apply and statement ops, in a
-        # third work tree: no fused engine, so no sha256; the matcher
-        # refines A (B only edits bodies) as in the matcher semdiff.
+        # work tree of the rung3 repository (its depth cut from rung5 to
+        # keep the smoke inside its time limit): no fused engine, so no
+        # sha256; the matcher refines A (B only edits bodies).
         subprocess.run(["git", "worktree", "add", "-q", "--detach", str(strict_tree), "side"],
-                       cwd=repo, check=True)
+                       cwd=rung3, check=True)
         write_config(strict_tree, ckpt)
-        merged, launches, shapes, wall, busy = run_cli(
-            torch, strict_tree, ["semmerge", "base", "side", "stmt", "--inplace",
-                                 "--strict-conflicts", "--structured-apply",
-                                 "--change-signature", "--signature-matcher"])
+        with Capture(cli, "_snapshots") as snaps:
+            merged, launches, shapes, wall, busy = run_cli(
+                torch, strict_tree, ["semmerge", "base", "side", "stmt", "--inplace",
+                                     "--strict-conflicts", "--structured-apply",
+                                     "--change-signature", "--signature-matcher"])
+        scopes["strict_semmerge"] = report_scope("strict semmerge", snaps, merged)
         expect_launches("strict semmerge", launches,
                         {"flash_chunk": 8, "flash_chunk_bwd": 0, "sha256": 0})
-        check_strict_semmerge(strict_tree, trees[1], merged)
+        check_strict_semmerge(strict_tree, rung3_trees[1], merged, RUNG3_FILES, RUNG3_DECLS)
         runs["strict_semmerge"] = (launches, shapes)
         t = phase("strict semmerge", t)
 
@@ -3948,6 +4370,10 @@ def main() -> int:
         check_batched_timing(programs)
         t = phase("kernels", t)
 
+        # The device CRDT: reorderImports lists batched on the card.
+        crdt_out = run_crdt_phase(torch, WORK)
+        t = phase("crdt", t)
+
         # --trace and --profile: the fused merge of the rung3 repository,
         # untraced in one work tree, then traced and profiled by the CLI in
         # another, against the untraced run's tree, notes and launches (at
@@ -3960,10 +4386,20 @@ def main() -> int:
         subprocess.run(["git", "worktree", "add", "-q", "--detach", str(trace_ref), "side"],
                        cwd=rung3, check=True)
         write_config(trace_ref, ckpt)
-        merged, launches, shapes, wall, busy = run_cli(
-            torch, trace_ref, ["semmerge", "base", "side", "other", "--inplace"])
+        with Capture(cli, "_snapshots") as snaps:
+            merged, launches, shapes, wall, busy = run_cli(
+                torch, trace_ref, ["semmerge", "base", "side", "other", "--inplace"])
         if merged.code != 0:
             fail(f"the untraced rung3 fused semmerge exited {merged.code}")
+        scopes["rung3_fused_semmerge"] = report_scope("rung3 fused semmerge", snaps, merged)
+        # Below 4,096 rows the op logs are not rendered on the card: the
+        # notes came from the native serializer.
+        rung3_serializers = {}
+        for rev, view in (("side", merged.result.op_log_left),
+                          ("other", merged.result.op_log_right)):
+            rung3_serializers[rev] = view.serializer
+            if view.serializer != ("device" if view.render is not None else "native"):
+                fail(f"the rung3 note on {rev} was serialized by {view.serializer!r}")
         untraced3 = {"notes": {rev: _note(rung3, rev) for rev in ("side", "other")},
                      "sha256": launches["sha256"], "wall": wall}
         traced = check_traced_fused_semmerge(rung3, trace_ref, WORK / "traced", ckpt,
@@ -3976,6 +4412,13 @@ def main() -> int:
         print(f"trace: semdiff base side --json-out --change-signature --signature-matcher "
               f"--profile DIR2: {json.dumps(profiled)}", flush=True)
         t = phase("trace", t)
+
+        # The incremental scope changes no byte (rung3, and a repository
+        # whose collision guard falls back).
+        scope_eq = check_scope_equivalence(torch, rung3, trace_ref, untraced3["notes"], ckpt)
+        print(f"scope: {json.dumps(scopes)}; rung3 notes serializer {rung3_serializers}; "
+              f"card: {card}", flush=True)
+        t = phase("scope", t)
 
         # The merge driver: git merge in a clone; the driver's first start
         # runs the CLI in a child process on the card.
@@ -4033,7 +4476,10 @@ def main() -> int:
         # The fleet: a router, two members it supervises and one that
         # joins over TCP, each on the card; the routed merges' launches
         # are the owner member's, read from its status.
-        flt = run_fleet_phase(torch, rung3, ckpt)
+        fleet_repo = WORK / "fleet_repo"
+        make_repo(fleet_repo, *synth_trees(FLEET_FILES, RUNG3_DECLS,
+                                           max(1, FLEET_FILES * N_RETYPED // N_FILES))[:3])
+        flt = run_fleet_phase(torch, fleet_repo, ckpt)
         for row in rows:
             for path, key in (("fleet_semmerge", "routed_semmerge"),
                               ("fleet_semdiff", "routed_semdiff")):
@@ -4044,6 +4490,11 @@ def main() -> int:
               f"client {flt['routed_semmerge']['client_wall_s']:.3f} s vs in process "
               f"{flt['in_process']['semmerge_wall_s']:.3f} s; card: {card}", flush=True)
         t = phase("fleet", t)
+
+        # The chaos soak with a CUDA daemon: one SIGKILL mid-soak.
+        soak = run_soak_phase()
+        print(f"soak: wall {soak['wall_s']:.3f} s; card: {card}", flush=True)
+        t = phase("soak", t)
 
         emb_err = check_reference(torch, ckpt)
         print(f"reference: small-input op log identical on card and CPU; "

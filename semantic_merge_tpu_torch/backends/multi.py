@@ -43,6 +43,9 @@ class MultiBackend:
         self.extensions = frozenset().union(*(b.extensions for b in backends))
         #: The primary's device: the matcher and the resolution tier run there.
         self.device = backends[0].device
+        #: The device-batched CRDT apply stays on when any routed
+        #: backend provides it (the TypeScript engine does).
+        self.device_crdt = any(getattr(b, "device_crdt", False) for b in backends)
         self.phases: Dict[str, float | int | str] = {}
 
     def _collect_phases(self) -> None:

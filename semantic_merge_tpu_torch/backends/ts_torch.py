@@ -51,11 +51,11 @@ import numpy as np
 
 from ..core.difflift import (Diff, lift, lift_statements, refine_signature_changes,
                              source_maps)
-from ..core.encode import Interner, encode_decls
+from ..core.encode import Interner, encode_decls_keyed
 from ..core.ids import EPOCH_ISO
 from ..core.ops import Op
 from ..device import resolve_device
-from ..frontend.declcache import DeclCache
+from ..frontend.declcache import DeclCache, global_cache
 from ..frontend.scanner import DeclNode, ScanStats, scan_snapshot_keyed
 from ..frontend.snapshot import TS_EXTENSIONS, Snapshot, filter_files
 from ..obs import device as obs_device
@@ -240,6 +240,12 @@ class TorchTSBackend(DeviceDiffBackend):
     #: The files this backend's semantic pipeline owns; the merge's text
     #: layer merges every other file (``runtime/textmerge.py``).
     extensions = frozenset(TS_EXTENSIONS)
+    #: The applier resolves the merge's ``reorderImports`` lists in one
+    #: batched device program for this engine (``ops/crdt.py``; a
+    #: capability of this class only, so the C-family engines sharing
+    #: :class:`DeviceDiffBackend` keep the host RGA, as in the JAX
+    #: package).
+    device_crdt = True
 
     def __init__(self, device: str | None = None,
                  host_workers: int | None = None, *, native_scan: bool = True,
@@ -276,10 +282,13 @@ class TorchTSBackend(DeviceDiffBackend):
     def _scan_encode(self, snaps, clock):
         """Scan and encode ``snaps`` into the backend's id space: the
         decl node lists and their tensors; ``self._keys`` gets their
-        identities. A snapshot resident in the warm residency cache
-        skips both (span ``residency.hit``); an annotated one that is
-        not becomes resident (span ``residency.encode_delta``). Phases
-        ``scan`` and ``encode``, ``residency_hits``."""
+        identities. The encode caches each file's columns in the scan's
+        decl cache (:func:`~semantic_merge_tpu_torch.core.encode.
+        encode_decls_keyed`, as ``ts_tpu.py`` does). A snapshot resident
+        in the warm residency cache skips both (span ``residency.hit``);
+        an annotated one that is not becomes resident (span
+        ``residency.encode_delta``). Phases ``scan`` and ``encode``,
+        ``residency_hits``."""
         from ..service import residency
         self._maybe_reset_interner()
         tok = self._interner.token
@@ -305,6 +314,7 @@ class TorchTSBackend(DeviceDiffBackend):
         self.phases.update(scanner=stats.scanner, decl_cache_hits=stats.hits,
                            decl_cache_misses=stats.misses,
                            residency_hits=sum(h is not None for h in hits))
+        cache = self.decl_cache if self.decl_cache is not None else global_cache()
         nodes, tensors, idents = [], [], []
         for res_key, hit, kn in zip(res_keys, hits, keyed):
             if hit is not None:
@@ -313,8 +323,7 @@ class TorchTSBackend(DeviceDiffBackend):
                 idents.append(hit.identity)
                 continue
             t0 = time.perf_counter()
-            flat = [n for _, file_nodes in kn for n in file_nodes]
-            t = encode_decls(flat, self._interner)
+            t, flat = encode_decls_keyed(kn, self._interner, cache)
             keys = tuple(k for k, _ in kn)
             ident = (tok, keys) if all(k is not None for k in keys) else None
             if res_key is not None:

@@ -177,10 +177,8 @@ touched, because the port does not implement what they select:
 ``[engine] mesh = "require"`` or ``SEMMERGE_MESH=require`` (a device
 mesh).
 
-``incremental`` scopes the scan to the files either side touched for
-every engine but the TypeScript engine alone (:func:`_snapshots`): the
-JAX CLI's collision guard makes the scope give the full tree's op logs
-for TypeScript only.
+``incremental`` scopes the scan to the files either side touched, for
+every engine, with the JAX CLI's collision guard (:func:`_snapshots`).
 
 Read by the JAX package and left alone here, since they do not change
 its output: ``mesh = "off"|"auto"`` and
@@ -541,18 +539,19 @@ def _annotate_base(snap, rev: str, scope=None) -> None:
         annotate_residency(snap, str(workdir.current()), tree_oid(rev), scope=scope)
 
 
-def _snapshots(config, backend, tars, base: str, scope_of):
-    """The snapshots of ``tars`` (the base's first) and their scope. The
-    port's TypeScript engine alone scans the full tree: the JAX CLI's
-    incremental scope gives it the same op logs (its collision guard
-    falls back to the full tree whenever a restriction could change a
-    TypeScript join). Every other engine takes that scope as the JAX CLI
-    does (``[engine] incremental``, default on; ``scope_of()`` is
+def _snapshots(config, tars, base: str, scope_of):
+    """The snapshots of ``tars`` (the base's first) and their scope, as
+    the JAX CLI's ``cmd_semdiff`` and ``_semantic_attempt`` make them.
+    Under ``[engine] incremental`` (default on) every engine scans only
+    the files either side touched (``scope_of()`` is
     :func:`~semantic_merge_tpu_torch.runtime.git.merge_scope` or
-    ``diff_scope``), since the guard indexes TypeScript files only and a
-    Java or C# collision's survivor depends on it."""
-    scope = (scope_of() if backend.name != TorchTSBackend.name and config.engine.incremental
-             else None)
+    ``diff_scope``); the collision guard falls back to the full tree,
+    with the JAX CLI's log line, when a scoped symbolId has an
+    out-of-scope twin (the restriction could change which occurrence a
+    join keeps). The full tars still feed extract, apply and the text
+    layer; the base's residency annotation carries the scope, whose
+    fingerprint keeps a scoped and a full base apart."""
+    scope = scope_of() if config.engine.incremental else None
     snaps = [snapshot_from_bytes(tar, paths=scope) for tar in tars]
     if scope is not None and collision_safe_scope(scope, tars[0], resolve_rev(base),
                                                   snaps) is None:
@@ -576,7 +575,7 @@ def semdiff(args: argparse.Namespace) -> SemdiffResult:
         t0 = time.perf_counter()
         with tracer.phase("snapshot"):
             (base_snap, right_snap), _ = _snapshots(
-                full, backend, [archive_bytes(rev) for rev in (args.rev1, args.rev2)], args.rev1,
+                full, [archive_bytes(rev) for rev in (args.rev1, args.rev2)], args.rev1,
                 lambda: diff_scope(args.rev1, args.rev2))
         phases = {"snapshot": time.perf_counter() - t0}
         with tracer.phase("diff"):
@@ -818,7 +817,7 @@ def _semantic_attempt(args: argparse.Namespace, config, backend,
 
     with tracer.phase("snapshot"), fault_boundary("snapshot"):
         base_tar, left_tar, right_tar = (archive_bytes(rev) for rev in (args.base, args.a, args.b))
-        snaps, scope = _snapshots(config, backend, (base_tar, left_tar, right_tar), args.base,
+        snaps, scope = _snapshots(config, (base_tar, left_tar, right_tar), args.base,
                                   lambda: merge_scope(args.base, args.a, args.b))
         if scope is not None:
             tracer.count("scope_files", len(scope))
@@ -911,7 +910,11 @@ def _semantic_attempt(args: argparse.Namespace, config, backend,
         with tracer.phase("materialize"), fault_boundary("apply"):
             with temp_tree(base_tar) as base_tree:
                 lap("extract")
-                merged_tree = apply_ops(base_tree, out.composed)
+                # The TypeScript engine: the merge's reorderImports
+                # lists materialize as one batched device program.
+                merged_tree = apply_ops(base_tree, out.composed,
+                                        device_crdt=getattr(backend, "device_crdt", False),
+                                        device=backend.device)
             lap("apply")
             deleted_paths: list = []
             text_written: list = []

@@ -39,8 +39,7 @@ does:
     backend = "tpu"                # the engine, as the JAX package names it
     worker_cmd = ["prog", "arg"]   # the subprocess backend's worker
     incremental = true             # scope the scan to changed files
-                                   # (read by the engines other than the
-                                   # TypeScript engine alone; cli.py)
+                                   # (every engine; cli.py::_snapshots)
 
     [languages.java]               # also [languages.csharp] / [languages.cs]
     enabled = true                 # route .java (.cs) files to that engine

@@ -16,7 +16,7 @@ from __future__ import annotations
 import itertools
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -124,6 +124,16 @@ def equality_key(value) -> str | None:
         return f"repr:{type(value).__name__}:{value!r}"
 
 
+def rank_intern(values: Sequence[str | None]) -> Tuple[np.ndarray, List[str]]:
+    """Order-preserving interning: per-value ranks (int32, ``NULL_ID``
+    for ``None``) and the sorted unique table, so integer order is
+    string order (the device CRDT's keys, ``ops/crdt.py``)."""
+    uniq = sorted({v for v in values if v is not None})
+    ranks = {s: i for i, s in enumerate(uniq)}
+    out = np.asarray([NULL_ID if v is None else ranks[v] for v in values], dtype=np.int32)
+    return out, uniq
+
+
 @dataclass
 class DeclTensor:
     """A scanned snapshot as device-ready arrays (one row per decl,
@@ -154,6 +164,41 @@ def encode_decls(nodes, interner: Interner) -> DeclTensor:
         name[i] = interner.intern(node.name)
         file_[i] = interner.intern(node.file)
     return DeclTensor(sym=sym, addr=addr, name=name, file=file_, n=n)
+
+
+def encode_decls_keyed(keyed_nodes, interner: Interner, cache=None
+                       ) -> Tuple[DeclTensor, list]:
+    """Encode per-file scan groups (from
+    :func:`semantic_merge_tpu_torch.frontend.scanner.scan_snapshot_keyed`)
+    with per-file column caching (the JAX package's keyed encode).
+
+    The three snapshots of a merge share almost every file, and repeated
+    merges re-encode mostly unchanged trees: the encoded int32 columns
+    of a file are cached in ``cache`` (the decl cache) under its scan
+    key *plus* the interner's token, so a different or reset interner
+    never reads stale ids, and a hit is an array concatenation instead
+    of four ``intern`` calls per decl. The tensor equals
+    ``encode_decls`` of the flat node list under the same interner.
+    Returns ``(tensor, flat node list)``."""
+    parts: list = []
+    flat: list = []
+    for key, nodes in keyed_nodes:
+        flat.extend(nodes)
+        if not nodes:
+            continue
+        ckey = (("enc", interner.token) + tuple(key[1:])
+                if cache is not None and key is not None else None)
+        arrs = cache.get(ckey) if ckey is not None else None
+        if arrs is None:
+            t = encode_decls(nodes, interner)
+            arrs = (t.sym, t.addr, t.name, t.file)
+            if ckey is not None:
+                cache.put(ckey, arrs, size=4 * t.sym.nbytes + 64)
+        parts.append(arrs)
+    if not parts:
+        return DeclTensor.empty(), flat
+    sym, addr, name, file_ = (np.concatenate(col) for col in zip(*parts))
+    return DeclTensor(sym=sym, addr=addr, name=name, file=file_, n=len(sym)), flat
 
 
 def pad_to(arr: np.ndarray, size: int, fill) -> np.ndarray:

@@ -7,15 +7,17 @@ keep them as the source of truth, materializing lazily:
 
 - ``to_json_bytes()`` — the notes payload: the device-rendered bytes
   (:mod:`semantic_merge_tpu_torch.ops.render`) when the engine attached
-  a render, else :meth:`OpStreamView._json_rows`, a vectorized Python
-  serializer. Both are byte-identical to
+  a render, else the native C++ serializer (``smn_oplog_json``, through
+  :func:`~semantic_merge_tpu_torch.frontend.native.try_oplog_json_bytes`),
+  else (``SEMMERGE_NATIVE=0``) :meth:`OpStreamView._json_rows`, a
+  vectorized Python serializer. All are byte-identical to
   ``dumps_canonical([op.to_dict() for op in view])``, the reference's
   op-log JSON (reference ``semmerge/ops.py:106-121``).
 - ``view[i]`` — one op, built on demand and cached (conflict
   constructors touch a handful of ops).
-- ``iter(view)`` — every op, built in per-kind Python loops.
-
-The JAX package's native C serializer and C op factory are not ported.
+- ``iter(view)`` — every op, built by the C op factory
+  (:func:`~semantic_merge_tpu_torch.frontend.native.load_opfactory`),
+  else (``SEMMERGE_NATIVE=0``) in per-kind Python loops.
 
 The DivergentRename cursor walk gets a columnar twin here too: the
 reference's head-vs-head walk (reference ``semmerge/compose.py:51-112``)
@@ -94,6 +96,44 @@ def _get_fields(cache: Optional["OrderedDict"], nodes) -> Tuple[list, list, list
     return fields
 
 
+def _node_table(nodes) -> Tuple[bytes, np.ndarray]:
+    """A node list marshalled for the native serializer: one UTF-8 blob
+    of the 4 per-node fields (symbolId, addressId, name, file) and int64
+    byte offsets (``4*m+1`` entries). NUL-safe: fields are byte ranges,
+    never C strings."""
+    fields = [x for nd in nodes
+              for x in (nd.symbolId, nd.addressId, nd.name or "", nd.file)]
+    joined = "".join(fields)
+    if joined.isascii():
+        lens = np.fromiter(map(len, fields), np.int64, count=len(fields))
+        blob = joined.encode("ascii")
+    else:  # per-field encode, so the offsets count bytes
+        enc = [f.encode("utf-8") for f in fields]
+        lens = np.fromiter(map(len, enc), np.int64, count=len(enc))
+        blob = b"".join(enc)
+    offs = np.zeros(len(fields) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    return blob, offs
+
+
+def _get_table(cache: Optional["OrderedDict"], nodes) -> Tuple[bytes, np.ndarray]:
+    """The node table through ``cache`` (the same per-snapshot cache as
+    :func:`_get_fields`, under ``("table", id(nodes))``), else built
+    fresh."""
+    if cache is None:
+        return _node_table(nodes)
+    key = ("table", id(nodes))
+    hit = cache.get(key)
+    if hit is not None and hit[1] is nodes:
+        cache.move_to_end(key)
+        return hit[0]
+    table = _node_table(nodes)
+    cache[key] = (table, nodes)
+    while len(cache) > 16:
+        cache.popitem(last=False)
+    return table
+
+
 #: Row templates of the vectorized serializer, one per kind. ``%s``
 #: slots receive escaped string BODIES (ids are hex, never escaped); the
 #: provenance literal is spliced in by :func:`_kind_templates`.
@@ -136,8 +176,8 @@ class OpStreamView(Sequence):
     engine attaches when the device renders this stream's JSON."""
 
     __slots__ = ("kind", "a_slot", "b_slot", "words", "base_nodes",
-                 "side_nodes", "prov", "field_cache", "render", "_ids",
-                 "_ops", "_all_done")
+                 "side_nodes", "prov", "field_cache", "render", "serializer",
+                 "_ids", "_ops", "_all_done")
 
     def __init__(self, kind: np.ndarray, a_slot: np.ndarray,
                  b_slot: np.ndarray, words: np.ndarray,
@@ -152,6 +192,9 @@ class OpStreamView(Sequence):
         self.prov = prov
         self.field_cache = field_cache
         self.render = None
+        #: Which serializer made the last :meth:`to_json_bytes`:
+        #: ``"device"``, ``"native"`` or ``"python"``.
+        self.serializer: Optional[str] = None
         self._ids: Optional[List[str]] = None
         self._ops: Optional[List[Optional[Op]]] = None
         self._all_done = False
@@ -216,10 +259,30 @@ class OpStreamView(Sequence):
             op = self._ops[i] = self._build_one(i)
         return op
 
+    def _columns(self) -> tuple:
+        """The 4 columns as C-contiguous int32 arrays (the native
+        serializer's and the C factory's inputs)."""
+        return tuple(np.ascontiguousarray(c, np.int32)
+                     for c in (self.kind, self.a_slot, self.b_slot, self.words))
+
+    def _c_stream_args(self):
+        """The C factory's stream arguments: the 4 columns, then the 8
+        cached field lists (base, then side)."""
+        return (*self._columns(), *self.base_fields(), *self.side_fields())
+
     def materialize(self) -> List[Op]:
-        """Every op as an object (ops already built are reused)."""
+        """Every op as an object: the C op factory builds them all when
+        none is built yet, else (and under ``SEMMERGE_NATIVE=0``) the
+        missing ones are built in Python, reusing those already built."""
         if self._all_done:
             return self._ops  # type: ignore[return-value]
+        if self._ops is None and len(self) > 0:
+            from ..frontend.native import load_opfactory
+            fac = load_opfactory()
+            if fac is not None:
+                self._ops = fac.stream_ops(*self._c_stream_args(), self.prov, Op, Target)
+                self._all_done = True
+                return self._ops
         if self._ops is None:
             self._ops = [None] * len(self)
         ops = self._ops
@@ -241,7 +304,28 @@ class OpStreamView(Sequence):
         if len(self) == 0:
             return b"[]"
         if self.render is not None:
+            self.serializer = "device"
             return self.render.json_bytes()
+        raw = self._to_json_native_bytes()
+        if raw is not None:
+            self.serializer = "native"
+            return raw
+        self.serializer = "python"
+        return self._to_json_py_bytes()
+
+    def _to_json_native_bytes(self) -> Optional[bytes]:
+        """The native serializer's bytes; ``None`` under
+        ``SEMMERGE_NATIVE=0``."""
+        from ..frontend.native import native_ops_enabled, try_oplog_json_bytes
+        if not native_ops_enabled():
+            return None
+        return try_oplog_json_bytes(len(self), *self._columns(),
+                                    *_get_table(self.field_cache, self.base_nodes),
+                                    *_get_table(self.field_cache, self.side_nodes),
+                                    dumps_canonical(self.prov))
+
+    def _to_json_py_bytes(self) -> bytes:
+        """The vectorized Python serializer's bytes."""
         return ("[" + ",".join(self._json_rows(0, len(self))) + "]").encode("utf-8")
 
     def _json_rows(self, lo: int, hi: int) -> List[str]:
@@ -393,9 +477,30 @@ class ComposedOpView(Sequence):
         return _materialize_decoded(src[int(self.idxs[i])], self.addr_s[i],
                                     self.file_s[i], self.name_s[i])
 
+    def _factory_ops(self, sides, idxs, overrides) -> Optional[List[Op]]:
+        """The composed rows ``(sides, idxs)`` with their chain
+        ``overrides`` built in one pass of the C op factory (the side
+        streams' ops never materialize); ``None`` when the sources are
+        not columnar or under ``SEMMERGE_NATIVE=0``."""
+        if not (len(sides) and self.supports_columns):
+            return None
+        from ..frontend.native import load_opfactory
+        fac = load_opfactory()
+        if fac is None:
+            return None
+        return fac.composed_ops(
+            *self.left._c_stream_args(), *self.right._c_stream_args(),
+            np.ascontiguousarray(np.asarray(sides), np.int32),
+            np.ascontiguousarray(np.asarray(idxs), np.int32),
+            *overrides, self.left.prov, self.right.prov, Op, Target)
+
     def _shard_ops(self, lo: int, hi: int,
                    overrides: Tuple[list, list, list]) -> List[Op]:
-        """Composed rows ``lo:hi`` as ops (one pipeline shard)."""
+        """Composed rows ``lo:hi`` as ops (one pipeline shard): the C op
+        factory's, else built in Python."""
+        ops = self._factory_ops(self.sides[lo:hi], self.idxs[lo:hi], overrides)
+        if ops is not None:
+            return ops
         addr_s, file_s, name_s = overrides
         streams = (self.left, self.right)
         return [_materialize_decoded(streams[side][i], na, nf, nn)

@@ -7,9 +7,11 @@ reference's set): ``moveDecl`` moves the *whole file* old→new;
 ``modifyImport`` is a literal replace; ``moveFile`` moves by old/new
 path. Everything else is logged and skipped (reference
 ``semmerge/applier.py:30-31``). Additionally ``reorderImports`` is
-applied via the RGA CRDT ordering
-(:mod:`semantic_merge_tpu_torch.core.crdt`, resolved on the host), and
-``editStmtBlock`` splices a body edit. Ops carrying structured decl
+applied via the RGA CRDT ordering (every list of the merge resolved in
+one batched device program, :mod:`semantic_merge_tpu_torch.ops.crdt`,
+with ``device_crdt``; else on the host,
+:mod:`semantic_merge_tpu_torch.core.crdt`), and ``editStmtBlock``
+splices a body edit. Ops carrying structured decl
 payloads (``effects["decl"]``) splice spans and append decls.
 
 Two dispatch paths, one contract:
@@ -46,18 +48,26 @@ from ..utils import faults
 logger = logging.getLogger(__name__)
 
 
-def apply_ops(base_tree: pathlib.Path, ops: Iterable[Op]) -> pathlib.Path:
+def apply_ops(base_tree: pathlib.Path, ops: Iterable[Op], *, device_crdt: bool = False,
+              device=None) -> pathlib.Path:
     """Apply composed ops to a copy of ``base_tree``; returns the copy
     (a new temporary directory the caller removes). A column-backed
     composed view takes the columnar loop, anything else (and anything
     under ``SEMMERGE_OBJECT_APPLY=1``) the object loop. The ``apply``
     fault-injection stage fires first.
 
+    With ``device_crdt`` (the TypeScript engine's path, as in the JAX
+    package) every ``reorderImports`` list of the object loop resolves
+    in ONE batched program on ``device``
+    (:func:`semantic_merge_tpu_torch.ops.crdt.materialize_batch`; the
+    card unless ``"cpu"``), else by per-list host scans; the order is
+    the same. On the card a failure of that program raises
+    :class:`~semantic_merge_tpu_torch.errors.KernelFault`: there is no
+    host fallback.
+
     Recorded as the ``apply_ops`` span (layer ``runtime``; meta ``ops``,
-    ``device_crdt`` — always false here: the port resolves
-    ``reorderImports`` lists on the host, where the JAX package's TPU
-    backend batches them on the device — and ``columnar`` on the
-    columnar loop) and ``semmerge_ops_applied_total``."""
+    ``device_crdt``, and ``columnar`` on the columnar loop) and
+    ``semmerge_ops_applied_total``."""
     faults.check("apply")
     view = _columnar_view(ops)
     counter = obs_metrics.REGISTRY.counter(
@@ -65,12 +75,12 @@ def apply_ops(base_tree: pathlib.Path, ops: Iterable[Op]) -> pathlib.Path:
     if view is not None and not _object_apply_forced():
         counter.inc(len(view))
         with obs_spans.span("apply_ops", layer="runtime", ops=len(view),
-                            device_crdt=False, columnar=True):
+                            device_crdt=device_crdt, columnar=True):
             return _apply_columnar(pathlib.Path(base_tree), view)
     ops = list(ops)
     counter.inc(len(ops))
-    with obs_spans.span("apply_ops", layer="runtime", ops=len(ops), device_crdt=False):
-        return _apply_objects(pathlib.Path(base_tree), ops)
+    with obs_spans.span("apply_ops", layer="runtime", ops=len(ops), device_crdt=device_crdt):
+        return _apply_objects(pathlib.Path(base_tree), ops, device_crdt, device)
 
 
 def _object_apply_forced() -> bool:
@@ -242,10 +252,11 @@ def _apply_columnar(base_tree: pathlib.Path, view) -> pathlib.Path:
 # Object dispatch (the oracle)
 # --------------------------------------------------------------------------
 
-def _apply_objects(base_tree: pathlib.Path, ops: list) -> pathlib.Path:
+def _apply_objects(base_tree: pathlib.Path, ops: list, device_crdt: bool,
+                   device) -> pathlib.Path:
     out = pathlib.Path(tempfile.mkdtemp(prefix="semmerge_merged_"))
     shutil.copytree(base_tree, out, dirs_exist_ok=True)
-    resolved_orders = _resolve_reorder_orders(ops)
+    resolved_orders = _resolve_reorder_orders(ops, device_crdt, device)
 
     # Structured-apply span edits (delete/changeSignature carrying
     # effects["decl"] payloads) run FIRST: their spans are base-content
@@ -472,11 +483,20 @@ def _build_rga(order):
     return rga
 
 
-def _resolve_reorder_orders(ops) -> dict:
-    """Every reorderImports op's RGA ordering, resolved up front."""
-    return {id(op): list(_build_rga(op.params["order"]).materialize())
-            for op in ops
-            if op.type == "reorderImports" and op.params.get("order")}
+def _resolve_reorder_orders(ops, device_crdt: bool, device) -> dict:
+    """Every reorderImports op's RGA ordering, resolved up front: the
+    whole merge's lists in one batched program on ``device`` with
+    ``device_crdt``, per-list host scans otherwise."""
+    items = [op for op in ops if op.type == "reorderImports" and op.params.get("order")]
+    if not items:
+        return {}
+    rgas = [_build_rga(op.params["order"]) for op in items]
+    if device_crdt:
+        from ..ops.crdt import materialize_batch
+        ordered = materialize_batch(rgas, device)
+    else:
+        ordered = [list(rga.materialize()) for rga in rgas]
+    return {id(op): lst for op, lst in zip(items, ordered)}
 
 
 def _apply_reorder_imports(root: pathlib.Path, op: Op, ordered=None) -> None:

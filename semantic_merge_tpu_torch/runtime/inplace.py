@@ -69,6 +69,10 @@ JOURNAL_SCHEMA = 1
 LOCKFILE = ".semmerge-inplace.lock"
 #: Same age cutoff as the merge driver's ``.git/.semmerge.lock`` latch.
 STALE_LOCK_SECONDS = 3600.0
+#: Age past which a lock without a readable pid is stale: its owner
+#: writes the pid right after creating the file, so an empty lock this
+#: old was left by a process killed in between.
+EMPTY_LOCK_SECONDS = 5.0
 
 
 def _break_stale_lock(path: pathlib.Path) -> bool:
@@ -116,7 +120,11 @@ def _break_stale_lock(path: pathlib.Path) -> bool:
 
 def _lock_is_stale(path: pathlib.Path) -> bool:
     """A lock left by a dead or long-gone process: old mtime (the
-    driver-latch heuristic), or a recorded pid that no longer exists."""
+    driver-latch heuristic), a recorded pid that no longer exists, or no
+    pid at all after :data:`EMPTY_LOCK_SECONDS`. (The JAX package trusts
+    the mtime alone for a lock without a pid, so a SIGKILL between the
+    lock's creation and its write blocks that repository's ``--inplace``
+    merges for an hour; the port's chaos soak hit it.)"""
     try:
         st = path.stat()
     except OSError:
@@ -126,7 +134,7 @@ def _lock_is_stale(path: pathlib.Path) -> bool:
     try:
         pid = int(path.read_text(encoding="utf-8").split()[0])
     except (OSError, ValueError, IndexError):
-        return False  # unreadable content: trust mtime alone
+        return time.time() - st.st_mtime > EMPTY_LOCK_SECONDS
     if pid == os.getpid():
         return False
     try:

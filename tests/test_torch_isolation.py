@@ -22,6 +22,14 @@
 - The fleet (``fleet/``: the router, hash ring, WAL and transport) is
   among them and imports the standard library only (and its own
   package); importing the router loads neither torch nor JAX.
+- The device CRDT, the keyed encode, the native op serializer and op
+  factory, and the chaos soak (``ops/crdt.py``, ``core/encode.py``,
+  ``frontend/native.py``, ``frontend/opfactory.c``,
+  ``scripts/chaos_soak.py``) are among them; no module imports the
+  repository's ``scripts/``; the soak imports the standard library only
+  (and its own package), and importing it loads neither torch nor JAX;
+  the op factory is the port's own build of its own copy of the C
+  source, never the JAX package's ``native/`` extension.
 - Without a CUDA device the CLI's three commands and ``train-matcher``
   (without ``--device cpu``) and
   ``chip_smoke.py`` exit non-zero and say why; neither carries on on
@@ -257,6 +265,64 @@ def test_native_library_comes_from_the_port_build_dir():
     loaded, expected, libs = out.stdout.splitlines()
     build_dir = PORT / "frontend" / "_build"
     assert loaded == expected and pathlib.Path(loaded).parent == build_dir
+    assert libs == repr([loaded])
+    assert "native/" not in libs
+
+
+#: The device CRDT, keyed encode, native op serializer and factory, and
+#: the chaos soak.
+SLICE15_MODULES = ("ops/crdt.py", "core/encode.py", "frontend/native.py",
+                   "ops/oplog_view.py", "runtime/applier.py", "backends/multi.py",
+                   "scripts/__init__.py", "scripts/chaos_soak.py")
+
+
+@pytest.mark.parametrize("module", SLICE15_MODULES)
+def test_slice15_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    roots = _imported_roots(path)
+    assert not roots & set(FORBIDDEN + ("scripts",)), roots
+    text = path.read_text()
+    assert "semantic_merge_tpu." not in text.replace("semantic_merge_tpu_torch.", "")
+    if module.startswith("scripts/"):
+        assert roots <= set(sys.stdlib_module_names) | {"__future__"}, roots
+    assert (PORT / "frontend" / "opfactory.c").is_file()
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO_ROOT)))
+def test_no_module_imports_the_repositorys_scripts(path):
+    assert "scripts" not in _imported_roots(path), path
+
+
+def test_soak_import_loads_no_torch_and_no_jax():
+    code = ("import sys\nimport semantic_merge_tpu_torch.scripts.chaos_soak as soak\n"
+            "assert soak.PACKAGE == 'semantic_merge_tpu_torch'\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch',) + FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO_ROOT,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no C++ compiler (g++) on PATH")
+def test_op_factory_comes_from_the_port_build_dir():
+    # The JAX package's own extension (native/) may sit built beside it;
+    # the port must load the one it built from its own copy.
+    code = ("import pathlib\n"
+            "from semantic_merge_tpu_torch.frontend import native\n"
+            "fac = native.load_opfactory()\n"
+            "maps = pathlib.Path('/proc/self/maps').read_text()\n"
+            "libs = sorted({l.split()[-1] for l in maps.splitlines() if 'semmerge' in l})\n"
+            "print(fac.__file__); print(native.opfactory_path()); print(libs)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO_ROOT,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded, expected, libs = out.stdout.splitlines()
+    assert loaded == expected
+    assert pathlib.Path(loaded).parent == PORT / "frontend" / "_build"
     assert libs == repr([loaded])
     assert "native/" not in libs
 

@@ -243,7 +243,10 @@ def served_languages(mixed_origins, tmp_path_factory):
     for side in ("jax", "port"):
         roots[side] = work / side
         shutil.copytree(mixed_origins["mixed"], roots[side])
-        (roots[side] / ".semmerge.toml").write_text("[ci]\nrequire_typecheck = false\n")
+        # The whole tree, not the incremental scope: a resident base is
+        # keyed by its scope too, and the merge's scope is not the diff's.
+        (roots[side] / ".semmerge.toml").write_text(
+            "[engine]\nincremental = false\n[ci]\nrequire_typecheck = false\n")
     sock = work / "port.sock"
     proc = start_daemon(sock)
     steps = []

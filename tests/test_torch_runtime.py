@@ -182,3 +182,29 @@ def test_inplace_commit_and_recovery_match_jax(tmp_path, interrupted):
     assert action[0] == {"none": "none", "stage_only": "rolled-back",
                          "journal_written": "rolled-forward"}[interrupted]
     assert ("lib/b.ts" in tree) == (interrupted != "stage_only")
+
+
+@pytest.mark.parametrize("age_s,content", [(60.0, ""), (60.0, "garbage"), (0.0, "")],
+                         ids=["empty-old", "unreadable-old", "empty-fresh"])
+def test_repo_lock_reclaims_a_lock_its_dead_writer_left_without_a_pid(tmp_path, age_s, content):
+    """A writer SIGKILLed between creating the lock and writing its pid
+    leaves a lock without one. Past ``EMPTY_LOCK_SECONDS`` the port
+    reclaims it (the JAX package would wait for the hour-old cutoff); a
+    fresh one may belong to a live writer about to write, so it holds."""
+    import os
+    import time
+
+    lock = tmp_path / inplace.LOCKFILE
+    lock.write_text(content)
+    stamp = time.time() - age_s
+    os.utime(lock, (stamp, stamp))
+    if age_s > inplace.EMPTY_LOCK_SECONDS:
+        with inplace.repo_lock(tmp_path, timeout=5.0):
+            assert lock.read_text().split()[0] == str(os.getpid())
+        assert not lock.exists()
+    else:
+        from semantic_merge_tpu_torch.errors import ApplyFault
+        with pytest.raises(ApplyFault):
+            with inplace.repo_lock(tmp_path, timeout=0.2):
+                pass
+        assert lock.read_text() == content

@@ -242,6 +242,11 @@ def world(tmp_path_factory):
         for side in ("jax", "port", "lock"):
             roots[name, side] = work / f"{name}-{side}"
             shutil.copytree(origin, roots[name, side])
+    for side in ("jax", "port"):
+        # The whole tree: a resident base is keyed by its incremental
+        # scope too, and the semdiff's scope is not the semmerge's.
+        (roots["rename", side] / ".semmerge.toml").write_text(
+            "[engine]\nincremental = false\n")
     collector = Collector()
     world = {"work": work, "roots": roots, "sock": work / "port.sock",
              "jax_sock": work / "jax.sock", "collector": collector}

@@ -7,10 +7,9 @@ Each case runs ``python -m semantic_merge_tpu ... --backend tpu --trace``
 each in a fresh copy of a small repository (the ladder repository of
 ``tests/test_torch_ladder.py``, the DivergentRename one of
 ``tests/test_resolve.py``) whose untracked ``.semmerge.toml`` sets
-``[engine] incremental = false`` (the JAX CLI then scans the whole tree
-inside its merge phase, as the port always does; with its incremental
-scope it also scans in its snapshot phase) and a formatter that does
-nothing. Each in-process run starts from a fresh metrics registry,
+``[engine] incremental = false`` (both CLIs then scan the whole tree
+inside their merge phase; with the incremental scope they also scan in
+the snapshot phase) and a formatter that does nothing. Each in-process run starts from a fresh metrics registry,
 flight ring and decl cache, as a new process does.
 
 Compared, exactly after masking times, ids and threads:
@@ -27,15 +26,13 @@ Compared, exactly after masking times, ids and threads:
   count, their sums being times), the gauges' names.
 
 Masked, each for a stated reason: the backend's name (``tpu`` in the JAX
-CLI, ``torch`` here); ``device_crdt`` of the ``apply_ops`` span (the
-JAX TPU backend orders ``reorderImports`` lists on the device, the port
-on the host); the build metrics (``semmerge_jax_compile_*`` against the
-port's ``semmerge_kernel_build_*``); the trace counters
-``decl_cache_hits``/``decl_cache_misses`` and the value of the
+CLI, ``torch`` here); the build metrics (``semmerge_jax_compile_*``
+against the port's ``semmerge_kernel_build_*``); the value of the
 ``semmerge_decl_cache_entries`` gauge (cumulative lookups of the decl
-cache, which in the JAX backend also serves its keyed encode cache, not
-ported yet); the device block's memory numbers (the CPU has no
-allocator statistics).
+cache); in ``apply_fault`` the trace counters
+``decl_cache_hits``/``decl_cache_misses`` (the JAX host rung scans
+again); the device block's memory numbers (the CPU has no allocator
+statistics).
 
 Two cases need a stated mapping. ``apply_fault`` (``SEMMERGE_FAULT=
 apply:fault``): the JAX CLI steps tpu → host → text, the port torch →
@@ -44,10 +41,11 @@ rung cut out (the spans between its two degradations) and its first
 transition's ``to`` read as ``text``; its first degradation bundle
 against the port's bundle; and the counters the text rung adds after
 each side's last bundle. ``scan_raise_no_degrade`` runs the default
-configuration: the JAX CLI's incremental scope raises the injected
-fault in its snapshot stage, the port's at the scan of its merge stage
-(with the scope off the JAX CLI classifies it as a ``KernelFault``, exit
-11, against the port's ``ParseFault``, exit 10); both exit 10 with a
+configuration: both CLIs' incremental scope scans in the snapshot
+stage, where the JAX CLI's boundary labels the injected fault
+``snapshot`` and the port's scanner raises its own ``ParseFault``,
+labelled ``scan`` (with the scope off the JAX CLI classifies it as a
+``KernelFault``, exit 11, against the port's ``ParseFault``, exit 10); both exit 10 with a
 ``fault-escape`` bundle and ``merge_faults_total{fault="ParseFault"}``.
 ``scan_fault_no_degrade`` (a typed fault at the same scan) gives the
 full comparison. Every fused merge needs a third: the JAX engine
@@ -271,7 +269,7 @@ class _Capture:
 # --- normalization --------------------------------------------------------------
 
 def _meta(meta):
-    return {k: ("torch" if v == "tpu" else v) for k, v in meta.items() if k != "device_crdt"}
+    return {k: ("torch" if v == "tpu" else v) for k, v in meta.items()}
 
 
 def _span_tree(rows):
@@ -434,10 +432,13 @@ def test_span_tree_equal(runs, name):
 @pytest.mark.parametrize("name", FULL + ["apply_fault"])
 def test_trace_counters_equal(runs, name):
     jax_trace, port_trace_ = _comparable_trace(runs, name)
-    want = {k: v for k, v in jax_trace["counters"].items() if k not in DECL_CACHE_COUNTERS}
-    got = {k: v for k, v in port_trace_["counters"].items() if k not in DECL_CACHE_COUNTERS}
+    want = dict(jax_trace["counters"])
+    got = dict(port_trace_["counters"])
     if name == "apply_fault":
         want["degradations"] = 1  # the port's one transition for the JAX CLI's two
+        # The JAX host rung scans again, through the same decl cache.
+        for key in DECL_CACHE_COUNTERS:
+            want.pop(key), got.pop(key)
     assert got == want
     assert set(port_trace_["counters"]) == set(jax_trace["counters"])
 
@@ -501,7 +502,7 @@ def test_scan_raise_escapes_as_a_parse_fault_in_both(runs):
         assert run["stderr"].rstrip().endswith(f"(exit 10) [trace {tid}]")
         series = run["trace"]["metrics"]["counters"]["merge_faults_total"]["series"]
         assert [s["labels"]["fault"] for s in series] == ["ParseFault"]
-    # Where: the JAX CLI's incremental scope scans in its snapshot stage.
+    # The stage label: the JAX snapshot boundary's, the port scanner's own.
     stages = {side: runs["scan_raise_no_degrade", side]["trace"]["metrics"]["counters"]
               ["merge_faults_total"]["series"][0]["labels"]["stage"] for side in ("port", "jax")}
     assert stages == {"port": "scan", "jax": "snapshot"}
