@@ -81,12 +81,14 @@ Phases, each fatal on failure, each printing its seconds:
      and the Python one (both equal to the note) and through the C op
      factory and the Python builder (equal ops), each timed;
    - matcher semmerge: ``semmerge base side other --inplace
-     --change-signature --signature-matcher``: the fused engine runs
-     first (4 ``sha256`` launches) and its result is set aside, since
-     the matcher could pair deletes with adds; then the two-program path
-     with 16 ``flash_chunk`` launches; the tree and notes; then the
-     device compose of its op logs on the card against the CPU, and
-     timed alone;
+     --change-signature --signature-matcher`` in a work tree of the
+     rung3 repository (its depth cut from rung5 to keep the smoke
+     inside its time limit): the fused engine runs first (4
+     ``sha256`` launches) and its result is set aside, since the matcher
+     could pair deletes with adds; then the two-program path with 16
+     ``flash_chunk`` launches; the tree and notes; then the device
+     compose of its op logs on the card against the CPU, and timed
+     alone;
    - strict semmerge: ``semmerge base side stmt --inplace
      --strict-conflicts --structured-apply --change-signature
      --signature-matcher`` in a work tree of the rung3 repository (its
@@ -159,6 +161,30 @@ Phases, each fatal on failure, each printing its seconds:
    renames a function beside one whose signature an untouched file
    shares): the fallback merge's tree and notes equal an unscoped
    merge's in a clone.
+5d. mesh: the sharded programs (``ops/sharded.py``'s diff pair and
+   compose, ``ops/fused.py::_fused_merge_sharded``) on phase 4's rung5
+   inputs (the fused semmerge's decl columns, digests and capacity, and
+   its two op logs): their bytes against the one-device
+   programs' at k = 1 under an explicit one-rank NCCL group (its size-1
+   axes are the identity: the programs run no collective there, and the
+   port's ``agree_exit_code`` is checked as one real NCCL broadcast),
+   and at k = 2 in two child processes of this script
+   (``--mesh-rank``) joined over gloo with the ``SEMMERGE_*`` contract,
+   both on ``cuda:0``; per program the host wall, the device's busy
+   time and (k = 2) the collectives' share, and 2 ``sha256`` launches
+   per rank in one fused merge. The port's own NCCL bring-up
+   (``init_distributed`` for several ranks, one card each) needs a
+   second card and does not run here. Then ``semmerge --inplace`` on the rung3 repository with
+   ``[engine] mesh_shape = "dp=1"`` in process, and at world size 2
+   (two CLI children, rank 1 in its own work tree): the one-device
+   merge's tree and notes; rank 1 prints nothing and leaves its tree as
+   it was; rank 0's trace shows the two-rank mesh. The batched program
+   (phase 5's B = 4) over the batch mesh ``[cuda:0, cuda:0]``: the
+   one-device rows. ``SEMMERGE_MESH=require`` merges (exit 0) and
+   ``[engine] mesh = "require"`` exits 18 on a small repository, as the
+   JAX CLI does on one device. (The service phase checks that the
+   daemon's batch mesh reports posture ``auto`` and single-device
+   fallbacks.) Prints the phase's seconds and the card.
 6. driver merge (not in-process): ``git merge --no-ff drv`` on side in
    a clone of the rung3 repository, with ``python -m semantic_merge_tpu_torch.driver %O %A %B
    %P`` registered as ``merge.semmerge.driver`` for ``*.ts`` in
@@ -217,16 +243,19 @@ Phases, each fatal on failure, each printing its seconds:
    a child (``SEMMERGE_BATCH_WINDOW_MS=2000``): it must come up, answer
    ``serve --status`` with the port's package and platform ``gpu``, and
    hold the card (used memory up 100 MiB or more while it serves the
-   cold merge). Then, ``SEMMERGE_DAEMON=require``: the cold ``semmerge
-   base side other --inplace`` from a client process in a sixth work
-   tree, whose ``.semmerge.toml`` turns the incremental scope off (a
+   cold merge). All of it in the rung3 repository (its depth cut from
+   rung5), against the references of phase 5b's untraced rung3 fused
+   semmerge and of a fused and a matcher semdiff run in process just
+   before. Then, ``SEMMERGE_DAEMON=require``: the cold ``semmerge
+   base side other --inplace`` from a client process in a work
+   tree whose ``.semmerge.toml`` turns the incremental scope off (a
    resident base is keyed by its scope; exit 0, tree and notes equal
-   phase 4's scoped fused semmerge's, 1
+   the scoped fused semmerge's, 1
    request and 4 ``sha256`` launches in the daemon's status); the warm
-   ``semdiff base side --json-out`` (op log equal to phase 4's, one
-   residency hit; its scan and encode seconds printed beside phase
-   4's); the matcher semdiff with ``--profile DIR`` (op log equal to
-   phase 4's, 8 ``flash_chunk`` records in DIR, 8 launches in the
+   ``semdiff base side --json-out`` (op log equal to the reference's, one
+   residency hit; its scan and encode seconds printed beside the
+   reference's); the matcher semdiff with ``--profile DIR`` (op log equal to
+   the reference's, 8 ``flash_chunk`` records in DIR, 8 launches in the
    daemon); four ``--inplace`` clients at once in four ``git clone
    --local`` copies of the rung3 repository, each
    tree equal to a one-shot merge's, co-batched (``requests_batched``
@@ -523,21 +552,25 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def _device_ms(torch, fn, input_sets, kernel, iters=40):
+def _device_ms(torch, fn, input_sets, kernel, iters=40, tries=3):
     """Mean device time of one launch of ``kernel``: the durations of its
     launches in a torch.profiler trace over ``iters`` calls, averaged over
     the launches the trace recorded (after long traced runs a trace can
-    drop records; how many it kept is returned beside the mean)."""
+    drop records, all of them at times: then up to ``tries`` traces; how
+    many records the last kept is returned beside the mean)."""
     from torch.profiler import ProfilerActivity, profile
 
     for inputs in input_sets:
         fn(*inputs)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*input_sets[i % len(input_sets)])
-        torch.cuda.synchronize()
-    spans = [e - s for name, s, e in _device_events(prof) if kernel in name]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*input_sets[i % len(input_sets)])
+            torch.cuda.synchronize()
+        spans = [e - s for name, s, e in _device_events(prof) if kernel in name]
+        if spans:
+            break
     return (sum(spans) / len(spans) / 1e3 if spans else None), len(spans)
 
 
@@ -1696,11 +1729,12 @@ def _counts(ops) -> dict:
     return dict(sorted(counts.items()))
 
 
-def check_semmerge(repo: pathlib.Path, result) -> None:
-    """The merged work tree, the text-merged README and the notes."""
+def check_semmerge(repo: pathlib.Path, result, n_files: int) -> None:
+    """The merged work tree of a repository of ``n_files`` files, the
+    text-merged README and the notes."""
     if result.code != 0:
         fail(f"semmerge exited {result.code}, expected 0")
-    for i in range(0, N_FILES, 4):
+    for i in range(0, n_files, 4):
         path = repo / "lib" / f"mod{i:05d}.ts"
         if not path.is_file() or f"renamed{i}_0" not in path.read_text():
             fail(f"{path.relative_to(repo)} is missing or lacks renamed{i}_0")
@@ -1783,7 +1817,7 @@ def check_fused_semmerge(torch, work: pathlib.Path, merged) -> dict:
     if not (isinstance(merged.composed, ComposedOpView) and merged.composed.supports_columns
             and "fused" in merged.phases and "compose" not in merged.phases):
         fail("the semmerge did not take the fused path")
-    check_semmerge(work, merged)
+    check_semmerge(work, merged, N_FILES)
     left, right = merged.result.op_log_left, merged.result.op_log_right
     for rev, view in (("side", left), ("other", right)):
         if view.render is None:
@@ -2521,7 +2555,8 @@ def _phase_sums(dump: pathlib.Path) -> dict:
 
 def check_gc_posture(rung5: pathlib.Path, clones: list, phase4: dict, expected: dict) -> dict:
     """The one-shot GC posture (``utils/gctune.py``) both ways, in child
-    processes with no daemon: the fused semdiff at rung5
+    processes with no daemon: the fused semdiff in ``rung5`` (the
+    service's work tree: the rung3 repository)
     (``SEMMERGE_GC_TUNE=0``, then as shipped) and the fused semmerge of
     the rung3 repository in two clones (as shipped, then ``=0``). The
     outputs (op log; exit code, stdout, tree and notes) must be
@@ -2732,6 +2767,11 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
         if batch["requests_batched"] < 2 or batch["mean_batch_size"] <= 1 or \
                 leg_requests <= leg_batches:
             fail(f"the concurrent merges did not co-batch: {json.dumps(batch)}")
+        mesh = batch["mesh"]
+        if mesh["posture"] != "auto" or mesh["fallbacks"].get("single-device", 0) < 1:
+            fail(f"the daemon's batch mesh block on one card: {json.dumps(mesh)} (expected "
+                 "posture auto and single-device fallbacks)")
+        print(f"service: batch mesh on one card: {json.dumps(mesh)}", flush=True)
         out["batch"] = batch
         out["residency"] = st["residency"]
         out["tools"] = check_top_and_perf(sock, daemon.pid)
@@ -2753,7 +2793,7 @@ def run_service_phase(torch, repo: pathlib.Path, fused_tree: pathlib.Path, ckpt:
     t0 = time.perf_counter()
     out["gc_posture"] = check_gc_posture(svc_tree, clones[SVC_CLIENTS + 1:], phase4, expected)
     out["gc_posture"]["seconds"] = time.perf_counter() - t0
-    print(f"service: GC posture (child walls, s): fused semdiff rung5 as shipped "
+    print(f"service: GC posture (child walls, s): fused semdiff rung3 as shipped "
           f"{out['gc_posture']['semdiff']['shipped']['wall_s']}, "
           f"SEMMERGE_GC_TUNE=0 {out['gc_posture']['semdiff']['off']['wall_s']}; "
           f"fused semmerge rung3 as shipped {out['gc_posture']['semmerge']['shipped']['wall_s']}, "
@@ -4144,6 +4184,416 @@ def run_soak_phase() -> dict:
     return out
 
 
+# --- the mesh --------------------------------------------------------------------
+
+#: The mesh phase's own budget (its two CLI merges run at rung3).
+MESH_BUDGET_S = 90.0
+MESH_PROGRAMS = ("diff_pair_sharded", "compose_sharded", "fused_merge_sharded")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_inputs(captured, compose_in) -> dict:
+    """Host copies of the sharded programs' rung5 inputs: the decl
+    columns and digests the fused semmerge gave its one-merge program,
+    as decl tensors (their valid prefixes) and as the program's padded
+    arrays, and its two op logs, materialized."""
+    from semantic_merge_tpu_torch.core.encode import PAD_ID, DeclTensor
+
+    _fn, args, _kwargs = captured
+    decls = []
+    for cols in args[:3]:
+        host = cols.cpu().numpy()
+        n = int((host[0] != PAD_ID).sum())
+        decls.append(DeclTensor(sym=host[0, :n].copy(), addr=host[1, :n].copy(),
+                                name=host[2, :n].copy(), file=host[3, :n].copy(), n=n))
+    return {"decls": decls, "fused": tuple(a.cpu().numpy() for a in args[:6]) + (int(args[6]),),
+            "compose": (list(compose_in[0]), list(compose_in[1]))}
+
+
+def _mesh_digest(name: str, result) -> str:
+    """The bytes of a program's result, hashed: the diff tensors' rows up
+    to their op counts, the composed ops and conflicts as JSON, the fused
+    merge's one-buffer row."""
+    import hashlib
+
+    h = hashlib.sha256()
+    if name.startswith("diff"):
+        for t in result:
+            h.update(str(t.n_ops).encode())
+            for field in ("kind", "sym", "a_addr", "a_name", "a_file", "b_addr", "b_name",
+                          "b_file"):
+                h.update(getattr(t, field)[:t.n_ops].tobytes())
+    elif name.startswith("compose"):
+        ops, conflicts = result
+        h.update(json.dumps([[o.to_dict() for o in ops], [c.to_dict() for c in conflicts]],
+                            sort_keys=True).encode())
+    else:
+        h.update(result.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_timing(torch, call, mesh=None, reps=2) -> dict:
+    """One program's times: the host wall of a call (the median of
+    ``reps``, the card synchronised after), the device's busy time in one
+    call (union of its activities in a torch.profiler trace) and, on a
+    mesh, the host wall inside its collectives (each timed between two
+    synchronisations, gloo's host staging included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spent = [0.0]
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t0
+        return wrapper
+
+    # On a one-device mesh the collectives are the identity: none timed.
+    sharded = mesh is not None and mesh.layout.size > 1
+    wrapped = ("all_gather", "_reduce") if sharded else ()
+    for name in wrapped:
+        setattr(mesh, name, timed(getattr(mesh, name)))
+    walls = []
+    try:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for name in wrapped:
+            delattr(mesh, name)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    wall_ms = sorted(walls)[len(walls) // 2] * 1e3
+    out = {"wall_ms": wall_ms,
+           "device_ms": _busy_us([(s, e) for _, s, e in events]) / 1e3 if events else None,
+           "device_records": len(events)}
+    if sharded:
+        out["collective_ms"] = spent[0] * 1e3 / reps
+        out["collective_share"] = out["collective_ms"] / wall_ms
+    return out
+
+
+def run_mesh_programs(torch, inputs: dict, mesh=None) -> dict:
+    """The three programs on ``inputs``: over ``mesh``, the sharded diff
+    pair, compose and fused merge on this rank's blocks; without it, the
+    one-device programs on the card. Per program: the result's digest,
+    the ``sha256`` launches of one call (by the wrapper's count, set to 0
+    just before) and :func:`_mesh_timing`."""
+    import numpy as np
+
+    from semantic_merge_tpu_torch import kernels
+    from semantic_merge_tpu_torch.ops import compose, diff, fused, sharded
+
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    base, left, right = inputs["decls"]
+    b, l, r, hash_tab, dig_l, dig_r, C = inputs["fused"]
+    k, j = (1, 0) if mesh is None else (mesh.axis_size("dp"), mesh.axis_index("dp"))
+
+    def block(a):
+        s = a.shape[1] // k
+        return torch.from_numpy(np.ascontiguousarray(a[:, j * s:(j + 1) * s])).to(dev)
+
+    fargs = (block(b), block(l), block(r), *(torch.from_numpy(a).to(dev)
+                                               for a in (hash_tab, dig_l, dig_r)))
+    ops_a, ops_b = inputs["compose"]
+    if mesh is None:
+        calls = {"diff_pair_sharded": lambda: diff.diff_lift_device_pair(base, left, right, dev),
+                 "compose_sharded": lambda: compose.compose_oplogs_device(ops_a, ops_b, dev),
+                 "fused_merge_sharded": lambda: fused._fused_merge_program(*fargs, C)}
+    else:
+        calls = {"diff_pair_sharded": lambda: sharded.diff_lift_device_pair_sharded(
+                     base, left, right, mesh),
+                 "compose_sharded": lambda: sharded.compose_oplogs_device_sharded(
+                     ops_a, ops_b, mesh),
+                 "fused_merge_sharded": lambda: fused._fused_merge_sharded(*fargs, C, mesh)}
+    out = {}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        result = call()  # also the warm-up of the timed calls
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        out[name] = {"digest": _mesh_digest(name, result),
+                     "sha256_launches": launches.get("sha256", 0),
+                     **_mesh_timing(torch, call, mesh)}
+    return out
+
+
+def mesh_child(inputs_path: str) -> int:
+    """One rank of phase 5d's two-rank group (``--mesh-rank PATH``): joins
+    the group through the port's ``init_distributed`` with the
+    ``SEMMERGE_*`` contract in its environment, builds the ``dp = 2``
+    mesh on its card and runs :func:`run_mesh_programs` on the pickled
+    inputs; prints one ``MESH_RESULT`` JSON line."""
+    import pickle
+
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+
+    from semantic_merge_tpu_torch.parallel.distributed import init_distributed, world
+    from semantic_merge_tpu_torch.parallel.mesh import build_mesh
+
+    init_distributed()
+    rank, size = world()
+    mesh = build_mesh(dp=size, pp=1, sp=1, tp=1, ep=1)
+    with open(inputs_path, "rb") as fh:
+        inputs = pickle.load(fh)
+    programs = run_mesh_programs(torch, inputs, mesh)
+    print("MESH_RESULT " + json.dumps({"rank": rank, "size": size, "device": str(mesh.device),
+                                       "backend": dist.get_backend(), "programs": programs}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _engine_config(root: pathlib.Path, ckpt: pathlib.Path, line: str = "") -> None:
+    """:func:`write_config` with ``line`` added to its ``[engine]`` table."""
+    text = write_config(root, ckpt)
+    if line:
+        (root / ".semmerge.toml").write_text(text.replace("[engine]\n", f"[engine]\n{line}\n", 1))
+
+
+def _rung3_tree(rung3: pathlib.Path, root: pathlib.Path, ckpt: pathlib.Path,
+                line: str = "") -> None:
+    """A work tree of the rung3 repository at side, configured."""
+    subprocess.run(["git", "worktree", "add", "-q", "--detach", str(root), "side"],
+                   cwd=rung3, check=True)
+    _engine_config(root, ckpt, line)
+
+
+def _mesh_posture_runs(work: pathlib.Path, ckpt: pathlib.Path) -> dict:
+    """``SEMMERGE_MESH=require`` and ``[engine] mesh = "require"`` on this
+    one-card host, in-process on a small repository: the environment's
+    merges on the host engine (exit 0, the tree of a merge without the
+    setting), the config's ends with MeshFault (exit 18, the tree
+    untouched), as the JAX CLI does on one device
+    (``tests/test_torch_mesh_cli.py``)."""
+    from semantic_merge_tpu_torch import cli
+
+    types = ("string", "number", "boolean", "bigint")
+    base = {f"src/m{i}.ts": f"export function f{i}(x: {t}): {t} {{ return x; }}\n"
+            for i, t in enumerate(types)}
+    side = dict(base, **{"src/m0.ts": base["src/m0.ts"].replace("f0", "g0")})
+    other = {p.replace("src/m1", "lib/m1"): t for p, t in base.items()}
+    out = {}
+    for label, env, line, want in (("plain", {}, "", 0),
+                                   ("env_require", {"SEMMERGE_MESH": "require"}, "", 0),
+                                   ("config_require", {}, 'mesh = "require"', 18)):
+        root = work / f"posture_{label}"
+        make_repo(root, base, side, other)
+        _engine_config(root, ckpt, line)
+        before = _work_tree(root)
+        saved = {k: os.environ.get(k) for k in ("SEMMERGE_MESH", "SEMMERGE_DAEMON")}
+        os.environ.update(env, SEMMERGE_DAEMON="off")
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            code = cli.main(["semmerge", "base", "side", "other", "--inplace"], delegate=False)
+        finally:
+            os.chdir(cwd)
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+        if code != want:
+            fail(f"{label}: semmerge exited {code}, the JAX CLI on one device exits {want}")
+        after = _work_tree(root, config=False)
+        if label == "plain":
+            merged_tree = after
+        elif want == 0 and after != merged_tree:
+            fail(f"{label}: the tree is not the plain merge's")
+        elif want == 18 and _work_tree(root) != before:
+            fail(f"{label}: the tree changed")
+        out[label] = code
+    return out
+
+
+def run_mesh_phase(torch, captured, compose_in, batched, rung3: pathlib.Path,
+                   ckpt: pathlib.Path, ref_tree: pathlib.Path, ref: dict, card: str) -> dict:
+    """Phase 5d (see the module docstring)."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from semantic_merge_tpu_torch import kernels
+    from semantic_merge_tpu_torch.ops import fused
+    from semantic_merge_tpu_torch.parallel.distributed import agree_exit_code
+    from semantic_merge_tpu_torch.parallel.mesh import build_batch_mesh, build_mesh
+
+    t_phase = time.perf_counter()
+    inputs = mesh_inputs(captured, compose_in)
+    one = run_mesh_programs(torch, inputs)
+    out = {"inputs": {"base_decls": inputs["decls"][0].n, "C": inputs["fused"][6],
+                      "ops_a": len(inputs["compose"][0]), "ops_b": len(inputs["compose"][1])},
+           "one_device": one}
+
+    # a. World size 1 over NCCL: an explicit one-rank group (the port's
+    # init_distributed brings a group up only for several processes).
+    # Its size-1 axes are the identity, so the programs run no
+    # collective; the exit-code broadcast is the one NCCL call.
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh1 = build_mesh(dp=1, pp=1, sp=1, tp=1, ep=1, device="cuda:0")
+        k1 = run_mesh_programs(torch, inputs, mesh1)
+        out["k1_backend"] = dist.get_backend()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agreed = agree_exit_code(7)
+        out["k1_nccl_broadcast_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.destroy_process_group()
+    if agreed != 7:
+        fail(f"agree_exit_code over the one-rank NCCL group gave {agreed}, expected 7")
+    out["k1"] = k1
+    for name in MESH_PROGRAMS:
+        if k1[name]["digest"] != one[name]["digest"]:
+            fail(f"k = 1 (NCCL): {name} differs from the one-device program")
+    if k1["fused_merge_sharded"]["sha256_launches"] != 2:
+        fail(f"k = 1: {k1['fused_merge_sharded']['sha256_launches']} sha256 launches in one "
+             "sharded fused merge, expected 2 (one per side)")
+    dp1 = WORK / "mesh_dp1"
+    _rung3_tree(rung3, dp1, ckpt, 'mesh_shape = "dp=1"')
+    merged, launches, _shapes, wall, _busy = run_cli(
+        torch, dp1, ["semmerge", "base", "side", "other", "--inplace"])
+    if merged.code != 0 or merged.result.op_log_left.render is not None:
+        fail(f"the dp=1 semmerge exited {merged.code} or rendered on the card under a mesh")
+    if _work_tree(dp1, config=False) != _work_tree(ref_tree, config=False):
+        fail("the dp=1 semmerge's tree differs from the one-device merge's")
+    notes = {rev: _note(rung3, rev) for rev in ("side", "other")}
+    if notes != ref["notes"]:
+        fail("the dp=1 semmerge's notes differ from the one-device merge's")
+    if launches["sha256"] != ref["sha256"]:
+        fail(f"the dp=1 semmerge launched sha256 {launches['sha256']} times, the one-device "
+             f"merge {ref['sha256']}")
+    out["cli_dp1"] = {"wall_s": wall, "launches": launches}
+
+    # b. Two ranks on the one card over gloo, in two child processes.
+    path = WORK / "mesh_inputs.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump(inputs, fh)
+    contract = dict(os.environ, SEMMERGE_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                    SEMMERGE_NUM_PROCESSES="2", SEMMERGE_DAEMON="off")
+    t0 = time.perf_counter()
+    procs = [started(subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--mesh-rank", str(path)], cwd=WORK,
+        env=dict(contract, SEMMERGE_PROCESS_ID=str(rank)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for rank in range(2)]
+    ranks = []
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=400)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("MESH_RESULT ")]
+        if proc.returncode != 0 or not lines:
+            fail(f"a mesh rank exited {proc.returncode}: {stderr[-3000:]}")
+        ranks.append(json.loads(lines[-1][len("MESH_RESULT "):]))
+    out["k2_wall_s"] = time.perf_counter() - t0
+    for got in ranks:
+        if (got["size"], got["backend"], got["device"]) != (2, "gloo", "cuda:0"):
+            fail(f"rank {got['rank']}: {got['size']} ranks over {got['backend']} on "
+                 f"{got['device']}, expected 2 over gloo on cuda:0")
+        for name in MESH_PROGRAMS:
+            if got["programs"][name]["digest"] != one[name]["digest"]:
+                fail(f"k = 2 (gloo): rank {got['rank']}'s {name} differs from the one-device "
+                     "program")
+        if got["programs"]["fused_merge_sharded"]["sha256_launches"] != 2:
+            fail(f"k = 2: rank {got['rank']} launched sha256 "
+                 f"{got['programs']['fused_merge_sharded']['sha256_launches']} times in one "
+                 "sharded fused merge, expected 2 (one per side, C / 2 rows each)")
+    out["k2"] = {f"rank{got['rank']}": got["programs"] for got in ranks}
+
+    trees = {rank: WORK / f"mesh_rank{rank}" for rank in range(2)}
+    for tree in trees.values():
+        _rung3_tree(rung3, tree, ckpt)
+    rank1_before = (_work_tree(trees[1]), subprocess.run(
+        ["git", "status", "--porcelain"], cwd=trees[1], stdout=subprocess.PIPE,
+        text=True, check=True).stdout)
+    contract = dict(os.environ, PYTHONPATH=str(REPO), SEMMERGE_DAEMON="off",
+                    SEMMERGE_COORDINATOR=f"127.0.0.1:{_free_port()}", SEMMERGE_NUM_PROCESSES="2")
+    t0 = time.perf_counter()
+    procs = {rank: started(subprocess.Popen(
+        [sys.executable, "-m", "semantic_merge_tpu_torch", "semmerge", "base", "side", "other",
+         "--inplace", "--trace"], cwd=trees[rank],
+        env=dict(contract, SEMMERGE_PROCESS_ID=str(rank)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for rank in range(2)}
+    cli2 = {}
+    for rank, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=400)
+        cli2[rank] = (proc.returncode, stdout, stderr)
+    out["cli_k2_wall_s"] = time.perf_counter() - t0
+    for rank, (code, stdout, stderr) in cli2.items():
+        if code != 0 or f"process {rank}/2" not in stderr:
+            fail(f"the two-rank semmerge's rank {rank} exited {code}: {stderr[-3000:]}")
+    if cli2[1][1]:
+        fail(f"rank 1 printed to stdout: {cli2[1][1][:500]!r}")
+    if _work_tree(trees[0], config=False) != _work_tree(ref_tree, config=False):
+        fail("the two-rank semmerge's tree differs from the one-device merge's")
+    if {rev: _note(rung3, rev) for rev in ("side", "other")} != ref["notes"]:
+        fail("the two-rank semmerge's notes differ from the one-device merge's")
+    status1 = subprocess.run(["git", "status", "--porcelain"], cwd=trees[1],
+                             stdout=subprocess.PIPE, text=True, check=True).stdout
+    if (_work_tree(trees[1]), status1) != rank1_before or \
+            (trees[1] / ".semmerge-trace.json").exists():
+        fail("rank 1 wrote to its work tree")
+    trace = json.loads((trees[0] / ".semmerge-trace.json").read_text())
+    gauges = trace["metrics"]["gauges"]
+    mesh_devices = [s["value"] for s in gauges["semmerge_mesh_devices"]["series"]]
+    if mesh_devices != [2]:
+        fail(f"rank 0's trace shows a mesh of {mesh_devices} devices, expected [2]")
+
+    # c. The batched program's merge axis over [cuda:0, cuda:0].
+    (program, stacked, _kw), = batched.values()
+    B, C = stacked[0].shape[0], inputs["fused"][6]
+    single = program(*stacked).cpu().numpy()
+    bmesh = build_batch_mesh([torch.device("cuda", 0)] * 2)
+    kernels.reset_launches()
+    rows = fused.batched_fused_program(B, *(a.shape[-1] for a in stacked[:3]), C,
+                                       mesh=bmesh)(*stacked)
+    torch.cuda.synchronize()
+    batch_sha = kernels.LAUNCHES["sha256"]
+    kernels.reset_launches()
+    if rows.cpu().numpy().tobytes() != single.tobytes():
+        fail("the batched program over [cuda:0, cuda:0] differs from the one-device program")
+    out["batch_mesh"] = {"B": B, "shards": bmesh.shards, "sha256_launches": batch_sha}
+
+    # d. The require postures on this one-card host.
+    (WORK / "mesh").mkdir(exist_ok=True)
+    out["posture"] = _mesh_posture_runs(WORK / "mesh", ckpt)
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    for name in MESH_PROGRAMS:
+        print(f"mesh: {name}: one device {one[name]['device_ms']:.4f} device ms "
+              f"(wall {one[name]['wall_ms']:.3f} ms); k=1 (one-rank NCCL group, no "
+              f"collective) {k1[name]['device_ms']:.4f} (wall {k1[name]['wall_ms']:.3f}); "
+              "k=2 gloo rank 0 "
+              f"{out['k2']['rank0'][name]['device_ms']} (wall "
+              f"{out['k2']['rank0'][name]['wall_ms']:.3f}, collectives "
+              f"{out['k2']['rank0'][name]['collective_share']:.3f} of it); card: {card}",
+              flush=True)
+    print(f"mesh: the exit-code broadcast over the one-rank NCCL group "
+          f"{out['k1_nccl_broadcast_ms']:.3f} ms; phase wall {out['wall_s']:.3f} s "
+          f"(budget {MESH_BUDGET_S:.0f} s); card: {card}", flush=True)
+    return out
+
+
 def main() -> int:
     global N_FILES, N_RETYPED
     import argparse
@@ -4151,10 +4601,15 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="On-card smoke test of the port")
     parser.add_argument("--files", type=int, default=N_FILES,
                         help="repository size (default: the rung5 size, 10,000 files)")
-    N_FILES = parser.parse_args().files
+    parser.add_argument("--mesh-rank", default=None, metavar="INPUTS",
+                        help="run as one rank of the mesh phase's two-rank group")
+    cli_args = parser.parse_args()
+    N_FILES = cli_args.files
     N_RETYPED = min(N_RETYPED, N_FILES * N_RETYPED // 10_000)
     if not (REPO / "semantic_merge_tpu_torch" / "kernels" / "flash_chunk.cu").is_file():
         fail(f"the port's sources are not beside this script in {REPO}")
+    if cli_args.mesh_rank:
+        return mesh_child(cli_args.mesh_rank)
     sys.path.insert(0, str(REPO))
     import torch
 
@@ -4296,15 +4751,22 @@ def main() -> int:
         check_fused_semmerge(torch, fused_tree, merged)
         serializers = check_serializers(merged, fused_tree)
         runs["fused_semmerge"] = (launches, shapes)
+        compose_in = (merged.result.op_log_left, merged.result.op_log_right)
         untraced = {"notes": {rev: _note(repo, rev) for rev in ("side", "other")},
                     "sha256": launches["sha256"], "wall": wall}
         t = phase("fused semmerge", t)
 
-        # The matcher semmerge (two-program path), in the first work tree.
+        # The matcher semmerge (two-program path), in a work tree of the
+        # rung3 repository (its depth cut from rung5: the smoke passed
+        # 1,000 s of its 1,200 s limit with the mesh phase).
+        matcher_tree = WORK / "matcher"
+        subprocess.run(["git", "worktree", "add", "-q", "--detach", str(matcher_tree), "side"],
+                       cwd=rung3, check=True)
+        write_config(matcher_tree, ckpt)
         with Capture(cli, "_snapshots") as snaps:
             merged, launches, shapes, wall, busy = run_cli(
-                torch, repo, ["semmerge", "base", "side", "other", "--inplace",
-                              "--change-signature", "--signature-matcher"])
+                torch, matcher_tree, ["semmerge", "base", "side", "other", "--inplace",
+                                      "--change-signature", "--signature-matcher"])
         scopes["matcher_semmerge"] = report_scope("matcher semmerge", snaps, merged)
         # The fused engine runs first, as in the JAX package, and its
         # result is set aside: the matcher could pair its deletes and adds.
@@ -4316,7 +4778,7 @@ def main() -> int:
             print(f"semmerge ops by type: A {json.dumps(_counts(merged.result.op_log_left))}; "
                   f"B {json.dumps(_counts(merged.result.op_log_right))}; composed "
                   f"{json.dumps(_counts(merged.composed))}; conflicts {len(merged.conflicts)}")
-        check_semmerge(repo, merged)
+        check_semmerge(matcher_tree, merged, RUNG3_FILES)
         runs["semmerge"] = (launches, shapes)
         t = phase("semmerge", t)
         compose = check_compose(torch, merged)
@@ -4420,6 +4882,17 @@ def main() -> int:
               f"card: {card}", flush=True)
         t = phase("scope", t)
 
+        # The mesh: the sharded programs at rung5 widths at k = 1 (NCCL)
+        # and k = 2 (two gloo ranks on the card), the CLI merges at rung3
+        # with mesh_shape = "dp=1" and at world size 2, the batch mesh,
+        # and the require postures on this one-card host.
+        mesh_out = run_mesh_phase(torch, merge_program.last, compose_in, batched, rung3, ckpt,
+                                  trace_ref, untraced3, card)
+        for row in rows:
+            row["launches"]["mesh_cli_dp1"] = mesh_out["cli_dp1"]["launches"].get(row["name"], 0)
+        print(f"mesh: {json.dumps(mesh_out)}", flush=True)
+        t = phase("mesh", t)
+
         # The merge driver: git merge in a clone; the driver's first start
         # runs the CLI in a child process on the card.
         expected = dict(rung3_trees[1])
@@ -4468,8 +4941,17 @@ def main() -> int:
         print(f"languages: {json.dumps(lang)}", flush=True)
         t = phase("languages", t)
 
-        # The merge service: the same merges, served by a warm daemon.
-        svc = run_service_phase(torch, repo, fused_tree, ckpt, untraced, phase4, rung3)
+        # The merge service: the same merges, served by a warm daemon, in
+        # the rung3 repository (its depth cut from rung5 to keep the smoke
+        # inside its time limit), against in-process references.
+        phase4_3 = {}
+        for key, argv in (("matcher_semdiff", ["--change-signature", "--signature-matcher"]),
+                          ("fused_semdiff", [])):
+            ref_run, *_ = run_cli(torch, trace_ref, ["semdiff", "base", "side", "--json-out",
+                                                     *argv])
+            phase4_3[key] = _digest(cli.render(ref_run.ops, True) + "\n")
+            phase4_3[f"{key}_phases"] = dict(ref_run.phases)
+        svc = run_service_phase(torch, rung3, trace_ref, ckpt, untraced3, phase4_3, rung3)
         print(f"service: {json.dumps(svc)}", flush=True)
         t = phase("service", t)
 

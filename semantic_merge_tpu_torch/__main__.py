@@ -5,7 +5,7 @@ backends, the engine) is imported: when ``SEMMERGE_DAEMON=auto|require``
 hands a merge-shaped invocation to a warm daemon, this process only pays
 for the thin client (:mod:`semantic_merge_tpu_torch.service.client`).
 Any path that does not delegate (mode off, another command, an ``auto``
-fallback, a refused setting) goes through the CLI unchanged.
+fallback, a rank of a several-process job) goes through the CLI unchanged.
 """
 import sys
 

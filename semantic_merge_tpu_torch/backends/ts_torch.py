@@ -31,6 +31,21 @@ Both paths give op logs, composed stream and conflicts byte-identical to
 the JAX package's: same scan, same enumeration order, same
 deterministic ids, same composition.
 
+The engine mesh (``ts_tpu.py``'s ``_posture_mesh`` and ``configure``):
+a merge started on several ranks (``parallel/distributed.py``) shards
+its decl and op axes over them under ``SEMMERGE_MESH=auto``/``require``
+— the fused merge runs :func:`~semantic_merge_tpu_torch.ops.fused.
+_fused_merge_sharded`, the two-program path and ``semdiff`` the sharded
+diff join and compose of :mod:`semantic_merge_tpu_torch.ops.sharded`;
+``[engine] mesh_shape`` (``"dp=1"``, ``"dp=2,tp=2"``,
+``"hybrid:dcn=dp,..."``) picks the layout, and ``"dp=1"`` runs the
+sharded programs on one card. ``require`` with one rank raises
+:class:`~semantic_merge_tpu_torch.errors.MeshFault` where the JAX
+backend does: in the constructor (the environment's posture; the CLI
+then logs "Backend ... unavailable" and runs the ``host`` engine, which
+has no mesh) or in :meth:`TorchTSBackend.configure` (the config's,
+exit 18). The sharded programs give the single-device bytes.
+
 Warm residency (``service/residency.py``, on inside the merge service):
 every backend of the process adopts one shared interner
 (:func:`shared_interner`), so encoded snapshots stay valid across the
@@ -64,6 +79,10 @@ from ..ops.compose import compose_oplogs_device
 from ..ops.fused import FusedMergeEngine
 from ..ops.diff import (KIND_ADD, KIND_DELETE, KIND_MOVE, KIND_RENAME,
                         DiffOpsTensor, diff_lift_device, diff_lift_device_pair)
+from ..ops.sharded import (compose_oplogs_device_sharded, diff_lift_device_pair_sharded,
+                           diff_lift_device_sharded)
+from ..parallel.mesh import mesh_posture
+from ..utils.loggingx import logger
 from .base import BuildAndDiffResult, register_backend, symbol_map
 
 
@@ -119,12 +138,24 @@ class DeviceDiffBackend:
     last call."""
 
     extensions: frozenset = frozenset()
+    #: The engine mesh of the device programs (``None``: one device).
+    _mesh = None
 
     def __init__(self, device: str | None = None) -> None:
         self.device = resolve_device(device)
         obs_device.note_device(self.device)
         self.phases: Dict[str, float | int | str] = {}
         self.path: str | None = None
+
+    def _diff_one(self, base_t, side_t) -> DiffOpsTensor:
+        if self._mesh is not None:
+            return diff_lift_device_sharded(base_t, side_t, self._mesh)
+        return diff_lift_device(base_t, side_t, self.device)
+
+    def _diff_pair(self, base_t, left_t, right_t):
+        if self._mesh is not None:
+            return diff_lift_device_pair_sharded(base_t, left_t, right_t, self._mesh)
+        return diff_lift_device_pair(base_t, left_t, right_t, self.device)
 
     def _files(self, snap: Snapshot):
         return filter_files(snap, self.extensions)
@@ -134,7 +165,7 @@ class DeviceDiffBackend:
                           signature_matcher, statement_ops) -> List[Op]:
         """:meth:`diff` on the two-program path, after the scan."""
         self.path = "two-program"
-        t = diff_lift_device(base_t, right_t, self.device)
+        t = self._diff_one(base_t, right_t)
         clock.lap("device_diff")
         diffs = decode_diffs(t, base_t, right_t, base_nodes, right_nodes)
         clock.lap("decode")
@@ -197,7 +228,7 @@ class DeviceDiffBackend:
         ts = timestamp or EPOCH_ISO
         base, left, right = snaps
         base_t, left_t, right_t = tensors
-        t_l, t_r = diff_lift_device_pair(base_t, left_t, right_t, self.device)
+        t_l, t_r = self._diff_pair(base_t, left_t, right_t)
         clock.lap("device_diff")
         diffs_l = decode_diffs(t_l, base_t, left_t, nodes[0], nodes[1])
         diffs_r = decode_diffs(t_r, base_t, right_t, nodes[0], nodes[2])
@@ -215,8 +246,10 @@ class DeviceDiffBackend:
         )
 
     def compose(self, delta_a: List[Op], delta_b: List[Op]):
-        """The two op logs composed on the backend's device:
-        ``(composed ops, conflicts)``."""
+        """The two op logs composed on the backend's device (over its
+        mesh, when it has one): ``(composed ops, conflicts)``."""
+        if self._mesh is not None:
+            return compose_oplogs_device_sharded(delta_a, delta_b, self._mesh)
         return compose_oplogs_device(delta_a, delta_b, self.device)
 
     def close(self) -> None:
@@ -234,7 +267,10 @@ class TorchTSBackend(DeviceDiffBackend):
     :meth:`merge` took, which scanner ran (``scanner``) and the decl
     cache's hits and misses in that call; ``path`` says which path it
     took (``"fused"`` or ``"two-program"``). The interner and the fused
-    engine live as long as the backend."""
+    engine live as long as the backend. ``mesh``: the engine mesh, or
+    ``None`` for the one the ``SEMMERGE_MESH`` posture asks for
+    (:meth:`_posture_mesh`), or ``False`` for none ever (the ``host``
+    engine's names: the JAX host backend has no mesh)."""
 
     name = "torch"
     #: The files this backend's semantic pipeline owns; the merge's text
@@ -249,11 +285,18 @@ class TorchTSBackend(DeviceDiffBackend):
 
     def __init__(self, device: str | None = None,
                  host_workers: int | None = None, *, native_scan: bool = True,
-                 decl_cache: DeclCache | None = None) -> None:
+                 decl_cache: DeclCache | None = None, mesh=None) -> None:
         super().__init__(device)
         self.host_workers = host_workers
         self.native_scan = native_scan
         self.decl_cache = decl_cache
+        self._meshless = mesh is False
+        self._mesh = mesh or None
+        if mesh is None and mesh_posture() == "require":
+            # The environment's require decides here, as the JAX
+            # constructor does (the CLI then falls back to the host
+            # engine); every other posture is decided in configure.
+            self._mesh = self._posture_mesh() or None
         from ..service import residency
         self._interner = shared_interner() if residency.residency_enabled() else Interner()
         self._fused: FusedMergeEngine | None = None
@@ -261,10 +304,87 @@ class TorchTSBackend(DeviceDiffBackend):
         #: file had no stable decl-cache key).
         self._keys: tuple = ()
 
+    def _posture_mesh(self, configured: str | None = None):
+        """The engine mesh the ``SEMMERGE_MESH`` posture asks for, or
+        ``False`` for the single-device programs: ``off`` pins them, as
+        does an active batch scheduler (a merge must stay batch-eligible;
+        the dispatcher applies the mesh contract to the batch's merge
+        axis). Several ranks give a ``dp`` mesh over all of them; a build
+        failure falls back under ``auto``. ``require`` raises
+        :class:`MeshFault` when no mesh can be used (one rank, a failed
+        build)."""
+        from .. import batch as batch_mod
+        from ..errors import MeshFault
+        from ..parallel.distributed import world
+        from ..parallel.mesh import build_mesh
+        posture = mesh_posture(configured)
+        if posture == "off" or batch_mod.current() is not None:
+            return False
+        n = world()[1]
+        if n > 1:
+            try:
+                return build_mesh(dp=n, pp=1, sp=1, tp=1, ep=1, device=self.device)
+            except Exception as exc:
+                if posture == "require":
+                    raise MeshFault(f"engine mesh build failed: {exc}",
+                                    cause=type(exc).__name__) from exc
+                logger.warning("engine mesh build failed, using single-device kernels: %s",
+                               exc)
+                return False
+        if posture == "require":
+            raise MeshFault(f"SEMMERGE_MESH=require but the host has {n} device(s) and "
+                            f"no batch scheduler is active", cause="single-device")
+        return False
+
+    def configure(self, config) -> None:
+        """Apply ``.semmerge.toml`` (the CLI calls it) and decide the
+        mesh, once: the ``[engine] mesh`` posture (the environment still
+        wins inside :func:`~semantic_merge_tpu_torch.parallel.mesh.
+        mesh_posture`; a mesh the constructor built for the
+        environment's ``require`` is kept), then an explicit ``mesh_shape
+        = "dp=2,tp=2"`` in its place, or ``"hybrid:dcn=dp,..."``, which
+        lays the ranks out so that only the ``dcn`` axis crosses hosts.
+        An invalid shape is logged and ignored. The posture's mesh is
+        built only where no shape replaces it (at one rank it builds
+        nothing, and under ``require`` raises); every rank builds the
+        same meshes, since a subgroup is made by all. The ``host`` engine
+        has no mesh."""
+        if self._meshless:
+            return
+        from ..parallel.distributed import build_hybrid_mesh, world
+        from ..parallel.mesh import build_mesh, parse_mesh_spec
+        configured = config.engine.mesh
+        if mesh_posture(configured) == "off":
+            self._mesh = None
+            return  # the posture pins one device; mesh_shape is moot
+        shape = config.engine.mesh_shape
+        try:
+            kind, dcn_axis, sizes = parse_mesh_spec(shape)
+        except ValueError as exc:
+            kind, sizes, invalid = None, {}, exc
+        else:
+            invalid = None
+        explicit, several = kind == "hybrid" or bool(sizes), world()[1] > 1
+        if self._mesh is None and not (explicit and several):
+            self._mesh = self._posture_mesh(configured) or None
+        try:
+            if invalid is not None:
+                raise invalid
+            if kind == "hybrid":
+                self._mesh = build_hybrid_mesh(dcn_axis=dcn_axis, device=self.device, **sizes)
+            elif sizes:
+                self._mesh = build_mesh(device=self.device, **sizes)
+        except ValueError as exc:
+            logger.warning("invalid mesh_shape %r ignored: %s", shape, exc)
+            if self._mesh is None and explicit and several:
+                # The shape's mesh failed: the posture's, as in JAX.
+                self._mesh = self._posture_mesh(configured) or None
+
     def _fused_engine(self) -> FusedMergeEngine:
-        if self._fused is None or self._fused.interner is not self._interner:
+        if (self._fused is None or self._fused.interner is not self._interner
+                or self._fused.mesh is not self._mesh):
             self._fused = FusedMergeEngine(self._interner, self.device,
-                                           host_workers=self.host_workers)
+                                           host_workers=self.host_workers, mesh=self._mesh)
         return self._fused
 
     def _maybe_reset_interner(self) -> None:
@@ -354,7 +474,8 @@ class TorchTSBackend(DeviceDiffBackend):
         clock = _PhaseClock(self.phases)
         (base_nodes, right_nodes), (base_t, right_t) = self._scan_encode(
             (base, right), clock)
-        if not (change_signature or structured_apply or statement_ops):
+        if not (change_signature or structured_apply or statement_ops
+                or self._mesh is not None):
             engine = self._fused_engine()
             view = engine.diff(base_t, base_nodes, right_t, right_nodes,
                                seed=seed, base_rev=base_rev, timestamp=ts,
@@ -494,7 +615,15 @@ def decode_diffs(t: DiffOpsTensor, base_t, side_t,
                                t.b_addr[:n].tolist())]
 
 
+def _host_engine(**kwargs) -> TorchTSBackend:
+    """The engine under the JAX host backend's names: no mesh, ever."""
+    return TorchTSBackend(mesh=False, **kwargs)
+
+
 #: The JAX package's four names of its TypeScript engines, which give the
-#: same bytes there: each is this engine on the device it is given.
-for _name in ("tpu", "ts_tpu", "host", "ts_host"):
+#: same bytes there: each is this engine on the device it is given (the
+#: host names without a mesh, as the JAX host backend has none).
+for _name in ("tpu", "ts_tpu"):
     register_backend(_name, TorchTSBackend)
+for _name in ("host", "ts_host"):
+    register_backend(_name, _host_engine)

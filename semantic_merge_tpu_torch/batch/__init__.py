@@ -98,11 +98,13 @@ def posture() -> str:
     return value if value in ("off", "auto", "require") else "auto"
 
 
-def plan_for_request(device=None) -> Optional[BatchScheduler]:
+def plan_for_request(device=None, eligible: bool = True) -> Optional[BatchScheduler]:
     """Route one merge at the engine's dispatch seam: the scheduler to
     submit to, or ``None`` for the inline dispatch. ``device`` is the
     engine's: a merge on another device than the scheduler's never
-    joins its batches. Raises
+    joins its batches. ``eligible`` is the engine's shape condition
+    (single-device only: the dp-sharded merge has its own mesh
+    program). Raises
     :class:`~semantic_merge_tpu_torch.errors.BatchFault` when posture
     ``require`` cannot be satisfied."""
     from ..errors import BatchFault
@@ -116,6 +118,12 @@ def plan_for_request(device=None) -> Optional[BatchScheduler]:
         if mode == "require":
             raise BatchFault("SEMMERGE_BATCH=require but no batch "
                              "scheduler is active", stage="batch")
+        return None
+    if not eligible:
+        if mode == "require":
+            raise BatchFault("SEMMERGE_BATCH=require but the mesh-sharded "
+                             "engine cannot join a batch", stage="batch")
+        _count_outcome("bypass")
         return None
     if device is not None and str(device) != str(sched.device):
         if mode == "require":
@@ -131,8 +139,16 @@ def degrade_or_raise(fault) -> None:
     """Policy for a batching fault at the request seam: ``require``
     re-raises (typed, exit 16); otherwise the caller falls back to the
     inline dispatch on the same device — the affected request only;
-    co-batched requests keep their rows."""
+    co-batched requests keep their rows. A
+    :class:`~semantic_merge_tpu_torch.errors.MeshFault` under
+    ``SEMMERGE_MESH=require`` re-raises whatever the batch posture (the
+    mesh contract, exit 18, does not depend on whether batching may
+    degrade)."""
     if posture() == "require":
+        raise fault
+    from ..errors import MeshFault
+    from ..parallel.mesh import mesh_posture
+    if isinstance(fault, MeshFault) and mesh_posture() == "require":
         raise fault
     from ..utils.loggingx import logger
     logger.warning("batched dispatch degraded to inline: %s", fault.describe())

@@ -9,11 +9,9 @@ hash_cap)`` takes few distinct values and equal keys stack without
 reshaping. The merge axis is padded up its own power-of-two ladder
 (:func:`batch_bucket`), so the batched-program cache stays small.
 
-The port plans one device (the merge axis over several cards is not
-ported), so the dispatcher packs with ``shards = 1``:
-:func:`placement_for` is then the identity layout. Both keep the JAX
-package's signatures, so that the mesh variant can take them as they
-are.
+With a batch mesh of k devices the dispatcher packs with ``shards =
+k``: the merge axis pads to a multiple of k and :func:`placement_for`
+spreads the requests round-robin over the k lane blocks.
 """
 from __future__ import annotations
 

@@ -57,11 +57,18 @@ class BatchScheduler:
 
     def __init__(self, *, device="cpu", window_ms: Optional[float] = None,
                  max_batch: Optional[int] = None,
-                 max_inflight: Optional[int] = None) -> None:
+                 max_inflight: Optional[int] = None,
+                 mesh: Optional[str] = None, mesh_devices=None) -> None:
         if window_ms is None:
             window_ms = _env_float(ENV_WINDOW_MS, 5.0)
         #: The device whose merges co-batch (``batch.plan_for_request``).
         self.device = torch.device(device)
+        #: The configured mesh posture (``[engine] mesh``) the dispatcher
+        #: reads when ``SEMMERGE_MESH`` is unset, and the local devices a
+        #: batch mesh may span (default: the cards, or the CPU for a CPU
+        #: scheduler; ``parallel/mesh.py::local_devices``).
+        self.mesh_config = mesh
+        self.mesh_devices = list(mesh_devices) if mesh_devices is not None else None
         self.window_s = max(0.0, float(window_ms) / 1000.0)
         self.max_batch = max(1, max_batch if max_batch is not None
                              else _env_int(ENV_MAX_BATCH, 16))

@@ -90,10 +90,12 @@ failed or there is no CUDA device, 12 the merge service refused or
 could not serve the request, 13 apply or the in-place commit failed, 14
 the formatter stage failed (fault injection), 15 a typecheck or request
 deadline expired, 16 a batching fault under ``SEMMERGE_BATCH=require``,
-17 the resolution tier failed under ``--resolve require``, 70 a refused
-setting (below). Codes 10-17 exit a ``semmerge`` only in strict mode,
-when the text rung itself fails, or (11 and 16, 10 for a failed build)
-on a device fault.
+17 the resolution tier failed under ``--resolve require``, 18 the device
+mesh that ``[engine] mesh = "require"`` asks for cannot be used (below).
+Codes 10-18 exit a ``semmerge`` only in strict mode, when the text rung
+itself fails, or (11 and 16, 10 for a failed build) on a device fault;
+18 also when the config's ``require`` fails before the merge starts, as
+in the JAX CLI.
 
 ``--backend NAME`` and ``[engine] backend`` (the flag wins) name the
 engine as in the JAX CLI (:mod:`semantic_merge_tpu_torch.backends`):
@@ -172,20 +174,33 @@ Under ``SEMMERGE_FLEET=auto|require`` a merge verb routes through the
 router (``require`` with none exits 19, a transport failure 21). Same
 flags, exit codes and stdout as the JAX CLI's.
 
-Refused, with exit 70 before a revision is read or the work tree is
-touched, because the port does not implement what they select:
-``[engine] mesh = "require"`` or ``SEMMERGE_MESH=require`` (a device
-mesh).
+The engine mesh (:mod:`semantic_merge_tpu_torch.parallel`): a merge
+verb started as N ranks with ``SEMMERGE_COORDINATOR``,
+``SEMMERGE_NUM_PROCESSES`` and ``SEMMERGE_PROCESS_ID`` (the JAX CLI's
+contract; ``JAX_*`` fallbacks) joins one ``torch.distributed`` group
+(NCCL with a card per rank, gloo on the CPU or on a shared card; a
+failed bring-up logs a warning and runs as one process) and shards its
+device programs over the ranks under ``SEMMERGE_MESH`` / ``[engine]
+mesh`` = ``auto`` (the default) or ``require``; ``[engine] mesh_shape``
+picks the layout, ``"dp=1"`` the sharded programs on one card. Every
+rank scans, encodes and runs the device programs; only rank 0 takes the
+in-place lock, writes the tree, notes, artifacts, trace and postmortems
+and prints, and every rank exits with rank 0's code. ``require`` with
+one rank: from the environment the engine is "unavailable" and the
+``host`` engine (no mesh) merges, exit 0; from the config the merge
+fails with ``MeshFault``, exit 18 — the JAX CLI's answers on one device.
 
 ``incremental`` scopes the scan to the files either side touched, for
 every engine, with the JAX CLI's collision guard (:func:`_snapshots`).
 
 Read by the JAX package and left alone here, since they do not change
-its output: ``mesh = "off"|"auto"`` and
-``mesh_shape`` (the sharded programs give the single-device bytes),
-``max_nodes_per_bucket`` (padding only), ``parity_mode``, ``[core]
-formatter``, ``[languages.*] project_globs``, ``[ci] require_tests``
-(read, never used).
+its output: ``max_nodes_per_bucket`` (padding only), ``parity_mode``,
+``[core] formatter``, ``[languages.*] project_globs``, ``[ci]
+require_tests`` (read, never used), and the host-tail tuning variables
+``SEMMERGE_HOST_WORKERS`` (worker count; ``[engine] host_workers`` is
+read), ``SEMMERGE_TAIL_SHARD_ROWS`` (the tail's shard size) and
+``SEMMERGE_SPLIT_FETCH`` (the JAX engine's three-buffer fetch; the port
+fetches one buffer).
 
 Telemetry (:mod:`semantic_merge_tpu_torch.obs`,
 :mod:`semantic_merge_tpu_torch.runtime.trace`), as the JAX CLI records
@@ -250,18 +265,20 @@ from typing import Dict, List, Sequence
 from .backends.base import BuildAndDiffResult, get_backend, run_merge
 from .backends.multi import route_backends
 from .backends.ts_torch import TorchTSBackend
-from .config import load_config, refused_environment, refused_settings, resolve_backend
+from .config import load_config, resolve_backend
 from .core.conflict import conflicts_payload
 from .core.strict_conflicts import detect_conflicts_strict
 from .core.ops import Op, OpLog
 from .device import DeviceUnavailable, resolve_device
-from .errors import (BatchFault, KernelFault, MergeFault, UnsupportedSetting, WorkerFault,
+from .errors import (BatchFault, KernelFault, MergeFault, MeshFault, WorkerFault,
                      fault_boundary, is_device_fault)
 from .frontend.declcache import configure as configure_decl_cache
 from .frontend.declcache import global_cache, publish_metrics
 from .obs import flight as obs_flight
 from .obs import metrics as obs_metrics
 from .obs import spans as obs_spans
+from .parallel.distributed import agree_exit_code, init_distributed, is_writer, rank_device
+from .parallel.distributed import world as dist_world
 from .runtime.applier import _normalize_relpath, apply_ops, touched_paths
 from .runtime.emitter import PRETTIER_EXTENSIONS, emit_files
 from .frontend.snapshot import annotate_residency
@@ -488,20 +505,11 @@ class SemdiffResult:
     tracer: Tracer | None = None
 
 
-def _refuse(refused: List[str]) -> None:
-    if refused:
-        raise UnsupportedSetting(
-            f"{', '.join(refused)}: not implemented by this port (it would change the "
-            "JAX package's output); unset it or use python -m semantic_merge_tpu",
-            stage="config")
-
-
-def _load_config(command: str, backend: str | None = None):
+def _load_config(backend: str | None = None):
     """The ``.semmerge.toml`` in force, with ``--backend`` (``backend``)
-    resolved into ``engine.backend`` and the decl cache's budget applied;
-    raises :class:`UnsupportedSetting` on a refused setting."""
+    resolved into ``engine.backend`` and the decl cache's budget
+    applied."""
     config = load_config()
-    _refuse(refused_settings(config, command))
     config.engine.backend = resolve_backend(config, backend)
     configure_decl_cache(config.core.memory_cap_mb)
     return config
@@ -509,12 +517,34 @@ def _load_config(command: str, backend: str | None = None):
 
 def _build_backend(name: str, config, device: str | None):
     """The engine ``name`` on ``device`` (the JAX CLI's
-    ``_resolve_backend``): the registry's backend
-    (:func:`~semantic_merge_tpu_torch.backends.base.get_backend`), wrapped
-    with one backend per language ``config`` enables beyond TypeScript
+    ``_resolve_backend``). No card and no ``device="cpu"`` raises
+    :class:`DeviceUnavailable` before anything else, a rank of a sharded
+    run included. For ``tpu``/``ts_tpu`` the process first joins
+    the process group of a sharded run
+    (:func:`~semantic_merge_tpu_torch.parallel.distributed.init_distributed`;
+    a failure is logged and the run goes on as one process), and a rank
+    runs on its own card. Then the registry's backend
+    (:func:`~semantic_merge_tpu_torch.backends.base.get_backend`) — when
+    its construction raises :class:`MeshFault` (``SEMMERGE_MESH=require``
+    with no mesh to use), the JAX CLI's warning and the ``host`` engine,
+    unrouted and unconfigured, as there — wrapped with one backend per
+    language ``config`` enables beyond TypeScript
     (:func:`~semantic_merge_tpu_torch.backends.multi.route_backends`),
-    then configured from ``config`` (``[engine] worker_cmd``)."""
-    backend = get_backend(name, device=device, host_workers=config.engine.host_workers)
+    then configured from ``config`` (``[engine] worker_cmd``, ``mesh``,
+    ``mesh_shape``)."""
+    resolve_device(device)
+    if name in ("tpu", "ts_tpu"):
+        try:
+            init_distributed(device=device)
+        except Exception as exc:
+            logger.warning("distributed bring-up failed (%s); continuing single-host", exc)
+    if dist_world()[1] > 1 and device != "cpu":
+        device = str(rank_device())
+    try:
+        backend = get_backend(name, device=device, host_workers=config.engine.host_workers)
+    except MeshFault as exc:
+        logger.warning("Backend %r unavailable (%s); falling back to host", name, exc)
+        return get_backend("host", device=device, host_workers=config.engine.host_workers)
     backend = route_backends(backend, config, device=device) or backend
     configure = getattr(backend, "configure", None)
     if configure is not None:
@@ -565,7 +595,7 @@ def _snapshots(config, tars, base: str, scope_of):
 def semdiff(args: argparse.Namespace) -> SemdiffResult:
     """Run ``semdiff`` for parsed ``args`` in the working directory: the
     ``snapshot`` and ``diff`` phases of the JAX CLI's ``cmd_semdiff``."""
-    full = _load_config("semdiff", args.backend)
+    full = _load_config(args.backend)
     config = full.engine
     backend = _build_backend(config.backend, full, args.device)
     change_sig = args.change_signature or config.change_signature
@@ -645,8 +675,9 @@ def _fail_fast(fault: MergeFault, command: str = "semmerge") -> int:
         "Merge runs failed on a contained fault, by fault and stage",
     ).inc(1, fault=type(fault).__name__, stage=fault.stage)
     tid = obs_spans.trace_id() or obs_flight.default_trace_id()
-    obs_flight.dump(tid, "fault-escape", fault=fault, breakers=breakers().snapshot(),
-                    root=workdir.root())
+    if is_writer():
+        obs_flight.dump(tid, "fault-escape", fault=fault, breakers=breakers().snapshot(),
+                        root=workdir.root())
     print(f"{command}: {fault.describe()} (exit {fault.exit_code}) [trace {tid}]",
           file=sys.stderr)
     return fault.exit_code
@@ -666,9 +697,10 @@ def _record_degradation(frm: str, to: str, fault: MergeFault, tracer: Tracer) ->
     ).inc(1, **{"from": frm, "to": to, "fault": name})
     obs_spans.record("degradation", 0.0, layer="cli",
                      **{"from": frm, "to": to, "fault": name, "stage": fault.stage})
-    obs_flight.dump(obs_spans.trace_id(), "degradation", fault=fault,
-                    breakers=breakers().snapshot(), root=workdir.root(),
-                    extra={"degradation": {"from": frm, "to": to}})
+    if is_writer():
+        obs_flight.dump(obs_spans.trace_id(), "degradation", fault=fault,
+                        breakers=breakers().snapshot(), root=workdir.root(),
+                        extra={"degradation": {"from": frm, "to": to}})
     tracer.count("degradations", tracer.counters.get("degradations", 0) + 1)
 
 
@@ -687,6 +719,8 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
         raise BatchFault("SEMMERGE_BATCH=require but no batch scheduler is active "
                          "(batching runs in the merge service: serve)", stage="batch")
     if args.resume:
+        if not is_writer():
+            return SemmergeResult(code=0)
         with repo_lock():
             action, n_writes = recover()
         detail = f" ({n_writes} writes)" if action == "rolled-forward" else ""
@@ -696,9 +730,9 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
         print("error: semmerge requires BASE A B revisions (or --resume)",
               file=sys.stderr)
         return SemmergeResult(code=2)
-    config = _load_config("semmerge", args.backend)
+    config = _load_config(args.backend)
     logger.info("Starting semantic merge base=%s A=%s B=%s", args.base, args.a, args.b)
-    if args.inplace:
+    if args.inplace and is_writer():
         # A journal/stage left by an interrupted --inplace commit is
         # resolved before this merge touches anything.
         with repo_lock():
@@ -707,8 +741,9 @@ def semmerge(args: argparse.Namespace) -> SemmergeResult:
     try:
         return _merge_ladder(args, config, tracer)
     finally:
-        tracer.write()
-        publish_metrics()
+        if is_writer():  # the other ranks of a sharded run write nothing
+            tracer.write()
+            publish_metrics()
 
 
 def _breaker_open_fault(rung: str) -> MergeFault:
@@ -769,6 +804,8 @@ def _merge_ladder(args: argparse.Namespace, config, tracer: Tracer) -> SemmergeR
             if _strict_mode(args):
                 return SemmergeResult(code=_fail_fast(fault))
             _record_degradation(rung, below, fault, tracer)
+    if not is_writer():
+        return SemmergeResult(code=0)  # the text rung is rank 0's alone: it writes
     t0 = time.perf_counter()
     try:
         code = _textual_rung(args, tracer)
@@ -851,11 +888,16 @@ def _semantic_attempt(args: argparse.Namespace, config, backend,
         with tracer.phase("merge", backend=backend.name), fault_boundary("merge"):
             out.result, out.composed, out.conflicts = run_merge(backend, *snaps, **kw)
         phases.update(backend.phases)
+    if not is_writer():
+        # The last collective of a sharded merge is behind us: rank 0
+        # writes the rest, and every rank takes its exit code.
+        return out
     tracer.count("ops_left", len(out.result.op_log_left))
     tracer.count("ops_right", len(out.result.op_log_right))
     cache = global_cache()
-    tracer.count("decl_cache_hits", cache.hits)
-    tracer.count("decl_cache_misses", cache.misses)
+    if cache is not None:  # off under SEMMERGE_CACHE=0, as in the JAX CLI
+        tracer.count("decl_cache_hits", cache.hits)
+        tracer.count("decl_cache_misses", cache.misses)
     tracer.count("composed_ops", len(out.composed))
     tracer.count("conflicts", len(out.conflicts))
     t = time.perf_counter()
@@ -998,7 +1040,6 @@ def semrebase(args: argparse.Namespace) -> int:
     formatter, then the crash-safe commit with ``--inplace``, else print
     the replayed tree's temporary directory (left for the caller)."""
     resolve_device(args.device)  # the merge family's device contract
-    _refuse(refused_environment("semrebase"))
     oplog = notes_get(resolve_rev(args.commit))
     if oplog is None:
         print(f"No semmerge op log stored for {args.commit}", file=sys.stderr)
@@ -1024,7 +1065,6 @@ def serve(args: argparse.Namespace) -> int:
     binds: without a card (and without ``--device cpu``) it raises
     :class:`DeviceUnavailable`, which :func:`main` turns into exit 11."""
     from .service import client as service_client
-    _refuse(refused_environment("serve"))
     if args.status:
         method = "member_status" if args.fleet else "status"
         try:
@@ -1134,6 +1174,19 @@ def main(argv: Sequence[str] | None = None, *, delegate: bool = True) -> int:
         # one-shot merge verbs (the daemon turns it off for itself).
         from .utils.gctune import tune_for_merge
         tune_for_merge()
+    code = 1  # what an exception that escapes ends the process with
+    try:
+        code = _command(args)
+    finally:
+        # Once a sharded run's group is up, every exit path takes part in
+        # its last collective: each rank ends with rank 0's code, and an
+        # exception on one rank never leaves another waiting.
+        code = agree_exit_code(code)
+    return code
+
+
+def _command(args: argparse.Namespace) -> int:
+    """Run the parsed command; its exit code."""
     try:
         if args.command in ("stats", "trace", "profile", "perf", "top"):
             from .obs import report
@@ -1144,7 +1197,6 @@ def main(argv: Sequence[str] | None = None, *, delegate: bool = True) -> int:
             return fleet(args)
         if args.command == "train-matcher":
             return train_matcher(args)
-        _refuse(refused_environment(args.command))
         _LAST.phases = None
         if args.command == "semmerge":
             merged = semmerge(args)
@@ -1161,14 +1213,11 @@ def main(argv: Sequence[str] | None = None, *, delegate: bool = True) -> int:
         cmd = exc.cmd if isinstance(exc.cmd, str) else " ".join(map(str, exc.cmd))
         print(f"error: subprocess failed ({cmd}): exit {exc.returncode}", file=sys.stderr)
         return 3
-    except UnsupportedSetting as fault:
-        print(f"{args.command}: {fault.describe()} (exit {fault.exit_code})",
-              file=sys.stderr)
-        return fault.exit_code
     except MergeFault as fault:
         return _fail_fast(fault, args.command)
-    text = render(result.ops, args.json_out)
-    if text:
-        print(text)
-    result.tracer.write()
+    if is_writer():
+        text = render(result.ops, args.json_out)
+        if text:
+            print(text)
+        result.tracer.write()
     return 0

@@ -47,10 +47,10 @@ does:
 ``[engine] backend`` (or ``--backend``) names the engine as in the JAX
 package (:func:`resolve_backend`, the names of
 ``backends/base.py::get_backend``); a name it does not know runs as
-``host``. It reads ``[engine] mesh`` only to refuse ``"require"``
-(:func:`refused_settings`), and refuses the environment postures of
-:func:`refused_environment`. Every other key leaves the output
-unchanged; ``cli.py``'s docstring says why for each.
+``host``. ``[engine] mesh`` (the posture, under ``SEMMERGE_MESH``) and
+``mesh_shape`` pick the engine mesh as in the JAX package
+(``backends/ts_torch.py::TorchTSBackend.configure``). Every other key
+leaves the output unchanged; ``cli.py``'s docstring says why for each.
 """
 from __future__ import annotations
 
@@ -59,7 +59,6 @@ import tomllib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
-from .utils import reqenv
 from .utils.loggingx import logger
 
 
@@ -83,6 +82,7 @@ class EngineConfig:
     formatter_scope: str = "tree"
     host_workers: int = 0
     mesh: str = "auto"
+    mesh_shape: str = "auto"
     worker_cmd: List[str] | None = None
     incremental: bool = True
 
@@ -164,6 +164,7 @@ def load_config(start: pathlib.Path | None = None) -> Config:
         host_workers=int(engine.get("host_workers", defaults.host_workers)),
         mesh=_validated(str(engine.get("mesh", defaults.mesh)).strip().lower(),
                         "engine.mesh", ("off", "auto", "require")),
+        mesh_shape=str(engine.get("mesh_shape", defaults.mesh_shape)),
         worker_cmd=[str(c) for c in _as_list(engine.get("worker_cmd", []))] or None,
         incremental=bool(engine.get("incremental", defaults.incremental)),
     )
@@ -197,35 +198,6 @@ def resolve_backend(config: Config, flag: str | None = None) -> str:
     logger.warning("Backend %r unavailable (%s); falling back to host", name,
                    f"unknown backend {name!r}")
     return "host"
-
-
-def refused_settings(config: Config, command: str) -> List[str]:
-    """The settings in ``config`` and the environment that would change
-    the JAX package's op logs, tree, conflicts artifact or exit code and
-    that the port does not implement (a device mesh), each as
-    ``"name = value"``. The CLI refuses to run when this is not empty.
-    No engine name is refused: every one runs."""
-    refused = []
-    mesh_env = (reqenv.get("SEMMERGE_MESH") or "").strip().lower()
-    if not mesh_env and config.engine.mesh == "require":
-        refused.append('[engine] mesh = "require"')
-    return refused + refused_environment(command)
-
-
-def refused_environment(command: str) -> List[str]:
-    """The environment settings the port cannot honour for ``command``
-    (``semdiff``, ``semmerge``, ``semrebase`` or ``serve``), read
-    through the request overlay: ``SEMMERGE_MESH=require`` (a device
-    mesh). ``SEMMERGE_FLEET`` is the client's, read before the CLI runs
-    (:mod:`semantic_merge_tpu_torch.service.client`). No OTLP variable is
-    refused: as in the JAX package,
-    only the daemon exports (``SEMMERGE_OTLP_ENDPOINT``,
-    :mod:`semantic_merge_tpu_torch.obs.export`), and nothing reads
-    ``SEMMERGE_OTLP``."""
-    refused = []
-    if (reqenv.get("SEMMERGE_MESH") or "").strip().lower() == "require":
-        refused.append("SEMMERGE_MESH=require")
-    return refused
 
 
 def load_engine_config(start: pathlib.Path | None = None) -> EngineConfig:

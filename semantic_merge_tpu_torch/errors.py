@@ -26,11 +26,12 @@ code  meaning
       ``SEMMERGE_BATCH=require``, or that posture could not be met
 17    ``ResolveFault`` — the conflict-resolution tier failed under
       ``--resolve require``
+18    ``MeshFault`` — the device mesh ``mesh = "require"`` asks for could
+      not be built or used
 19    ``FleetFault`` — the fleet router could not route or serve a
       request under ``SEMMERGE_FLEET=require``
 21    ``TransportFault`` — a fleet transport call failed (dial refused,
       read deadline, half-open partition) under ``SEMMERGE_FLEET=require``
-70    ``UnsupportedSetting`` — a setting the port does not implement
 ====  =============================================================
 """
 from __future__ import annotations
@@ -57,14 +58,6 @@ class MergeFault(RuntimeError):
     def describe(self) -> str:
         cause = f", cause={self.cause}" if self.cause else ""
         return f"{type(self).__name__}[stage={self.stage}{cause}]: {self}"
-
-
-class UnsupportedSetting(MergeFault):
-    """A setting that would change the JAX package's output and that the
-    port does not implement: refused before any revision is read."""
-
-    exit_code = 70
-    default_stage = "config"
 
 
 class ParseFault(MergeFault):
@@ -139,6 +132,18 @@ class ResolveFault(MergeFault):
     default_stage = "resolve"
 
 
+class MeshFault(MergeFault):
+    """The device mesh that ``SEMMERGE_MESH=require`` (``[engine] mesh``)
+    demands could not be built or used: one rank, a failed process
+    group or mesh build, or a failed mesh-sharded dispatch. Under
+    ``auto`` the mesh layers fall back to the single-device programs
+    instead (the same bytes), so this surfaces only under
+    ``require``."""
+
+    exit_code = 18
+    default_stage = "mesh"
+
+
 class FleetFault(MergeFault):
     """The fleet tier (``fleet/``) could not route or serve a request.
     Under ``SEMMERGE_FLEET=auto`` the client falls through to the daemon
@@ -189,6 +194,10 @@ STAGE_FAULTS = {
     "batch:mesh": BatchFault,
     "batch:dispatch": BatchFault,
     "batch:scatter": BatchFault,
+    # A request-side batch:mesh fault degrades that request like any
+    # other batch stage; the leader's mesh build raises MeshFault (under
+    # SEMMERGE_MESH=require) with its own stage.
+    "mesh": MeshFault,
     # The fleet router's stages; a member's own faults keep their class
     # from the member's wire error.
     "fleet": FleetFault,
@@ -209,7 +218,8 @@ STAGE_FAULTS = {
 #: (each equal to the JAX package's).
 EXIT_CODES = {cls.__name__: cls.exit_code for cls in
               (ParseFault, KernelFault, WorkerFault, ApplyFault, FormatFault,
-               DeadlineFault, BatchFault, ResolveFault, FleetFault, TransportFault)}
+               DeadlineFault, BatchFault, ResolveFault, MeshFault, FleetFault,
+               TransportFault)}
 
 #: Stages whose :class:`KernelFault` is the device's.
 DEVICE_STAGES = frozenset(("merge", "kernel", "chain"))

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import os
 import sys
 import threading
 from collections import OrderedDict
@@ -153,9 +154,19 @@ def declared_hash(declared) -> str:
 _GLOBAL: Optional[DeclCache] = None
 
 
-def global_cache() -> DeclCache:
-    """The process-wide cache."""
+def enabled() -> bool:
+    """Whether the process-wide cache is on: ``SEMMERGE_CACHE=0`` (or
+    ``off``) turns it off, as in the JAX package."""
+    return os.environ.get("SEMMERGE_CACHE", "1").strip().lower() not in ("0", "off")
+
+
+def global_cache() -> Optional[DeclCache]:
+    """The process-wide cache, or ``None`` when it is off
+    (``SEMMERGE_CACHE=0``): every scan then parses every file, and the
+    encode runs uncached."""
     global _GLOBAL
+    if not enabled():
+        return None
     if _GLOBAL is None:
         _GLOBAL = DeclCache()
     return _GLOBAL
@@ -165,7 +176,9 @@ def configure(memory_cap_mb: int) -> None:
     """Apply the ``[core] memory_cap_mb`` budget (the CLI calls this
     once config is loaded). Half the budget goes to the decl cache; the
     rest stays headroom for snapshots and device buffers."""
-    global_cache().set_cap_mb(max(1, memory_cap_mb // 2))
+    cache = global_cache()
+    if cache is not None:
+        cache.set_cap_mb(max(1, memory_cap_mb // 2))
 
 
 _PUBLISHED = {"hits": 0, "misses": 0, "evictions": 0}

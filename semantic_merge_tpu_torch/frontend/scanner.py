@@ -154,7 +154,8 @@ def scan_snapshot_keyed(files: Sequence[dict], *, cache: DeclCache | None = None
     anywhere in the snapshot, then each file against that set, both
     through ``cache`` (a
     :class:`~semantic_merge_tpu_torch.frontend.declcache.DeclCache`;
-    ``None`` is the process-wide one). With ``native`` the C++ library
+    ``None`` is the process-wide one; when that is off, every key is
+    ``None``). With ``native`` the C++ library
     scans every file the cache misses, unless the snapshot is not
     ASCII-safe; without it the Python scanner does. ``stats`` collects
     what ran. A failure is a
@@ -163,8 +164,14 @@ def scan_snapshot_keyed(files: Sequence[dict], *, cache: DeclCache | None = None
     :class:`~semantic_merge_tpu_torch.errors.NativeBuildFault`), and so
     is what the ``scan`` fault-injection stage raises."""
     from ..utils import faults
-    from .declcache import global_cache
+    from .declcache import DeclCache, global_cache
     cache = global_cache() if cache is None else cache
+    # The cache is off (SEMMERGE_CACHE=0): scan through a throwaway one,
+    # whose keys name no stable identity (``None``, as the JAX scanner's
+    # uncached scan gives) and whose counters count nowhere.
+    uncached = cache is None
+    if uncached:
+        cache = DeclCache()
     stats = stats if stats is not None else ScanStats()
     hits0, misses0 = cache.hits, cache.misses
     try:
@@ -176,14 +183,16 @@ def scan_snapshot_keyed(files: Sequence[dict], *, cache: DeclCache | None = None
             keyed = _scan_snapshot_cached(files, cache, native, stats)
         except Exception as exc:
             raise _as_parse_fault(exc)
-    stats.hits += cache.hits - hits0
-    stats.misses += cache.misses - misses0
     reg = obs_metrics.REGISTRY
     reg.counter("semmerge_files_scanned_total",
                 "Snapshot files handed to the decl scanner").inc(len(files))
     reg.counter("semmerge_decls_indexed_total",
                 "Declarations indexed by the scanner").inc(
         sum(len(nodes) for _, nodes in keyed))
+    if uncached:
+        return [(None, nodes) for _, nodes in keyed]
+    stats.hits += cache.hits - hits0
+    stats.misses += cache.misses - misses0
     reg.counter("semmerge_decl_cache_hits_total",
                 "Decl-cache hits during snapshot scans").inc(cache.hits - hits0)
     reg.gauge("semmerge_decl_cache_entries",

@@ -115,25 +115,37 @@ def _rename_pairs(is_rename: torch.Tensor, sym: torch.Tensor,
     return torch.where(is_r, sym, int(PAD_ID)).long(), new_name.long()
 
 
+def _rename_candidate_table(a, n_a):
+    """A's renames among its first ``n_a`` rows as ``(symbol, name)``
+    columns sorted by (symbol, name); ``a`` is the stream's canonical
+    ``(is_rename, sym, new_name)`` columns."""
+    a_sym, a_name = _rename_pairs(*a, n_a)
+    srt = torch.sort((a_sym << 32) | (a_name + 1), dim=-1).values
+    return srt >> 32, (srt & 0xFFFFFFFF) - 1
+
+
+def _rename_candidate_query(table, b_sym, b_name) -> torch.Tensor:
+    """Per query rename ``(b_sym, b_name)``: does A rename that symbol to
+    another name? A query reads its symbol run's min and max name in the
+    sorted ``table`` (its two ends alone would miss a run with mixed
+    names). The queries may be any slice of B's rename pairs (the
+    sharded compose splits them over the mesh)."""
+    nm_sym, nm_name = table
+    na = nm_sym.shape[-1]
+    lo = torch.searchsorted(nm_sym, b_sym).clamp(0, na - 1)
+    hi = (torch.searchsorted(nm_sym, b_sym, right=True) - 1).clamp(0, na - 1)
+    return ((nm_sym.gather(-1, lo) == b_sym) & (b_sym != int(PAD_ID))
+            & ((nm_name.gather(-1, lo) != b_name) | (nm_name.gather(-1, hi) != b_name)))
+
+
 def _rename_candidates_cols(a, n_a, b, n_b) -> torch.Tensor:
     """Stage 2a, the parallel precheck: does any B rename share its
     symbol with an A rename of another name? ``a``/``b`` are the
-    streams' canonical ``(is_rename, sym, new_name)`` columns. A's
-    renames sort by (symbol, name), so a query reads its symbol run's
-    min and max name (scanning the run's two ends alone would miss a run
-    with mixed names). Along the last axis: with leading batch
-    dimensions the answer has their shape."""
-    na = a[1].shape[-1]
-    a_sym, a_name = _rename_pairs(*a, n_a)
-    srt = torch.sort((a_sym << 32) | (a_name + 1), dim=-1).values
-    nm_sym, nm_name = srt >> 32, (srt & 0xFFFFFFFF) - 1
+    streams' canonical ``(is_rename, sym, new_name)`` columns. Along the
+    last axis: with leading batch dimensions the answer has their
+    shape."""
     b_sym, b_name = _rename_pairs(*b, n_b)
-    lo = torch.searchsorted(nm_sym, b_sym).clamp(0, na - 1)
-    hi = (torch.searchsorted(nm_sym, b_sym, right=True) - 1).clamp(0, na - 1)
-    differing = ((nm_sym.gather(-1, lo) == b_sym) & (b_sym != int(PAD_ID))
-                 & ((nm_name.gather(-1, lo) != b_name)
-                    | (nm_name.gather(-1, hi) != b_name)))
-    return differing.any(-1)
+    return _rename_candidate_query(_rename_candidate_table(a, n_a), b_sym, b_name).any(-1)
 
 
 def _rename_candidates(a: torch.Tensor, n_a: int,
@@ -157,11 +169,14 @@ def _seg_last_valid(seg_sym: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 def _merge_and_scan(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,
                     drop_a: torch.Tensor, drop_b: torch.Tensor,
-                    candidates: torch.Tensor, n_ts: int, n_id: int) -> torch.Tensor:
+                    candidates: torch.Tensor, n_ts: int, n_id: int,
+                    seg_scan=_seg_last_valid) -> torch.Tensor:
     """Stage 3: merged order, segmented chain scans and output assembly.
     Returns the (9, na + nb) int32 matrix the host fetches (rows
     ``OUT_*``; scalars broadcast across their row, short rows padded
-    with ``NULL_ID``)."""
+    with ``NULL_ID``). ``seg_scan(seg_sym, vals)`` is the segmented scan
+    (:func:`_seg_last_valid`; the sharded compose passes its
+    distributed twin)."""
     na, nb = a.shape[1], b.shape[1]
     total = na + nb
     dev = a.device
@@ -192,7 +207,7 @@ def _merge_and_scan(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,
     sym_m = sym[merged_order]
     by_sym = _stable_order(sym_m)
     seg_order = merged_order[by_sym]
-    chains_seg = _seg_last_valid(sym_m[by_sym], contrib[:, seg_order])
+    chains_seg = seg_scan(sym_m[by_sym], contrib[:, seg_order])
     chains = torch.empty_like(chains_seg)
     chains[:, seg_order] = chains_seg
 
@@ -268,35 +283,57 @@ def compose_oplogs_device(delta_a: List[Op], delta_b: List[Op],
         return _compose_on(delta_a, delta_b, device)
 
 
-def _compose_on(delta_a: List[Op], delta_b: List[Op], device: torch.device
-                ) -> Tuple[List[Op], List[Conflict]]:
-    if not delta_a and not delta_b:
-        return [], []
+def encode_compose_inputs(delta_a: List[Op], delta_b: List[Op], shard_multiple: int = 1):
+    """The host encoding both compose paths share: intern both logs into
+    their op tensors, and pad buckets divisible by ``shard_multiple``
+    (the mesh's ``dp`` size), so the sharded compose's row axis splits
+    evenly over any rank count. Returns ``(interner, ta, tb, na, nb,
+    n_ts, n_id)``: the padded sizes and the rank tables' lengths."""
     interner = Interner()
     ts_table, id_table = build_rank_tables(delta_a, delta_b)
     ta = encode_oplog(delta_a, interner, ts_table, id_table)
     tb = encode_oplog(delta_b, interner, ts_table, id_table)
-    n_ts, n_id = len(ts_table), len(id_table)
-    na, nb = shard_bucket(ta.n), shard_bucket(tb.n)
+    return (interner, ta, tb, shard_bucket(ta.n, shard_multiple),
+            shard_bucket(tb.n, shard_multiple), len(ts_table), len(id_table))
+
+
+def _compose_on(delta_a: List[Op], delta_b: List[Op], device: torch.device
+                ) -> Tuple[List[Op], List[Conflict]]:
+    if not delta_a and not delta_b:
+        return [], []
+    interner, ta, tb, na, nb, n_ts, n_id = encode_compose_inputs(delta_a, delta_b)
     both = torch.from_numpy(np.concatenate(
         [_pad_op_tensor(ta, na), _pad_op_tensor(tb, nb)], axis=1)).to(device)
     a = _sort_stream(both[:, :na], n_ts, n_id)
     b = _sort_stream(both[:, na:], n_ts, n_id)
     candidates = _rename_candidates(a, ta.n, b, tb.n)
+    out, pairs = _compose_streams(a, ta.n, b, tb.n, candidates, n_ts, n_id)
+    return decode_compose_output(out, delta_a, delta_b, interner, pairs)
+
+
+def _compose_streams(a: torch.Tensor, n_a: int, b: torch.Tensor, n_b: int,
+                     candidates: torch.Tensor, n_ts: int, n_id: int,
+                     seg_scan=_seg_last_valid):
+    """Stages 2b and 3 over the canonical streams: the speculative
+    composition, and when its candidate flag is set the host's walk and
+    the composition again with the dropped rows. Returns the fetched
+    matrix and the walk's conflict pairs."""
+    na, nb = a.shape[1], b.shape[1]
+    device = a.device
     no_drop = torch.zeros(na + nb, dtype=torch.bool, device=device)
-    out = _merge_and_scan(a, b, ta.n, tb.n, no_drop[:na], no_drop[na:],
-                          candidates, n_ts, n_id).cpu().numpy()
+    out = _merge_and_scan(a, b, n_a, n_b, no_drop[:na], no_drop[na:],
+                          candidates, n_ts, n_id, seg_scan).cpu().numpy()
     pairs: List[Tuple[int, int]] = []
     if out[OUT_CANDIDATES, 0]:
-        pairs, dropped_a, dropped_b = _walk_on_host(a, ta.n, b, tb.n, n_ts)
+        pairs, dropped_a, dropped_b = _walk_on_host(a, n_a, b, n_b, n_ts)
         if pairs:
             drop = np.zeros(na + nb, dtype=np.bool_)
             drop[list(dropped_a)] = True
             drop[[na + i for i in dropped_b]] = True
             drop_t = torch.from_numpy(drop).to(device)
-            out = _merge_and_scan(a, b, ta.n, tb.n, drop_t[:na], drop_t[na:],
-                                  candidates, n_ts, n_id).cpu().numpy()
-    return decode_compose_output(out, delta_a, delta_b, interner, pairs)
+            out = _merge_and_scan(a, b, n_a, n_b, drop_t[:na], drop_t[na:],
+                                  candidates, n_ts, n_id, seg_scan).cpu().numpy()
+    return out, pairs
 
 
 def recompose_resolved(delta_a: List[Op], delta_b: List[Op],

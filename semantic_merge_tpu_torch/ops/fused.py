@@ -58,7 +58,7 @@ import torch
 
 from ..core.conflict import Conflict, divergent_rename_conflict
 from ..core.encode import (NULL_ID, PAD_ID, DeclTensor, Interner, bucket_size,
-                           pad_to, shard_ranges)
+                           pad_to, shard_bucket, shard_ranges)
 from ..core.ids import op_id_prefix_digest, value_digest10
 from ..core.ops import dumps_canonical
 from ..obs import device as obs_device
@@ -334,21 +334,31 @@ def _strings_for(interner: Interner, device: torch.device) -> DeviceStrings:
         return tab
 
 
-def device_decl_columns(t: DeclTensor, identity, device: torch.device) -> torch.Tensor:
+def device_decl_columns(t: DeclTensor, identity, device: torch.device,
+                        bucket: Optional[int] = None, block=None) -> torch.Tensor:
     """int32 ``[4, bucket]`` (sym, addr, name, file) of ``t`` on
     ``device``: from the identity-keyed cache when ``identity`` is not
-    ``None`` and was shipped before, else copied (and cached)."""
+    ``None`` and was shipped before, else copied (and cached).
+    ``bucket`` defaults to the ladder's for ``t.n``; ``block = (k, j)``
+    keeps only block ``j`` of ``k`` along the decl axis (a mesh rank's
+    share)."""
     key = None if identity is None else (str(device), identity)
+    if key is not None and block is not None:
+        key += (bucket, block)
     if key is not None:
         with _shared_lock:
             hit = _decl_columns.get(key)
             if hit is not None:
                 _decl_columns.move_to_end(key)
                 return hit
-    bucket = bucket_size(max(t.n, 1))
+    bucket = bucket or bucket_size(max(t.n, 1))
     null = np.int32(NULL_ID)
     stacked = np.stack([pad_to(t.sym, bucket, PAD_ID), pad_to(t.addr, bucket, null),
                         pad_to(t.name, bucket, null), pad_to(t.file, bucket, null)])
+    if block is not None:
+        k, j = block
+        size = bucket // k
+        stacked = stacked[:, j * size:(j + 1) * size]
     obs_device.record_transfer("h2d", stacked.nbytes)
     dev = _h2d(stacked, device)
     if key is not None:
@@ -395,7 +405,7 @@ def _emit_slots(plan, C: int):
 
 
 def _op_id_words(kind, a_slot, b_slot, b_cols, s_cols, hash_tab, pre_digest,
-                 C: int) -> torch.Tensor:
+                 C: int, idx0: int = 0) -> torch.Tensor:
     """Each op's id payload, hashed: int32 ``[B, C, 4]`` digest words
     for ``[B, C]`` op rows of B merges.
 
@@ -406,7 +416,8 @@ def _op_id_words(kind, a_slot, b_slot, b_cols, s_cols, hash_tab, pre_digest,
     ``value_digest10("")``). 51 bytes always, so the SHA runs one
     compression per row, and the ``B * C`` rows of all merges go through
     ONE kernel launch. Device kind codes 0-3 equal the ``OP_TYPES`` type
-    codes by construction."""
+    codes by construction. ``idx0`` offsets the op index: the sharded
+    merge hashes row blocks, block ``j`` with ``idx0 = j * C``."""
     b_sym, b_addr = b_cols[:, 0], b_cols[:, 1]
     s_sym, s_addr = s_cols[:, 0], s_cols[:, 1]
     a_sl = a_slot.long().clamp(0, b_sym.shape[-1] - 1)
@@ -424,7 +435,7 @@ def _op_id_words(kind, a_slot, b_slot, b_cols, s_cols, hash_tab, pre_digest,
         idx = sid.long().clamp(0, cap - 1)[..., None].expand(B, C, 10)
         return torch.where((sid >= 0)[..., None], hash_tab.gather(1, idx), 0)
 
-    idx = torch.arange(C, device=dev)
+    idx = idx0 + torch.arange(C, device=dev)
     idx_be = (torch.stack([idx >> 24, idx >> 16, idx >> 8, idx], dim=1) & 0xFF).to(torch.uint8)
     msg = torch.cat([
         pre_digest[:, None, :].expand(B, C, 16),
@@ -617,6 +628,41 @@ def _fused_diff_program(b_cols, s_cols, hash_tab, dig, C: int) -> torch.Tensor:
     return torch.cat([scalars, k[0], a[0], bs[0], *w[0].unbind(1)])
 
 
+def _fused_merge_sharded(b_blk, l_blk, r_blk, hash_tab, dig_l, dig_r, C: int,
+                         mesh) -> torch.Tensor:
+    """The fused merge with the decl axis sharded over the mesh's ``dp``
+    (the JAX package's ``_fused_merge_sharded_core``): this rank's
+    ``[4, n/k]`` blocks of the three decl column sets in, the merge's
+    int32 ``[8 + 24C]`` one-buffer row out, equal on every rank to the
+    one-device program's. The diff join runs as the distributed
+    sort-join (:func:`.sharded._sharded_diff_slots`); SHA-256 hashes
+    each rank's ``C / k`` op rows through the kernel with their global
+    op indices, and only the digests are gathered; the compose stages
+    run on every rank (their rows are the op capacity, far below the
+    decl axis)."""
+    from .sharded import AXIS, _sharded_diff_slots
+    k, j = mesh.axis_size(AXIS), mesh.axis_index(AXIS)
+    nb, nl, nr = (t.shape[1] * k for t in (b_blk, l_blk, r_blk))
+    kL, aL, bL, nopsL = _sharded_diff_slots(*b_blk[:3], *l_blk[:3], nb, nl, C, mesh)
+    kR, aR, bR, nopsR = _sharded_diff_slots(*b_blk[:3], *r_blk[:3], nb, nr, C, mesh)
+    b_full, l_full, r_full = (mesh.all_gather(t, AXIS, tiled=True, dim=1)
+                              for t in (b_blk, l_blk, r_blk))
+    Tc = C // k
+    mine = slice(j * Tc, (j + 1) * Tc)
+
+    def words(kind, a_slot, b_slot, s_full, dig):
+        w = _op_id_words(kind[None, mine], a_slot[None, mine], b_slot[None, mine],
+                         b_full[None], s_full[None], hash_tab[None], dig[None], Tc,
+                         idx0=j * Tc)
+        return mesh.all_gather(w[0], AXIS, tiled=True)
+
+    wL = words(kL, aL, bL, l_full, dig_l)
+    wR = words(kR, aR, bR, r_full, dig_r)
+    return _compose_and_pack(kL[None], aL[None], bL[None], wL[None], nopsL[None],
+                             kR[None], aR[None], bR[None], wR[None], nopsR[None],
+                             b_full[None], l_full[None], r_full[None], C)[0]
+
+
 # --------------------------------------------------------------------------
 # Batched entry point (the continuous-batching subsystem, ``batch/``)
 # --------------------------------------------------------------------------
@@ -626,20 +672,44 @@ def _fused_diff_program(b_cols, s_cols, hash_tab, dig, C: int) -> torch.Tensor:
 # unbatched dispatch of request i, and padding lanes are inert. PyTorch
 # compiles nothing per bucket shape, so there is no program cache to keep.
 
-def batched_fused_program(B: int, nb: int, nl: int, nr: int, C: int):
+def batched_fused_program(B: int, nb: int, nl: int, nr: int, C: int, mesh=None):
     """The batched fused-merge program for one bucket shape: maps
     ``(b[B,4,nb], l[B,4,nl], r[B,4,nr], hash_tab[B,cap,10], dig_l[B,16],
     dig_r[B,16])`` to the int32 ``[B, 8 + 24C]`` stack of one-buffer
     packed rows, on the inputs' device; other decl shapes raise
-    ``ValueError``."""
-    def prog(b, l, r, hash_tab, dig_l, dig_r):
+    ``ValueError``.
+
+    With ``mesh`` (a :class:`~semantic_merge_tpu_torch.parallel.mesh.
+    BatchMesh` of k devices; ``B`` a multiple of k, as the packer's
+    ``batch_bucket(n, k)`` ladder makes it) lane block ``i`` — lanes
+    ``i·B/k`` to ``(i+1)·B/k`` — runs on the mesh's device ``i``, and
+    the blocks' rows come back to the inputs' device. The lanes are
+    independent and no collective crosses the blocks, so every row
+    equals the single-device program's."""
+    def check(b, l, r):
         shapes = (b.shape, l.shape, r.shape)
         if shapes != ((B, 4, nb), (B, 4, nl), (B, 4, nr)):
             raise ValueError(f"batched fused program {(B, nb, nl, nr, C)}: "
                              f"got shapes {shapes}")
+
+    def prog(b, l, r, hash_tab, dig_l, dig_r):
+        check(b, l, r)
         return _fused_merge_rows(b, l, r, hash_tab, dig_l, dig_r, C)
 
-    return prog
+    if mesh is None:
+        return prog
+    shards = len(mesh.devices)
+    if B % shards:
+        raise ValueError(f"batched fused program: B={B} does not split over {shards} devices")
+
+    def sharded(*arrays):
+        check(*arrays[:3])
+        lanes = B // shards
+        rows = [_fused_merge_rows(*(a[i * lanes:(i + 1) * lanes].to(dev) for a in arrays), C)
+                for i, dev in enumerate(mesh.devices)]
+        return torch.cat([r.to(arrays[0].device) for r in rows])
+
+    return sharded
 
 
 # --------------------------------------------------------------------------
@@ -651,12 +721,23 @@ class FusedMergeEngine:
     device renderer, and the learned op capacity hint that sizes the
     output (256 on a cold engine, as in the JAX package). ``phases``
     holds the seconds of the last call's ``fused``, ``materialize`` and
-    ``render`` steps."""
+    ``render`` steps.
+
+    With ``mesh`` (an engine
+    :class:`~semantic_merge_tpu_torch.parallel.mesh.MergeMesh`) the
+    merge runs :func:`_fused_merge_sharded` over its ``dp`` axis (the
+    engine's device is then the rank's): decl columns pad to
+    ``shard_bucket(n, k)`` and each rank ships its block, the capacity
+    is at least ``8 * k``, the merge never joins a batch, and the op
+    logs render on the host (the device renderer is single-device, as
+    in the JAX package)."""
 
     def __init__(self, interner: Interner, device: torch.device,
-                 host_workers: Optional[int] = None) -> None:
+                 host_workers: Optional[int] = None, mesh=None) -> None:
         self.interner = interner
         self.device = device
+        self.mesh = mesh
+        self._dp = 1 if mesh is None else mesh.axis_size("dp")
         self._tail = TailPipeline(resolve_host_workers(host_workers))
         self.strings = _strings_for(interner, device)
         self._renderer = None
@@ -665,10 +746,17 @@ class FusedMergeEngine:
         self._cap_hint = 256
         self.phases: Dict[str, float] = {}
 
+    def _bucket(self, n: int) -> int:
+        return shard_bucket(n, self._dp) if self._dp > 1 else bucket_size(max(n, 1))
+
     def _device_decl(self, t: DeclTensor, identity=None) -> torch.Tensor:
         """int32 ``[4, bucket]`` (sym, addr, name, file) on the device,
-        reused when ``identity`` names a snapshot shipped before."""
-        return device_decl_columns(t, identity, self.device)
+        reused when ``identity`` names a snapshot shipped before; under a
+        mesh this rank's ``[4, bucket / k]`` block."""
+        if self.mesh is None:
+            return device_decl_columns(t, identity, self.device)
+        return device_decl_columns(t, identity, self.device, self._bucket(t.n),
+                                   (self._dp, self.mesh.axis_index("dp")))
 
     def _digest(self, seed: str, rev: str) -> torch.Tensor:
         return _h2d(np.frombuffer(op_id_prefix_digest(seed, rev), np.uint8), self.device)
@@ -678,9 +766,10 @@ class FusedMergeEngine:
              ) -> Optional[OpStreamView]:
         """The two-way fused diff (``semdiff``): one device pass, one
         fetch, op ids hashed on the device; ``None`` when the capacity
-        retries run out (the caller takes the two-program path).
-        ``keys`` are the two snapshots' identities (or ``None``), under
-        which their device columns are cached."""
+        retries run out (the caller takes the two-program path). Single-
+        device only: under a mesh the backend never calls it, as in the
+        JAX package. ``keys`` are the two snapshots' identities (or
+        ``None``), under which their device columns are cached."""
         t0 = time.perf_counter()
         hash_tab = self.strings.sync()
         dig = self._digest(seed + "/R", base_rev)
@@ -754,9 +843,9 @@ class FusedMergeEngine:
         dev_r = self._device_decl(right_t, keys[2])
         if detailed:
             obs_spans.record("h2d", time.perf_counter() - t0, layer="ops", t_start=t0)
-        batcher = batch_mod.plan_for_request(self.device)
+        batcher = batch_mod.plan_for_request(self.device, eligible=self.mesh is None)
         for _attempt in range(4):
-            C = bucket_size(max(self._cap_hint, 8))
+            C = self._bucket(max(self._cap_hint, 8 * self._dp))
             t0 = time.perf_counter()
             batch_fut = None
             if batcher is not None:
@@ -767,7 +856,10 @@ class FusedMergeEngine:
                 except MergeFault as fault:
                     batch_mod.degrade_or_raise(fault)
                     batcher = None
-            if batch_fut is None:
+            if batch_fut is None and self.mesh is not None:
+                row_dev = _fused_merge_sharded(dev_b, dev_l, dev_r, hash_tab, dig_l, dig_r,
+                                               C, self.mesh)
+            elif batch_fut is None:
                 row_dev = _fused_merge_program(dev_b, dev_l, dev_r, hash_tab, dig_l, dig_r, C)
             if overlap_work is not None:
                 overlap_work()  # rides along with the device's work
@@ -892,6 +984,12 @@ class FusedMergeEngine:
         from .render import DeviceRenderer, render_posture
         posture = render_posture()
         if posture == "off":
+            return False
+        if self.mesh is not None:
+            if posture == "require":
+                from ..errors import KernelFault
+                raise KernelFault("device render is single-device only (mesh "
+                                  "sharding active)", stage="render", cause="mesh")
             return False
         if self._renderer is None:
             self._renderer = DeviceRenderer(self.interner, self.device)

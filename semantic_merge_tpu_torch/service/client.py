@@ -102,15 +102,17 @@ def delegate(argv: Sequence[str]) -> Optional[int]:
     """Run ``argv`` (full CLI argv, ``argv[0]`` the subcommand) on the
     daemon. Returns the exit code, or ``None`` when the invocation
     should proceed in-process (daemon mode off, non-verb command, a
-    setting the port refuses — the CLI then exits 70 before anything is
-    read — or an auto-mode transport failure)."""
+    rank of a several-process job — every rank runs its share of the
+    sharded merge itself — or an auto-mode transport failure)."""
     argv = [str(a) for a in argv]
     if not argv or argv[0] not in protocol.VERBS:
         return None
     if os.environ.get("_SEMMERGE_IN_DAEMON"):
         return None  # belt and suspenders: the daemon never re-delegates
-    from ..config import refused_environment
-    if refused_environment(argv[0]):
+    # The process count of parallel/distributed.py's contract, read here
+    # without importing torch.
+    procs = os.environ.get("SEMMERGE_NUM_PROCESSES") or os.environ.get("JAX_NUM_PROCESSES")
+    if (procs or "1").strip() != "1":
         return None
     fm = fleet_mode()
     if fm in ("auto", "require"):

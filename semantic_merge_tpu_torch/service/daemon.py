@@ -365,10 +365,20 @@ class Daemon:
         # Continuous batching: one process-global micro-batch scheduler
         # on the daemon's device coalesces concurrent requests' fused
         # dispatches. Activated only here — one-shot CLI processes never
-        # batch.
+        # batch. The [engine] mesh posture rides along, so the dispatcher
+        # can split the packed merge axis over the local devices
+        # (SEMMERGE_MESH still wins inside mesh_posture).
         from .. import batch
-        batch.activate(device=self._device)
+        from ..config import load_config
+        from ..parallel.mesh import local_devices, mesh_posture
+        try:
+            mesh_cfg = load_config().engine.mesh
+        except Exception:  # config errors surface per request, not here
+            mesh_cfg = None
+        batch.activate(device=self._device, mesh=mesh_cfg)
         logger.info("batch scheduler on %s", self._device)
+        logger.info("batch dispatch mesh posture: %s (%d local device(s))",
+                    mesh_posture(mesh_cfg), len(local_devices(self._device)))
         for _ in range(self._workers_n):
             threading.Thread(target=self._executor, daemon=True).start()
         if self._repo_ttl > 0:
@@ -1247,7 +1257,8 @@ class Daemon:
         and ``device`` (``platform`` ``gpu`` or ``cpu``, ``kind`` the
         card's name, ``launches`` the hand kernels' launches so far)."""
         from ..frontend.declcache import global_cache
-        decl = global_cache().stats()
+        cache = global_cache()
+        decl = cache.stats() if cache is not None else {}
         hits = decl.get("hits", 0)
         lookups = hits + decl.get("misses", 0)
         with self._state_lock:

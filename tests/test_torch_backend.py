@@ -21,7 +21,8 @@
 - Without a card and without ``--device cpu`` a name that runs the port's
   engine still exits 2 (``semdiff``) or 11 (``semmerge``): ``host`` does
   not mean the CPU.
-- ``config.resolve_backend`` and ``config.refused_settings`` directly.
+- ``config.resolve_backend`` directly (the port refuses no setting any
+  more: the mesh runs).
 """
 import shutil
 import subprocess
@@ -31,7 +32,7 @@ import pytest
 import torch
 
 from semantic_merge_tpu_torch import cli
-from semantic_merge_tpu_torch.config import load_config, refused_settings, resolve_backend
+from semantic_merge_tpu_torch.config import load_config, resolve_backend
 
 from test_torch_service import (REPOS, WAIT, _env, make_repo, notes, start_daemon, status,
                                 stop, tree_bytes, wait_for_hello)
@@ -219,5 +220,3 @@ def test_resolve_backend_puts_the_flag_over_the_key(tmp_path, monkeypatch, caplo
         assert resolve_backend(config, flag) == want
     warned = [r.getMessage() for r in caplog.records if "falling back to host" in r.getMessage()]
     assert bool(warned) == ((flag or key) == UNKNOWN)
-    # No engine name is refused: every one runs.
-    assert refused_settings(config, "semmerge") == []

@@ -30,6 +30,10 @@
   (and its own package), and importing it loads neither torch nor JAX;
   the op factory is the port's own build of its own copy of the C
   source, never the JAX package's ``native/`` extension.
+- The multi-device modules (``parallel/mesh.py``,
+  ``parallel/distributed.py``, ``ops/sharded.py``, the sharded parts of
+  ``ops/fused.py`` and ``batch/dispatcher.py``) are among them and
+  import torch.
 - Without a CUDA device the CLI's three commands and ``train-matcher``
   (without ``--device cpu``) and
   ``chip_smoke.py`` exit non-zero and say why; neither carries on on
@@ -287,6 +291,23 @@ def test_slice15_modules_are_checked_and_stand_alone(module):
     if module.startswith("scripts/"):
         assert roots <= set(sys.stdlib_module_names) | {"__future__"}, roots
     assert (PORT / "frontend" / "opfactory.c").is_file()
+
+
+#: The multi-device modules: the meshes and the process
+#: group, the sharded programs, the fused engine's sharded variant and
+#: the batch dispatcher's mesh. Each imports torch, never JAX.
+MESH_MODULES = ("parallel/mesh.py", "parallel/distributed.py", "ops/sharded.py",
+                "ops/fused.py", "batch/dispatcher.py")
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    roots = _imported_roots(path)
+    assert "torch" in roots and not roots & set(FORBIDDEN), roots
+    text = path.read_text()
+    assert "semantic_merge_tpu." not in text.replace("semantic_merge_tpu_torch.", "")
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO_ROOT)))

@@ -310,9 +310,12 @@ def test_exit_codes_are_the_jax_packages():
                                  for name in errors.EXIT_CODES}
     assert set(errors.EXIT_CODES) == {"ParseFault", "KernelFault", "WorkerFault",
                                       "ApplyFault", "FormatFault", "DeadlineFault",
-                                      "BatchFault", "ResolveFault", "FleetFault",
-                                      "TransportFault"}
-    assert errors.UnsupportedSetting.exit_code == 70
+                                      "BatchFault", "ResolveFault", "MeshFault",
+                                      "FleetFault", "TransportFault"}
+    # No setting is refused any more: the mesh runs (MeshFault, exit 18),
+    # and an unclassified fault keeps the JAX package's code.
+    assert errors.MeshFault.exit_code == 18
+    assert errors.MergeFault.exit_code == jax_errors.MergeFault.exit_code == 70
 
 
 @pytest.mark.parametrize("stage", sorted(errors.STAGE_FAULTS))

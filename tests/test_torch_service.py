@@ -854,17 +854,16 @@ def test_device_faults_never_feed_the_breaker(world, tmp_path, monkeypatch):
 
 # --- refusals and the device contract --------------------------------------------------------
 
-REFUSED = {
-    "mesh_require": (["semdiff", "basebr", "brA"], {"SEMMERGE_MESH": "require"}),
-}
-#: Forms refused until the port had the live tools and the fleet: each
-#: now gives the JAX CLI's answer for the same argv and environment
-#: (``off``: the JAX client would spawn a daemon of its own under
-#: ``require``). The ``serve`` fleet flags ask for ``--status``, which
-#: reads nothing and starts nothing (without it both CLIs would serve);
-#: ``fleet_require`` runs both packages' entry points, where the client
-#: reads the posture before the CLI.
+#: Forms refused until the port had the live tools, the fleet and the
+#: mesh: each now gives the JAX CLI's answer for the same argv and
+#: environment (``off``: the JAX client would spawn a daemon of its own
+#: under ``require``). The ``serve`` fleet flags ask for ``--status``,
+#: which reads nothing and starts nothing (without it both CLIs would
+#: serve); ``fleet_require`` runs both packages' entry points, where the
+#: client reads the posture before the CLI.
 PORTED = {
+    "mesh_require": (["semdiff", "basebr", "brA"], {"SEMMERGE_MESH": "require",
+                                                    "SEMMERGE_DAEMON": "off"}),
     "otlp": (["semdiff", "basebr", "brA"], {"SEMMERGE_OTLP": "http://127.0.0.1:4318",
                                             "SEMMERGE_DAEMON": "off"}),
     "top": (["top", "--once"], {}),
@@ -882,7 +881,7 @@ PORTED = {
     "profile_tcp": (["profile", "--daemon", "--socket", "tcp://127.0.0.1:1"], {}),
 }
 #: The exit each ported form gives with nothing to read (both CLIs).
-PORTED_CODES = {"otlp": 3, "fleet_require": 19}
+PORTED_CODES = {"otlp": 3, "fleet_require": 19, "mesh_require": 3}
 
 
 @pytest.fixture
@@ -895,23 +894,26 @@ def gc_state():
     gc.set_threshold(*threshold)
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(PORTED))
+@pytest.mark.parametrize("name", sorted(PORTED))
 def test_refused_settings_exit_70_before_reading(name, tmp_path, monkeypatch, capsys,
                                                  gc_state):
-    """The refused settings exit 70 before anything is read. The forms
-    of ``PORTED`` exit as the JAX CLI does for the same argv and
-    environment, with its stdout, reading nothing: ``top``, ``profile``,
+    """No setting is refused any more. The forms of ``PORTED`` exit as
+    the JAX CLI does for the same argv and environment, with its stdout,
+    reading nothing: ``top``, ``profile``,
     ``serve --status`` (the fleet flags too), ``stats --fleet`` (no
     trace artifact) and ``stats --daemon --fleet`` with no daemon exit 1
     with its stderr, ``SEMMERGE_FLEET=require`` with no router 19 with
     its stderr, ``semdiff`` with ``SEMMERGE_OTLP`` outside a repository
     exits 3 (inside one, its bytes are the JAX CLI's:
-    ``tests/test_torch_export.py``)."""
-    argv, env = REFUSED.get(name) or PORTED[name]
+    ``tests/test_torch_export.py``), and so does ``semdiff`` under
+    ``SEMMERGE_MESH=require`` (the port's one process falls back to the
+    host engine, the JAX CLI's eight test devices make a mesh; the mesh
+    CLI runs: ``tests/test_torch_mesh_cli.py``)."""
+    argv, env = PORTED[name]
     monkeypatch.chdir(tmp_path)  # nothing there to read
     for key in [k for k in os.environ if k.startswith("SEMMERGE_")]:
         monkeypatch.delenv(key)
-    monkeypatch.setenv("SEMMERGE_DAEMON", "require")  # refused before any delegation
+    monkeypatch.setenv("SEMMERGE_DAEMON", "require")
     monkeypatch.setenv("SEMMERGE_SERVICE_SOCKET", str(tmp_path / "none.sock"))
     for key, value in env.items():
         monkeypatch.setenv(key, value)
@@ -919,20 +921,17 @@ def test_refused_settings_exit_70_before_reading(name, tmp_path, monkeypatch, ca
     device = ["--device", "cpu"] if argv[0] in protocol.VERBS else []
     code = cli.main([*argv, *device])
     out, err = capsys.readouterr()
-    if name in REFUSED:
-        assert code == 70 and "not implemented by this port" in err
+    # The JAX package's entry point: its client reads SEMMERGE_FLEET
+    # before its CLI (the port's main delegates the same way).
+    from semantic_merge_tpu import __main__ as jax_main
+    jax_code = jax_main._main(argv)
+    jax_out, jax_err = capsys.readouterr()
+    assert (code, out) == (jax_code, jax_out) and code == PORTED_CODES.get(name, 1)
+    if name in ("otlp", "mesh_require"):
+        assert err.splitlines()[-1] == jax_err.splitlines()[-1]
     else:
-        # The JAX package's entry point: its client reads SEMMERGE_FLEET
-        # before its CLI (the port's main delegates the same way).
-        from semantic_merge_tpu import __main__ as jax_main
-        jax_code = jax_main._main(argv)
-        jax_out, jax_err = capsys.readouterr()
-        assert (code, out) == (jax_code, jax_out) and code == PORTED_CODES.get(name, 1)
-        if name == "otlp":
-            assert err.splitlines()[-1] == jax_err.splitlines()[-1]
-        else:
-            assert err == jax_err and err.startswith(
-                "semmerge" if name.startswith(("serve", "fleet")) else "error: ")
+        assert err == jax_err and err.startswith(
+            "semmerge" if name.startswith(("serve", "fleet")) else "error: ")
     assert list(tmp_path.iterdir()) == []
 
 

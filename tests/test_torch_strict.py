@@ -470,8 +470,12 @@ REFUSED = {
     "batch_require": ("", {"SEMMERGE_BATCH": "require"}, "SEMMERGE_BATCH=require"),
 }
 #: Settings the port now runs, as the JAX CLI does (they were refused
-#: before it had the C-family engines and the worker seam).
-NOW_RUN = frozenset({"java_enabled", "csharp_enabled", "cs_enabled", "subprocess_backend"})
+#: before it had the C-family engines and the worker seam, and the mesh:
+#: ``require`` with one process gives the JAX CLI's answers on one
+#: device — the environment's merges on the host engine, the config's
+#: exits 18 with MeshFault).
+NOW_RUN = frozenset({"java_enabled", "csharp_enabled", "cs_enabled", "subprocess_backend",
+                     "mesh_require", "env_mesh_require"})
 #: Postures the merge service now serves: outside it they still fail
 #: before the tree is touched, with their own codes — ``require`` with
 #: no daemon on the socket exits 12 (WorkerFault), ``SEMMERGE_BATCH=
@@ -519,15 +523,14 @@ def test_refused_setting_exits_before_touching_the_tree(tmp_path, monkeypatch, c
     monkeypatch.setenv("SEMMERGE_SERVICE_RETRIES", "0")
     monkeypatch.setattr(service_client, "_spawn_daemon", lambda path, device=None: _DeadProc())
     if name in NOW_RUN:
-        _matches_the_jax_cli(tmp_path, repo, monkeypatch, capsys)
+        _matches_the_jax_cli(tmp_path, repo, monkeypatch, capsys, env)
         return
     monkeypatch.chdir(repo)
     code = cli.main(["semmerge", "basebr", "branch-a", "branch-b", "--inplace",
                      "--device", "cpu"])
     err = capsys.readouterr().err
-    want_code, want_text = SERVED.get(name, (70, "UnsupportedSetting"))
-    assert code == want_code
-    assert want_text in err and (named in err or name in SERVED)
+    want_code, want_text = SERVED[name]
+    assert code == want_code and want_text in err
     if name == "batch_require":  # a typed fault's escape leaves its postmortem bundle
         (bundle,) = (repo / ".semmerge-postmortem").glob("*.json")
         assert json.loads(bundle.read_text())["reason"] == "fault-escape"
@@ -537,15 +540,17 @@ def test_refused_setting_exits_before_touching_the_tree(tmp_path, monkeypatch, c
         assert cli.main(["semdiff", "basebr", "branch-a", "--device", "cpu"]) == want_code
 
 
-def _matches_the_jax_cli(tmp_path, repo, monkeypatch, capsys):
+def _matches_the_jax_cli(tmp_path, repo, monkeypatch, capsys, extra_env=()):
     """``semmerge --inplace`` then ``semdiff`` in ``repo`` (in process)
-    and in a copy of it through the JAX CLI: the same exit codes,
-    stdout, work trees, ``git status`` and notes after each."""
+    and in a copy of it through the JAX CLI (on one CPU device, with the
+    case's ``extra_env``): the same exit codes, stdout, work trees,
+    ``git status`` and notes after each."""
     jax_repo = tmp_path / "jax"
     shutil.copytree(repo, jax_repo)
     env = {k: v for k, v in os.environ.items()
            if k != "XLA_FLAGS" and not k.startswith("SEMMERGE_")}
-    env.update(PYTHONPATH=str(REPO_ROOT), JAX_PLATFORMS="cpu", SEMMERGE_DAEMON="off")
+    env.update(PYTHONPATH=str(REPO_ROOT), JAX_PLATFORMS="cpu", SEMMERGE_DAEMON="off",
+               **dict(extra_env))
     monkeypatch.chdir(repo)
     for argv in (["semmerge", "basebr", "branch-a", "branch-b", "--inplace"],
                  ["semdiff", "basebr", "branch-a"]):
@@ -555,10 +560,25 @@ def _matches_the_jax_cli(tmp_path, repo, monkeypatch, capsys):
         code = cli.main([*argv, "--device", "cpu"])
         out = capsys.readouterr().out
         assert (code, out) == (want.returncode, want.stdout), want.stderr
-        assert _tree_bytes(repo) == _tree_bytes(jax_repo)
-        assert _git_status(repo) == _git_status(jax_repo)
+        assert _outcome_tree(repo) == _outcome_tree(jax_repo)
+        assert _outcome_status(repo) == _outcome_status(jax_repo)
         assert [_notes(repo, r) for r in ("branch-a", "branch-b")] == \
             [_notes(jax_repo, r) for r in ("branch-a", "branch-b")]
+
+
+def _outcome_tree(root):
+    """The work tree's bytes, each postmortem bundle (named by its run's
+    trace id) read as its ``reason`` alone."""
+    tree = _tree_bytes(root)
+    bundles = sorted(json.loads(tree.pop(k))["reason"] for k in list(tree)
+                     if k.startswith(".semmerge-postmortem/"))
+    return tree, bundles
+
+
+def _outcome_status(root):
+    """``git status``, a postmortem bundle's line without its trace id."""
+    return [line.split(b"/")[0] if b".semmerge-postmortem/" in line else line
+            for line in _git_status(root).splitlines()]
 
 
 @pytest.mark.parametrize("backend", ["host", "bogus"])
@@ -566,7 +586,7 @@ def test_unrefused_settings_keep_their_meaning(tmp_path, monkeypatch, backend):
     """Values that select what the port does are not refused; a backend
     name the JAX package does not know falls back to host there, and runs
     as host here."""
-    from semantic_merge_tpu_torch.config import load_config, refused_settings, resolve_backend
+    from semantic_merge_tpu_torch.config import load_config, resolve_backend
     (tmp_path / ".semmerge.toml").write_text(
         f'[engine]\nbackend = "{backend}"\nmesh = "off"\n[languages.typescript]\n'
         "enabled = true\n[languages.java]\nenabled = false\n")
@@ -574,7 +594,6 @@ def test_unrefused_settings_keep_their_meaning(tmp_path, monkeypatch, backend):
     monkeypatch.delenv("SEMMERGE_BATCH", raising=False)
     monkeypatch.setenv("SEMMERGE_RESOLVE", "off")
     monkeypatch.setenv("SEMMERGE_MESH", "auto")
-    assert refused_settings(config, "semmerge") == []
+    assert config.engine.mesh == "off" and config.engine.mesh_shape == "auto"
     monkeypatch.setenv("SEMMERGE_RESOLVE", "auto")
-    assert refused_settings(config, "semdiff") == []
     assert resolve_backend(config) == "host"
