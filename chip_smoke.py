@@ -185,6 +185,27 @@ Phases, each fatal on failure, each printing its seconds:
    JAX CLI does on one device. (The service phase checks that the
    daemon's batch mesh reports posture ``auto`` and single-device
    fallbacks.) Prints the phase's seconds and the card.
+5e. mesh model: the matcher's training step at full width (the default
+   ``EncoderConfig``, ``train-matcher``'s batch 32 and sequence 64) from
+   one set of seeded weights over three batches of its stream: on one
+   device (soft and top-k: 8 ``flash_chunk`` and 8 ``flash_chunk_bwd``
+   launches a step); ``make_sharded_train_step`` at k = 1 over an
+   explicit one-rank NCCL group (the one-device losses exactly); and at
+   k = 2 in one pair of child processes (``--mesh-model-rank``) joined
+   over gloo on ``cuda:0``, which take three steps on each mesh in turn:
+   ``sp=2`` ring (16 + 16 launches a step: two ring steps each way),
+   ``sp=2`` Ulysses, ``dp=2``, ``tp=2``, ``pp=2``, ``ep=2`` with
+   ``moe_mode="topk"`` (8 + 8), each loss within 2e-2 of the one-device
+   step's and the same on both ranks. On the ring's mesh, first, the
+   ring's output and dq, dk, dv through the kernels against the plain
+   ring on the same CUDA tensors. Then ``train-matcher --steps 20`` as
+   two ranks (``dp=2``): rank 0 prints the JAX CLI's line, rank 1
+   nothing, and rank 0's checkpoint loads in a one-device
+   ``EmbeddingSignatureMatcher``. Every kernel shape the phase launched
+   that the kernels phase did not hold is held against its plain
+   version here. Prints per mesh the ms per step, the collectives'
+   share of the wall and the launches, beside the card's name and
+   power limit.
 6. driver merge (not in-process): ``git merge --no-ff drv`` on side in
    a clone of the rung3 repository, with ``python -m semantic_merge_tpu_torch.driver %O %A %B
    %P`` registered as ``merge.semmerge.driver`` for ``*.ts`` in
@@ -1187,7 +1208,7 @@ class TrainWatch:
 class TrainSplit:
     """Host time of each part of a training step, from outside the
     package: for the life of the ``with`` it wraps the training loop's
-    seams (the batch stream, ``training._on_device``, ``train_step``,
+    seams (the batch stream, ``training.batch_on``, ``train_step``,
     ``matcher.loss_fn``, ``Tensor.backward``, the optimizer's ``step``,
     ``training._save``) and sums the host clock of each part over the
     steps of ``window`` (the batch and its h2d copy count for the step
@@ -1233,7 +1254,7 @@ class TrainSplit:
     def __enter__(self):
         tr, mt, tensor = self.training, self.matcher, self.torch.Tensor
         self._restore = [(tr, k, getattr(tr, k)) for k in (
-            "batches", "_on_device", "_save", "optimizer", "train_step")]
+            "batches", "batch_on", "_save", "optimizer", "train_step")]
         self._restore += [(mt, "loss_fn", mt.loss_fn), (tensor, "backward", tensor.backward)]
         batches, make_optimizer, train_step = tr.batches, tr.optimizer, tr.train_step
 
@@ -1258,7 +1279,7 @@ class TrainSplit:
             return out
 
         tr.batches, tr.optimizer, tr.train_step = timed_batches, optimizer, step
-        tr._on_device = self._timed("h2d", tr._on_device)
+        tr.batch_on = self._timed("h2d", tr.batch_on)
         tr._save = self._timed("checkpoint", tr._save, after=True)
         mt.loss_fn = self._timed("forward", mt.loss_fn)
         tensor.backward = self._timed("backward", tensor.backward)
@@ -1393,7 +1414,7 @@ def run_train_phase(torch, work: pathlib.Path) -> tuple:
     encoder = Encoder(cfg.matcher.encoder, generator=torch.Generator().manual_seed(cfg.seed))
     opt = optimizer(encoder, cfg.matcher)
     stream = training.batches(cfg)
-    cpu = [float(train_step(encoder, opt, training._on_device(next(stream), torch.device("cpu")),
+    cpu = [float(train_step(encoder, opt, training.batch_on(next(stream), torch.device("cpu")),
                             cfg.matcher)) for _ in range(3)]
     worst = max(abs(a - b) for a, b in zip(cpu, curve[:3]))
     print(f"train-matcher: first 3 losses on the card {[round(x, 6) for x in curve[:3]]}, "
@@ -4594,6 +4615,342 @@ def run_mesh_phase(torch, captured, compose_in, batched, rung3: pathlib.Path,
     return out
 
 
+# --- the mesh model (phase 5e) -----------------------------------------------------
+
+#: The mesh model phase's own budget.
+MESH_MODEL_BUDGET_S = 90.0
+#: The two-rank meshes of phase 5e, in the children's order: (label, the
+#: axis of size 2, the encoder config's changes).
+MESH_MODELS = (("sp2_ring", "sp", {}), ("sp2_ulysses", "sp", {"attn_mode": "ulysses"}),
+               ("dp2", "dp", {}), ("tp2", "tp", {}), ("pp2", "pp", {}),
+               ("ep2_topk", "ep", {"moe_mode": "topk"}))
+MESH_MODEL_STEPS = 3
+#: The sharded steps' losses against the one-device port's on the card.
+MESH_MODEL_LOSS_TOL = 2e-2
+#: The collectives of a mesh, timed one by one between synchronisations.
+MESH_COLLECTIVES = ("all_gather", "_reduce", "_a2a_raw", "_bcast_raw", "_shift_raw")
+
+
+def model_inputs(torch) -> tuple:
+    """The full-width matcher's seeded initial weights (seed 0) and the
+    first batches of ``train-matcher``'s stream (batch 32, seq 64)."""
+    from semantic_merge_tpu_torch.models.encoder import Encoder, EncoderConfig
+    from semantic_merge_tpu_torch.models.training import TrainConfig, batches
+    encoder = Encoder(EncoderConfig(), generator=torch.Generator().manual_seed(0))
+    stream = batches(TrainConfig())
+    return ({k: v.detach().clone() for k, v in encoder.state_dict().items()},
+            [next(stream) for _ in range(MESH_MODEL_STEPS)])
+
+
+def model_steps(torch, state: dict, batches: list, changes: dict, mesh=None) -> dict:
+    """``MESH_MODEL_STEPS`` training steps at full width from ``state`` on
+    the card: one device (``mesh`` None) through ``train_step``, else this
+    rank's shards through ``make_sharded_train_step``. Per step: the
+    loss, the host wall to a synchronise, each kernel's launches (the
+    wrappers' counts, set to 0 just before the step) and, on a mesh of
+    several ranks, the time inside its collectives (each timed between
+    two synchronisations, gloo's host staging included)."""
+    from semantic_merge_tpu_torch import kernels
+    from semantic_merge_tpu_torch.models.encoder import Encoder, EncoderConfig
+    from semantic_merge_tpu_torch.models.matcher import (MatcherConfig, batch_on,
+                                                         make_sharded_train_step, optimizer,
+                                                         shard_state, train_step)
+
+    cfg = MatcherConfig(encoder=EncoderConfig(**changes))
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    encoder = Encoder(cfg.encoder, mesh=mesh).to(dev)
+    encoder.load_state_dict(shard_state(state, mesh) if mesh is not None else state)
+    opt = optimizer(encoder, cfg)
+    if mesh is None:
+        def step(enc, opt_, batch):
+            return train_step(enc, opt_, batch_on(batch, dev), cfg)
+    else:
+        step = make_sharded_train_step(cfg, mesh)
+    spent = [0.0]
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t0
+        return wrapper
+
+    sharded = mesh is not None and mesh.layout.size > 1
+    for name in MESH_COLLECTIVES if sharded else ():
+        setattr(mesh, name, timed(getattr(mesh, name)))
+    steps = []
+    try:
+        for batch in batches:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            loss = float(step(encoder, opt, batch))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps.append({"loss": loss, "ms": wall * 1e3,
+                          "collective_ms": spent[0] * 1e3 if sharded else 0.0,
+                          "launches": {k: kernels.LAUNCHES[k] for k in
+                                       ("flash_chunk", "flash_chunk_bwd", "sha256")},
+                          "shapes": {k: [list(s) for s in kernels.LAUNCH_SHAPES[k]]
+                                     for k in ("flash_chunk", "flash_chunk_bwd")}})
+            kernels.reset_launches()
+    finally:
+        for name in MESH_COLLECTIVES if sharded else ():
+            delattr(mesh, name)
+    # Steady steps: the first pays the card's and the kernels' first use.
+    steady = steps[1:]
+    ms = sorted(s["ms"] for s in steady)[len(steady) // 2]
+    return {"losses": [s["loss"] for s in steps], "ms_per_step": ms,
+            "collective_share": (sum(s["collective_ms"] for s in steady)
+                                 / sum(s["ms"] for s in steady)) if sharded else 0.0,
+            "launches_per_step": [s["launches"] for s in steps],
+            "shapes": sorted({(k, tuple(shape)) for s in steps
+                              for k, shapes in s["shapes"].items() for shape in shapes})}
+
+
+def ring_check(torch, mesh) -> dict:
+    """The ring over ``sp`` at the training shape (B 32, L 64 cut in two,
+    H 8, Dh 32, bf16; a row whose second half, this ring's second chunk,
+    is padding and a row with every key masked), on this rank's block:
+    its output and dq, dk, dv through the kernels against the plain ring
+    (the same ring through the ``_plain`` functions) on the same CUDA
+    tensors: out within atol/rtol 1e-2 (bf16); each gradient element
+    sums k launches' bf16 results, so within the sum of their tolerances,
+    ``k * TOL_BWD + TOL_BWD * sum_i |plain step i|`` (the magnitudes from
+    the plain ring run on absolute values). Fails on a difference;
+    returns the max abs errors and the largest share of the tolerance."""
+    from semantic_merge_tpu_torch.parallel.flash import (flash_attention_backward_plain,
+                                                         flash_chunk_attention_plain)
+    from semantic_merge_tpu_torch.parallel.ring import ring_attention, ring_backward, ring_forward
+
+    b, L, h, dh = 32, 64, 8, 32
+    g = torch.Generator(device="cuda").manual_seed(17)  # the same global tensors on every rank
+    q, k, v, do = (torch.randn(b, L, h, dh, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    lengths = torch.randint(1, L + 1, (b,), device="cuda", generator=g)
+    mask = torch.arange(L, device="cuda")[None, :] < lengths[:, None]
+    mask[0, L // 2:] = False
+    mask[1] = False
+    n, j = mesh.axis_size("sp"), mesh.axis_index("sp")
+    lo, hi = j * L // n, (j + 1) * L // n
+    block = [t[:, lo:hi].contiguous() for t in (q, k, v, mask, do)]
+    leaves = [t.clone().requires_grad_() for t in block[:3]]
+    out = ring_attention(*leaves, block[3], mesh)
+    out.backward(block[4])
+    kernel_run = [out.detach().float()] + [t.grad.float() for t in leaves]
+    qb, kb, vb, mb, dob = block
+
+    def shift(tensors):
+        return mesh.ring_shift(tensors, "sp")
+
+    # The plain ring, rounded to the dtypes the ring returns.
+    o, m, l = ring_forward(qb, kb, vb, mb, n, shift, flash_chunk_attention_plain)
+    grads = ring_backward(qb, kb, vb, mb, m, l, o, dob, n, shift,
+                          flash_attention_backward_plain)
+    plain_run = [t.to(torch.bfloat16).float() for t in (o, *grads)]
+    mags = ring_backward(qb, kb, vb, mb, m, l, o, dob, n, shift, lambda *args: tuple(
+        t.abs() for t in flash_attention_backward_plain(*args)))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want, mag in zip(("out", "dq", "dk", "dv"), kernel_run, plain_run,
+                                   (None, *mags)):
+        tol = (1e-2 + 1e-2 * want.abs() if mag is None else n * TOL_BWD + TOL_BWD * mag)
+        err = (got - want).abs()
+        if not torch.isfinite(got).all():
+            fail(f"the ring's {name} on rank {mesh.rank}: non-finite values")
+        if bool((err > tol).any()):
+            fail(f"the ring's {name} on rank {mesh.rank}: max abs err {err.max().item():.3e} "
+                 f"against the plain ring, beyond its tolerance at {int((err > tol).sum())} "
+                 "elements")
+        errs[name] = {"max_abs_err": err.max().item(), "tol_share": (err / tol).max().item()}
+    return errs
+
+
+def mesh_model_child(inputs_path: str) -> int:
+    """One rank of phase 5e's two-rank group (``--mesh-model-rank PATH``):
+    joins the group through the port's ``init_distributed`` with the
+    ``SEMMERGE_*`` contract, then on each mesh of :data:`MESH_MODELS` in
+    turn (the same order on both ranks) runs :func:`model_steps` from
+    the pickled weights and batches, with :func:`ring_check` first on
+    the ring's mesh; prints one ``MESH_MODEL_RESULT`` JSON line."""
+    import pickle
+
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+
+    from semantic_merge_tpu_torch import kernels
+    from semantic_merge_tpu_torch.parallel.distributed import init_distributed, world
+    from semantic_merge_tpu_torch.parallel.mesh import build_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed()
+    rank, size = world()
+    with open(inputs_path, "rb") as fh:
+        state, batches = pickle.load(fh)
+    out = {"rank": rank, "size": size, "backend": dist.get_backend(), "meshes": {}}
+    for label, axis, changes in MESH_MODELS:
+        mesh = build_mesh(**{a: (size if a == axis else 1) for a in ("dp", "pp", "sp", "tp", "ep")})
+        if label == "sp2_ring":
+            out["ring_check"] = ring_check(torch, mesh)
+            kernels.reset_launches()
+        out["device"] = str(mesh.device)
+        out["meshes"][label] = model_steps(torch, state, batches, changes, mesh)
+    print("MESH_MODEL_RESULT " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _check_model_run(label: str, run: dict, want_losses: list, ring_steps: int = 1,
+                     exact: bool = False) -> None:
+    """The losses against the one-device steps' (``exact``: equal), and
+    each kernel's launches a step: 8 (4 layers x 2 towers) at one ring
+    step, 8k on a ring of k steps."""
+    for i, (got, want) in enumerate(zip(run["losses"], want_losses)):
+        if exact and got != want:
+            fail(f"{label}: step {i + 1}'s loss {got!r} is not the one-device step's {want!r}")
+        if not abs(got - want) <= MESH_MODEL_LOSS_TOL:
+            fail(f"{label}: step {i + 1}'s loss {got} is not within {MESH_MODEL_LOSS_TOL} of "
+                 f"the one-device step's {want}")
+    n = 8 * ring_steps
+    for i, launches in enumerate(run["launches_per_step"]):
+        if (launches["flash_chunk"], launches["flash_chunk_bwd"], launches["sha256"]) != (n, n, 0):
+            fail(f"{label}: step {i + 1} launched {launches}, expected flash_chunk {n}, "
+                 f"flash_chunk_bwd {n}, sha256 0")
+
+
+def run_mesh_model_phase(torch, card: str, checked_shapes: set) -> dict:
+    """Phase 5e (see the module docstring). ``checked_shapes``: the
+    (kernel, shape) pairs the kernels phase already held against their
+    plain versions; every other shape this phase launched is held here."""
+    import pickle
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from semantic_merge_tpu_torch.models.signature import EmbeddingSignatureMatcher
+    from semantic_merge_tpu_torch.models.training import saved_steps
+    from semantic_merge_tpu_torch.parallel import flash
+    from semantic_merge_tpu_torch.parallel.mesh import build_mesh
+
+    t_phase = time.perf_counter()
+    state, batches = model_inputs(torch)
+    one = {"soft": model_steps(torch, state, batches, {}),
+           "topk": model_steps(torch, state, batches, {"moe_mode": "topk"})}
+    for name, run in one.items():
+        _check_model_run(f"one device ({name})", run, run["losses"])
+    out = {"one_device": one}
+
+    # a. k = 1 over an explicit one-rank NCCL group: the sharded step with
+    # size-1 axes runs the one-device step's operations.
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh1 = build_mesh(dp=1, pp=1, sp=1, tp=1, ep=1, device="cuda:0")
+        out["k1"] = model_steps(torch, state, batches, {}, mesh1)
+        out["k1_backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    _check_model_run("k = 1 (one-rank NCCL group)", out["k1"], one["soft"]["losses"],
+                     exact=True)
+
+    # b. Two gloo ranks on cuda:0: one pair of children through every mesh.
+    path = WORK / "mesh_model_inputs.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump((state, batches), fh)
+    contract = dict(os.environ, SEMMERGE_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                    SEMMERGE_NUM_PROCESSES="2", SEMMERGE_DAEMON="off")
+    t0 = time.perf_counter()
+    procs = [started(subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--mesh-model-rank", str(path)], cwd=WORK,
+        env=dict(contract, SEMMERGE_PROCESS_ID=str(rank)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for rank in range(2)]
+    ranks = []
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=300)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("MESH_MODEL_RESULT ")]
+        if proc.returncode != 0 or not lines:
+            fail(f"a mesh model rank exited {proc.returncode}: {stderr[-3000:]}")
+        ranks.append(json.loads(lines[-1][len("MESH_MODEL_RESULT "):]))
+    out["k2_wall_s"] = time.perf_counter() - t0
+    for got in ranks:
+        if (got["size"], got["backend"], got["device"]) != (2, "gloo", "cuda:0"):
+            fail(f"mesh model rank {got['rank']}: {got['size']} ranks over {got['backend']} "
+                 f"on {got['device']}, expected 2 over gloo on cuda:0")
+        for label, _axis, changes in MESH_MODELS:
+            want = one["topk" if changes.get("moe_mode") == "topk" else "soft"]["losses"]
+            _check_model_run(f"{label} (rank {got['rank']})", got["meshes"][label], want,
+                             ring_steps=2 if label == "sp2_ring" else 1)
+    for label, _axis, _changes in MESH_MODELS:
+        if ranks[0]["meshes"][label]["losses"] != ranks[1]["meshes"][label]["losses"]:
+            fail(f"{label}: the two ranks' losses differ (each must be the global batch's)")
+    out["ring_check"] = {f"rank{got['rank']}": got["ring_check"] for got in ranks}
+    out["k2"] = ranks[0]["meshes"]
+
+    # c. train-matcher --steps 20 as two ranks (dp = 2); rank 0's
+    # checkpoint in a one-device signature matcher.
+    ckpt = WORK / "mesh_model_ckpt"
+    contract = dict(os.environ, PYTHONPATH=str(REPO), SEMMERGE_DAEMON="off",
+                    SEMMERGE_COORDINATOR=f"127.0.0.1:{_free_port()}", SEMMERGE_NUM_PROCESSES="2")
+    t0 = time.perf_counter()
+    procs = [started(subprocess.Popen(
+        [sys.executable, "-m", "semantic_merge_tpu_torch", "train-matcher", "--steps", "20",
+         "--ckpt-every", "20", "--ckpt-dir", str(ckpt)], cwd=WORK,
+        env=dict(contract, SEMMERGE_PROCESS_ID=str(rank)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for rank in range(2)]
+    cli = [proc.communicate(timeout=300) + (proc.returncode,) for proc in procs]
+    out["cli_wall_s"] = time.perf_counter() - t0
+    for rank, (_stdout, stderr, code) in enumerate(cli):
+        if code != 0 or f"process {rank}/2" not in stderr:
+            fail(f"the two-rank train-matcher's rank {rank} exited {code}: {stderr[-3000:]}")
+    if not re.fullmatch(rf"trained 20 steps, final loss \d+\.\d{{4}}, checkpoints in "
+                        rf"{re.escape(str(ckpt))}\n", cli[0][0]) or cli[1][0]:
+        fail(f"the two-rank train-matcher printed {cli[0][0]!r} (rank 0) and {cli[1][0]!r} "
+             "(rank 1)")
+    if [s for s, _ in saved_steps(ckpt)] != [20]:
+        fail(f"the two-rank train-matcher saved steps {saved_steps(ckpt)}, expected [20]")
+    matcher = EmbeddingSignatureMatcher(ckpt_dir=str(ckpt))
+    z = matcher.embed_texts([f"export function f{i}(x: number): number {{ return x + {i}; }}"
+                             for i in range(4)])
+    if not matcher.trained or z.shape != (4, 256) or not np.isfinite(z).all():
+        fail(f"rank 0's checkpoint did not load in a one-device matcher (trained "
+             f"{matcher.trained}, embeddings {z.shape})")
+    out["cli"] = {"stdout": cli[0][0].strip(), "matcher_device": str(matcher.device)}
+
+    # d. Every kernel shape this phase launched, against its plain version.
+    shapes = {(k, tuple(s)) for run in (*one.values(), out["k1"], *out["k2"].values())
+              for k, s in run["shapes"]} - checked_shapes
+    errs = {}
+    for i, (kernel, (b, lq, lk, h, dh)) in enumerate(sorted(shapes)):
+        if kernel == "flash_chunk":
+            err = _flash_error(torch, flash, _attention_inputs(
+                torch, b, lq, lk, h, dh, dead_rows=1, seed=500 + i), 1)
+        else:
+            err = _bwd_error(torch, flash, _bwd_inputs(
+                torch, flash, b, lq, lk, h, dh, dead_rows=1, seed=600 + i), 1)
+        errs[f"{kernel} B={b} Lq={lq} Lk={lk} H={h} Dh={dh}"] = err
+    out["kernel_errors"] = errs
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    runs = {"one device": one["soft"], "one device (topk)": one["topk"], "k=1 NCCL": out["k1"],
+            **{f"k=2 {label}": out["k2"][label] for label, _a, _c in MESH_MODELS}}
+    for label, run in runs.items():
+        print(f"mesh model: {label}: {run['ms_per_step']:.3f} ms per step (median of steps "
+              f"2-{MESH_MODEL_STEPS}), collectives {run['collective_share']:.3f} of the wall, "
+              f"launches per step {run['launches_per_step'][-1]}, losses {run['losses']}; "
+              f"card: {card}", flush=True)
+    print(f"mesh model: the ring against the plain ring {json.dumps(out['ring_check'])}; "
+          f"new kernel shapes against their plain versions {json.dumps(errs)}; two-rank "
+          f"train-matcher wall {out['cli_wall_s']:.3f} s; phase wall {out['wall_s']:.3f} s "
+          f"(budget {MESH_MODEL_BUDGET_S:.0f} s); card: {card}", flush=True)
+    return out
+
+
 def main() -> int:
     global N_FILES, N_RETYPED
     import argparse
@@ -4603,6 +4960,8 @@ def main() -> int:
                         help="repository size (default: the rung5 size, 10,000 files)")
     parser.add_argument("--mesh-rank", default=None, metavar="INPUTS",
                         help="run as one rank of the mesh phase's two-rank group")
+    parser.add_argument("--mesh-model-rank", default=None, metavar="INPUTS",
+                        help="run as one rank of the mesh model phase's two-rank group")
     cli_args = parser.parse_args()
     N_FILES = cli_args.files
     N_RETYPED = min(N_RETYPED, N_FILES * N_RETYPED // 10_000)
@@ -4610,6 +4969,8 @@ def main() -> int:
         fail(f"the port's sources are not beside this script in {REPO}")
     if cli_args.mesh_rank:
         return mesh_child(cli_args.mesh_rank)
+    if cli_args.mesh_model_rank:
+        return mesh_model_child(cli_args.mesh_model_rank)
     sys.path.insert(0, str(REPO))
     import torch
 
@@ -4892,6 +5253,26 @@ def main() -> int:
             row["launches"]["mesh_cli_dp1"] = mesh_out["cli_dp1"]["launches"].get(row["name"], 0)
         print(f"mesh: {json.dumps(mesh_out)}", flush=True)
         t = phase("mesh", t)
+
+        # The mesh model: the matcher's training step over the model axes
+        # (one device, k = 1 over NCCL, k = 2 over gloo on the card through
+        # sp ring / sp Ulysses / dp / tp / pp / ep top-k) and train-matcher
+        # as two ranks.
+        checked = ({("flash_chunk", shape) for shape in path_shapes("flash_chunk")}
+                   | {("flash_chunk_bwd", shape) for shape in
+                      set(path_shapes("flash_chunk_bwd")) | inference})
+        model = run_mesh_model_phase(torch, card, checked)
+        model_runs = {"mesh_model_one_device": model["one_device"]["soft"],
+                      "mesh_model_one_device_topk": model["one_device"]["topk"],
+                      "mesh_model_k1": model["k1"],
+                      **{f"mesh_model_{label}": model["k2"][label]
+                         for label, _axis, _changes in MESH_MODELS}}
+        for row in rows:
+            for path, run in model_runs.items():
+                row["launches"][path] = sum(step.get(row["name"], 0)
+                                            for step in run["launches_per_step"])
+        print(f"mesh model: {json.dumps(model)}", flush=True)
+        t = phase("mesh model", t)
 
         # The merge driver: git merge in a clone; the driver's first start
         # runs the CLI in a child process on the card.

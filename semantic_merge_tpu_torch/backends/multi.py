@@ -48,6 +48,11 @@ class MultiBackend:
         self.device_crdt = any(getattr(b, "device_crdt", False) for b in backends)
         self.phases: Dict[str, float | int | str] = {}
 
+    @property
+    def mesh(self):
+        """The primary's engine mesh: the matcher embeds on it."""
+        return getattr(self.backends[0], "mesh", None)
+
     def _collect_phases(self) -> None:
         self.phases.clear()
         for i, b in enumerate(self.backends):

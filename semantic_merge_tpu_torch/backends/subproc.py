@@ -254,7 +254,12 @@ class SubprocessBackend:
                               cause=type(exc).__name__) from exc
         line = self._read_response_line(proc, method)
         if not line:
-            code = proc.poll()
+            # End of its output: the worker is exiting. Its pipe can close
+            # before the process is reaped, so wait a moment for the code.
+            try:
+                code = proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                code = None
             self._shutdown(reason="worker-exit")
             raise WorkerError(
                 f"worker exited (rc={code}) without answering {method}",

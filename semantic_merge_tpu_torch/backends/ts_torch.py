@@ -141,6 +141,11 @@ class DeviceDiffBackend:
     #: The engine mesh of the device programs (``None``: one device).
     _mesh = None
 
+    @property
+    def mesh(self):
+        """The engine mesh of the device programs (``None``: one device)."""
+        return self._mesh
+
     def __init__(self, device: str | None = None) -> None:
         self.device = resolve_device(device)
         obs_device.note_device(self.device)

@@ -240,7 +240,11 @@ last (``torch.save`` files, the newest three kept), resumes from the
 latest unless ``--no-resume``, and writes ``DIR/matcher.pt``, so
 ``[engine] matcher_ckpt_dir = DIR`` makes ``--signature-matcher`` score
 with the trained weights. The JAX package's orbax checkpoints are not
-read.
+read. Started as N ranks (``SEMMERGE_COORDINATOR``,
+``SEMMERGE_NUM_PROCESSES``, ``SEMMERGE_PROCESS_ID``), it trains on a
+mesh over them, factored as the JAX package factors its devices
+(``dp`` first); rank 0 writes the checkpoints (the full state, so one
+device resumes from them) and prints, every rank exits with its code.
 
 The commands run on the CUDA card; ``--device cpu`` runs them on the
 CPU instead. Without a card and without that flag they say why and exit,
@@ -478,18 +482,21 @@ def build_parser() -> argparse.ArgumentParser:
 _MATCHERS: Dict[tuple, object] = {}
 
 
-def _signature_matcher(args, engine, change_sig: bool, device):
+def _signature_matcher(args, engine, change_sig: bool, backend):
     """The embedding matcher when enabled (CLI flag or config): loaded
-    once per process and setting, so the merge service keeps it warm."""
+    once per process and setting, so the merge service keeps it warm; on
+    the engine mesh of ``backend`` (its primary's, when routed) when it
+    has one, so a sharded merge embeds its candidates sharded."""
     if not (change_sig and (args.signature_matcher or engine.signature_matcher)):
         return None
-    key = (engine.signature_threshold, engine.matcher_ckpt_dir, str(device))
+    mesh = getattr(backend, "mesh", None)  # a registered backend may have none
+    key = (engine.signature_threshold, engine.matcher_ckpt_dir, str(backend.device), id(mesh))
     matcher = _MATCHERS.get(key)
     if matcher is None:
         from .models.signature import EmbeddingSignatureMatcher
         matcher = _MATCHERS[key] = EmbeddingSignatureMatcher(
             threshold=engine.signature_threshold, ckpt_dir=engine.matcher_ckpt_dir,
-            device=device)
+            device=backend.device, mesh=mesh)
     return matcher
 
 
@@ -599,7 +606,7 @@ def semdiff(args: argparse.Namespace) -> SemdiffResult:
     config = full.engine
     backend = _build_backend(config.backend, full, args.device)
     change_sig = args.change_signature or config.change_signature
-    matcher = _signature_matcher(args, config, change_sig, backend.device)
+    matcher = _signature_matcher(args, config, change_sig, backend)
     tracer = _tracer(args, backend.device)
     try:
         t0 = time.perf_counter()
@@ -841,8 +848,7 @@ def _semantic_attempt(args: argparse.Namespace, config, backend,
     # Strict mode implies statement ops: the ConcurrentStmtEdit
     # category has no inputs without editStmtBlock extraction.
     stmt_ops = args.statement_ops or engine.statement_ops or strict
-    out = SemmergeResult(code=0, matcher=_signature_matcher(
-        args, engine, change_sig, backend.device))
+    out = SemmergeResult(code=0, matcher=_signature_matcher(args, engine, change_sig, backend))
     phases = out.phases
     t = time.perf_counter()
 
@@ -1122,17 +1128,26 @@ def fleet(args: argparse.Namespace) -> int:
 def train_matcher(args) -> int:
     """``train-matcher``: the JAX CLI's ``cmd_train_matcher``, on
     ``--device`` (the card unless ``cpu``; without one,
-    :class:`DeviceUnavailable` before any step)."""
+    :class:`DeviceUnavailable` before any step). Started as N ranks
+    under the ``SEMMERGE_*`` contract, it joins their process group and
+    trains on ``build_mesh()`` over them (the JAX factorization: ``dp``
+    first); rank 0 writes the checkpoints and prints, the others print
+    nothing."""
     from .models.training import TrainConfig, train_matcher as train
     device = resolve_device(args.device)
+    init_distributed(device=args.device)
+    mesh = None
+    if dist_world()[1] > 1:
+        from .parallel.mesh import build_mesh
+        mesh = build_mesh()
     cfg = TrainConfig(steps=args.steps, batch=args.batch, seq=args.seq,
                       seed=args.seed, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every)
-    _, _, loss, ran = train(cfg, device, resume=not args.no_resume)
+    _, _, loss, ran = train(cfg, device, mesh, resume=not args.no_resume)
     where = f", checkpoints in {args.ckpt_dir}" if args.ckpt_dir else ""
-    if ran == 0:  # e.g. resumed at or past --steps
+    if is_writer() and ran == 0:  # e.g. resumed at or past --steps
         print(f"nothing to do: checkpoint already at step {args.steps}{where}")
-    else:
+    elif is_writer():
         print(f"trained {ran} steps, final loss {loss:.4f}{where}")
     if args.eval:
         # Held-out pairing precision/recall, from the checkpoint just
@@ -1140,9 +1155,11 @@ def train_matcher(args) -> int:
         # trained=false so the number cannot masquerade as quality).
         from .models.evaluate import evaluate_matcher
         from .models.signature import EmbeddingSignatureMatcher
-        matcher = EmbeddingSignatureMatcher(ckpt_dir=args.ckpt_dir,
-                                            allow_untrained=True, device=device)
-        print(json.dumps({"matcher_eval": evaluate_matcher(matcher)}))
+        matcher = EmbeddingSignatureMatcher(ckpt_dir=args.ckpt_dir, allow_untrained=True,
+                                            device=device, mesh=mesh)
+        evaluation = evaluate_matcher(matcher)
+        if is_writer():
+            print(json.dumps({"matcher_eval": evaluation}))
     return 0
 
 

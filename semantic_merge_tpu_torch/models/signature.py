@@ -15,6 +15,13 @@ initializer, candidate order is stream order, and ties break by
 on the host, exactly as the JAX package does. Unlike the JAX package, a
 failure to build or launch the encoder's kernel raises: it never
 degrades to exact-key pairing.
+
+In a merge sharded over several ranks the matcher runs on the engine
+mesh (``mesh``), as the JAX package embeds under ``build_mesh()``: every
+rank holds its shards of the encoder, embeds its ``dp`` block of the
+candidate rows (padded to a multiple of ``dp``), and the embeddings are
+gathered on every rank, so each rank pairs the same candidates. The
+pairings, and so the op logs, are the one-device matcher's.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ from ..core.encode import bucket_size
 from ..device import resolve_device
 from .encoder import Encoder
 from .features import encode_batch
-from .matcher import MatcherConfig, embed, load_matcher_checkpoint
+from .matcher import MatcherConfig, embed_global, load_matcher_checkpoint, shard_state
 
 logger = logging.getLogger(__name__)
 
@@ -39,7 +46,8 @@ class EmbeddingSignatureMatcher:
     Lazy: the encoder is built (and its kernel compiled) on first use,
     so constructing the matcher costs nothing if no residual candidates
     appear. ``device`` is resolved at construction: CUDA unless
-    ``"cpu"`` is asked for.
+    ``"cpu"`` is asked for; with ``mesh``, the mesh's device (every rank
+    of the mesh then calls :meth:`pair` and :meth:`embed_texts` together).
     """
 
     def __init__(self, threshold: float = 0.85, ckpt_dir: str | None = None,
@@ -47,7 +55,7 @@ class EmbeddingSignatureMatcher:
                  max_candidates: int = 512,
                  allow_untrained: bool = False,
                  cfg: MatcherConfig | None = None,
-                 device: str | torch.device | None = None) -> None:
+                 device: str | torch.device | None = None, mesh=None) -> None:
         self.threshold = threshold
         #: Optional MatcherConfig override (default: the product
         #: config) — must match the checkpoint's shapes.
@@ -56,7 +64,9 @@ class EmbeddingSignatureMatcher:
         self.seed = seed
         self.seq_len = seq_len
         self.max_candidates = max_candidates
-        self.device = resolve_device(str(device) if device is not None else None)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(str(device) if device is not None else None)
         #: Whether parameters came from a checkpoint. Scoring with
         #: seeded-random parameters produces deterministic but
         #: semantically arbitrary pairings, so the product path refuses
@@ -75,11 +85,12 @@ class EmbeddingSignatureMatcher:
             if self._cfg_override is not None and ckpt_cfg != cfg:
                 raise ValueError(f"matcher checkpoint in {self.ckpt_dir} has config "
                                  f"{ckpt_cfg}, expected {cfg}")
-            encoder = Encoder(ckpt_cfg)
-            encoder.load_state_dict(state)
+            encoder = Encoder(ckpt_cfg, mesh=self.mesh)
+            encoder.load_state_dict(shard_state(state, self.mesh) if self.mesh else state)
             self.trained = True
         else:
-            encoder = Encoder(cfg, generator=torch.Generator().manual_seed(self.seed))
+            encoder = Encoder(cfg, generator=torch.Generator().manual_seed(self.seed),
+                              mesh=self.mesh)
         self.encoder = encoder.to(self.device).eval()
         return self.encoder
 
@@ -89,11 +100,14 @@ class EmbeddingSignatureMatcher:
         encoder = self._ensure()
         ids, mask = encode_batch(list(texts), encoder.cfg.vocab, self.seq_len)
         pad = bucket_size(max(len(texts), 1))  # stable padded shapes
+        if self.mesh is not None:
+            dp = self.mesh.axis_size("dp")
+            pad = -(-pad // dp) * dp
         ids = np.pad(ids, ((0, pad - len(texts)), (0, 0)))
         mask = np.pad(mask, ((0, pad - len(texts)), (0, 0)))
         with torch.inference_mode():
-            z = embed(encoder, torch.from_numpy(ids).long().to(self.device),
-                      torch.from_numpy(mask).to(self.device))
+            z = embed_global(encoder, torch.from_numpy(ids).long().to(self.device),
+                             torch.from_numpy(mask).to(self.device))
         return z.cpu().numpy()[:len(texts)]
 
     def pair(self, deletes: List[Tuple[object, str]],

@@ -17,6 +17,15 @@ which the signature matcher reads, so ``[engine] matcher_ckpt_dir`` can
 name a ``train-matcher --ckpt-dir``. A run resumes from the newest
 ``step_<N>.pt`` and fast-forwards the data stream, so that a resumed run
 equals an uninterrupted one.
+
+On a mesh (:func:`train_matcher`'s ``mesh``, every rank calling it
+together) every rank draws the same stream and trains its shards on its
+block (:func:`~semantic_merge_tpu_torch.models.matcher.make_sharded_train_step`);
+each checkpoint is the gathered full state in the same format, written
+by rank 0 alone (:func:`~semantic_merge_tpu_torch.parallel.distributed.is_writer`),
+and a resume cuts it into this mesh's shards. So a one-device run
+resumes from a sharded run's checkpoint and the other way round, on any
+mesh shape.
 """
 from __future__ import annotations
 
@@ -31,9 +40,11 @@ import torch
 
 from ..device import resolve_device
 from ..utils.loggingx import logger
-from .encoder import Encoder
+from ..parallel.distributed import is_writer
+from .encoder import Encoder, EncoderConfig, gather_tensor, param_shapes, param_specs, shard_tensor
 from .features import encode_batch
-from .matcher import MatcherConfig, optimizer, save_matcher_checkpoint, train_step
+from .matcher import (MatcherConfig, batch_on, gather_state, make_sharded_train_step,
+                      optimizer, save_matcher_checkpoint, shard_state, train_step)
 
 
 @dataclass(frozen=True)
@@ -97,36 +108,67 @@ def saved_steps(ckpt_dir) -> List[Tuple[int, pathlib.Path]]:
     return sorted(found)
 
 
-def _save(cfg: TrainConfig, step: int, encoder: Encoder, opt) -> None:
-    path = pathlib.Path(cfg.ckpt_dir)
-    out = path / f"step_{step:08d}.pt"
-    tmp = out.with_suffix(".tmp")
-    torch.save({"step": step,
-                "encoder_config": dataclasses.asdict(cfg.matcher.encoder),
-                "params": {k: v.detach().cpu() for k, v in encoder.state_dict().items()},
-                "optimizer": opt.state_dict()}, tmp)
-    tmp.replace(out)
-    save_matcher_checkpoint(path, encoder.state_dict(), cfg.matcher.encoder)
-    for _, old in saved_steps(path)[:-cfg.keep]:
-        old.unlink()
+def _moments(opt_state: dict, cfg: EncoderConfig, mesh, move) -> dict:
+    """An AdamW state dict with each parameter's moments passed through
+    ``move(tensor, spec, mesh)`` (the parameters in registration order)."""
+    names, specs = list(param_shapes(cfg)), param_specs()
+    state = {idx: {key: move(value, specs[names[idx]], mesh)
+                   if key in ("exp_avg", "exp_avg_sq") else value
+                   for key, value in entry.items()}
+             for idx, entry in opt_state["state"].items()}
+    return {**opt_state, "state": state}
 
 
-def _on_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(v).to(device, torch.long if k.startswith("tokens") else None)
-            for k, v in batch.items()}
+def _save(cfg: TrainConfig, step: int, encoder: Encoder, opt, mesh=None) -> None:
+    params, opt_state = encoder.state_dict(), opt.state_dict()
+    if mesh is not None:
+        params = gather_state(params, mesh)
+        opt_state = _moments(opt_state, cfg.matcher.encoder, mesh,
+                             lambda t, spec, m: gather_tensor(t, spec, m).cpu())
+    if is_writer():
+        path = pathlib.Path(cfg.ckpt_dir)
+        out = path / f"step_{step:08d}.pt"
+        tmp = out.with_suffix(".tmp")
+        torch.save({"step": step,
+                    "encoder_config": dataclasses.asdict(cfg.matcher.encoder),
+                    "params": {k: v.detach().cpu() for k, v in params.items()},
+                    "optimizer": opt_state}, tmp)
+        tmp.replace(out)
+        save_matcher_checkpoint(path, params, cfg.matcher.encoder)
+        for _, old in saved_steps(path)[:-cfg.keep]:
+            old.unlink()
+    if mesh is not None:
+        _barrier()
 
 
-def train_matcher(cfg: TrainConfig, device: str | torch.device | None = None, *,
+def _barrier() -> None:
+    """Every rank waits for the others (rank 0's files are then on disk)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
+def _same_config(stored: dict, cfg: EncoderConfig) -> bool:
+    """Whether a checkpoint's stored config is ``cfg`` (fields a file
+    written before they existed take their defaults)."""
+    return {**dataclasses.asdict(EncoderConfig()), **stored} == dataclasses.asdict(cfg)
+
+
+def train_matcher(cfg: TrainConfig, device: str | torch.device | None = None, mesh=None, *,
                   resume: bool = True):
     """Run the training loop on ``device`` (CUDA unless ``"cpu"`` is asked
-    for); returns ``(encoder, optimizer, last_loss, steps_run)``. With
-    ``ckpt_dir`` set, saves every ``ckpt_every`` steps and at the last
-    step, and resumes from the latest checkpoint when ``resume``. The
-    initial parameters come from the port's seeded initializer
-    (``cfg.seed``), whose values differ from ``jax.random``'s."""
-    dev = resolve_device(str(device) if device is not None else None)
-    encoder = Encoder(cfg.matcher.encoder,
-                      generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+    for), or on ``mesh`` (every rank of it calling this together, each
+    on the mesh's device); returns ``(encoder, optimizer, last_loss,
+    steps_run)``, on a mesh this rank's shards. With ``ckpt_dir`` set,
+    saves every ``ckpt_every`` steps and at the last step, and resumes
+    from the latest checkpoint when ``resume``. The initial parameters
+    come from the port's seeded initializer (``cfg.seed``; on a mesh,
+    the shards of the same values), whose values differ from
+    ``jax.random``'s."""
+    dev = mesh.device if mesh is not None else \
+        resolve_device(str(device) if device is not None else None)
+    encoder = Encoder(cfg.matcher.encoder, generator=torch.Generator().manual_seed(cfg.seed),
+                      mesh=mesh).to(dev)
     opt = optimizer(encoder, cfg.matcher)
     start_step = 0
     if cfg.ckpt_dir:
@@ -134,11 +176,15 @@ def train_matcher(cfg: TrainConfig, device: str | torch.device | None = None, *,
         saved = saved_steps(cfg.ckpt_dir)
         if resume and saved:
             data = torch.load(saved[-1][1], map_location="cpu", weights_only=True)
-            if data["encoder_config"] != dataclasses.asdict(cfg.matcher.encoder):
+            if not _same_config(data["encoder_config"], cfg.matcher.encoder):
                 raise ValueError(f"{saved[-1][1]}: encoder config {data['encoder_config']} "
                                  f"is not this run's {cfg.matcher.encoder}")
-            encoder.load_state_dict(data["params"])
-            opt.load_state_dict(data["optimizer"])
+            params, opt_state = data["params"], data["optimizer"]
+            if mesh is not None:
+                params = shard_state(params, mesh)
+                opt_state = _moments(opt_state, cfg.matcher.encoder, mesh, shard_tensor)
+            encoder.load_state_dict(params)
+            opt.load_state_dict(opt_state)
             start_step = data["step"]
             logger.info("resumed matcher training at step %d from %s",
                         start_step, cfg.ckpt_dir)
@@ -148,13 +194,18 @@ def train_matcher(cfg: TrainConfig, device: str | torch.device | None = None, *,
     # have seen uninterrupted.
     for _ in range(start_step):
         next(stream)
+    if mesh is not None:
+        step_fn = make_sharded_train_step(cfg.matcher, mesh)
+    else:
+        def step_fn(encoder, opt, batch):
+            return train_step(encoder, opt, batch_on(batch, dev), cfg.matcher)
 
     loss = None
     step = start_step
     for step in range(start_step + 1, cfg.steps + 1):
-        loss = train_step(encoder, opt, _on_device(next(stream), dev), cfg.matcher)
+        loss = step_fn(encoder, opt, next(stream))
         if cfg.ckpt_dir and (step % cfg.ckpt_every == 0 or step == cfg.steps):
-            _save(cfg, step, encoder, opt)
+            _save(cfg, step, encoder, opt, mesh)
     if loss is not None:
         loss = float(loss)
     return encoder, opt, loss, step - start_step

@@ -21,6 +21,14 @@ needs no group, so a one-rank mesh (``[engine] mesh_shape = "dp=1"``)
 runs the sharded programs with no process group at all, as a
 one-device JAX mesh runs ``shard_map``.
 
+The model half (the sharded encoder and its training) differentiates
+through its collectives: :meth:`~MergeMesh.gather`, the copy/reduce
+pair :meth:`~MergeMesh.copy` and :meth:`~MergeMesh.reduce`,
+:meth:`~MergeMesh.all_to_all` and :meth:`~MergeMesh.broadcast` are
+autograd functions, and :meth:`~MergeMesh.ring_shift` moves the ring's
+chunks (``batch_isend_irecv`` from axis position j to j + 1; the point-
+to-point calls take global ranks, mapped through ``layout``).
+
 The **batch mesh** (:class:`BatchMesh`) has no collective: the lanes of
 the batched fused program are independent, so it stays in one process
 (the merge service daemon) as a list of its local devices, lane block
@@ -191,17 +199,23 @@ class MergeMesh:
 
     def all_gather(self, t: torch.Tensor, axis: str, *, tiled: bool = False,
                    dim: int = 0) -> torch.Tensor:
-        """Every shard's ``t`` along ``axis``: stacked on a new leading
-        axis of size k, or with ``tiled`` concatenated along ``dim``."""
+        """Every shard's ``t`` along ``axis`` in axis order: stacked on a
+        new leading axis of size k, or with ``tiled`` concatenated along
+        ``dim``."""
         if self.axis_size(axis) == 1:
             return t.clone() if tiled else t[None].clone()
         import torch.distributed as dist
         group = self._group(axis)
-        src = t.to(_wire_device(t, group)).contiguous()
+        src = t.detach().to(_wire_device(t, group)).contiguous()
+        if src.dtype == torch.bool:  # gloo moves no bool: its bytes go as uint8
+            src = src.view(torch.uint8)
         parts = [torch.empty_like(src) for _ in range(self.axis_size(axis))]
         dist.all_gather(parts, src, group=group)
-        out = torch.cat(parts, dim=dim) if tiled else torch.stack(parts)
-        return out.to(t.device)
+        ordered = [None] * len(parts)
+        for g, pos in enumerate(self._group_order(axis)):
+            ordered[pos] = parts[g]
+        out = torch.cat(ordered, dim=dim) if tiled else torch.stack(ordered)
+        return (out.view(torch.bool) if t.dtype == torch.bool else out).to(t.device)
 
     def psum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Elementwise sum of ``t`` over ``axis``."""
@@ -219,6 +233,199 @@ class MergeMesh:
         out = t.detach().to(_wire_device(t, group), copy=True).contiguous()
         dist.all_reduce(out, op=getattr(dist.ReduceOp, op), group=group)
         return out.to(t.device)
+
+    # --- the model half: differentiable collectives on a named axis ------------
+    #
+    # The encoder keeps every activation either replicated over an axis
+    # (the same values on every rank of it) or split over it. The pair
+    # copy/reduce (Megatron's f and g) marks where a replicated tensor
+    # feeds a split computation and where the split partials are summed
+    # back; with it, the gradient of a replicated tensor arrives whole and
+    # equal on every rank of the axis. So the backward of ``gather`` is
+    # this shard's slice of that gradient (the psum's slice divided by
+    # k), and the backward of ``reduce`` is the identity.
+
+    def line(self, axis: str) -> list:
+        """The global ranks along ``axis`` through this rank, in axis
+        order (``torch.distributed``'s point-to-point calls and ``src``
+        arguments take global ranks)."""
+        coords = np.argwhere(self.layout == self.rank)[0]
+        ax = MESH_AXES.index(axis)
+        rest = tuple(int(c) for c in np.delete(coords, ax))
+        return [int(r) for r in np.moveaxis(self.layout, ax, -1)[rest]]
+
+    def _group_order(self, axis: str) -> list:
+        """Axis position of each group rank: a group ranks its members in
+        the order of their global ranks."""
+        line = self.line(axis)
+        return [line.index(r) for r in sorted(line)]
+
+    def _live(self, axes) -> tuple:
+        return tuple(a for a in ((axes,) if isinstance(axes, str) else axes)
+                     if self.axis_size(a) > 1)
+
+    def gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """Every shard's ``t`` concatenated along ``dim`` in axis order,
+        differentiable: the backward is this shard's slice of the
+        (replicated) gradient."""
+        if self.axis_size(axis) == 1:
+            return t
+        return _Gather.apply(t, self, axis, dim)
+
+    def reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Sum of the split partials ``t`` over ``axes`` (in f32, cast
+        back), differentiable: its result is replicated, so the backward
+        is the identity."""
+        axes = self._live(axes)
+        return _Reduce.apply(t, self, axes) if axes else t
+
+    def copy(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """A replicated ``t`` entering a computation split over ``axes``:
+        the identity forward, the sum of the split gradients backward."""
+        axes = self._live(axes)
+        return _Copy.apply(t, self, axes) if axes else t
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``t`` cut in k blocks along ``split_dim``, block j sent to axis
+        position j, the blocks received concatenated along ``concat_dim``
+        in axis order (JAX's tiled ``all_to_all``), differentiable: the
+        backward is the inverse exchange."""
+        if self.axis_size(axis) == 1:
+            return t
+        return _AllToAll.apply(t, self, axis, split_dim, concat_dim)
+
+    def broadcast(self, t: torch.Tensor, axis: str, src: int) -> torch.Tensor:
+        """Axis position ``src``'s ``t`` on every rank of ``axis`` (the
+        others pass a buffer of its shape), differentiable: every rank
+        computes the same from it, so ``src`` keeps its own gradient."""
+        if self.axis_size(axis) == 1:
+            return t
+        return _Broadcast.apply(t, self, axis, src)
+
+    def ring_shift(self, tensors, axis: str) -> list:
+        """``tensors`` sent from axis position j to j + 1 (mod k), the
+        previous position's received, in one message: JAX's ``ppermute``
+        with ``perm = [(j, (j + 1) % k)]``. Not differentiable."""
+        if self.axis_size(axis) == 1:
+            return list(tensors)
+        return self._shift_raw(list(tensors), axis)
+
+    def _sum_raw(self, t, axes):
+        """The sum over ``axes``, taken in f32 and cast back."""
+        out = t.float()
+        for axis in axes:
+            out = self._reduce(out, axis, "SUM")
+        return out.to(t.dtype)
+
+    def _a2a_raw(self, t, axis, split_dim, concat_dim):
+        import torch.distributed as dist
+        group = self._group(axis)
+        order = self._group_order(axis)
+        blocks = t.detach().chunk(self.axis_size(axis), dim=split_dim)
+        src = torch.stack([blocks[pos] for pos in order]).to(_wire_device(t, group))
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src.contiguous(), group=group)
+        got = [None] * len(order)
+        for g, pos in enumerate(order):
+            got[pos] = out[g]
+        return torch.cat(got, dim=concat_dim).to(t.device)
+
+    def _bcast_raw(self, t, axis, src):
+        import torch.distributed as dist
+        group = self._group(axis)
+        out = t.detach().to(_wire_device(t, group), copy=True).contiguous()
+        dist.broadcast(out, src=self.line(axis)[src], group=group)
+        return out.to(t.device)
+
+    def _shift_raw(self, tensors, axis):
+        import torch.distributed as dist
+        group = self._group(axis)
+        line = self.line(axis)
+        pos, k = line.index(self.rank), len(line)
+        buf, layout = _pack(tensors, _wire_device(tensors[0], group))
+        recv = torch.empty_like(buf)
+        ops = [dist.P2POp(dist.isend, buf, line[(pos + 1) % k], group),
+               dist.P2POp(dist.irecv, recv, line[(pos - 1) % k], group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return _unpack(recv.to(tensors[0].device), layout)
+
+
+def _pack(tensors, device):
+    """One uint8 buffer on ``device`` holding ``tensors``' bytes, each
+    segment starting on a 16-byte boundary (the kernels read 16-byte
+    aligned operands), and the layout to cut it back."""
+    layout, segments, offset = [], [], 0
+    for t in tensors:
+        raw = t.detach().to(device).contiguous().reshape(-1).view(torch.uint8)
+        pad = -raw.numel() % 16
+        layout.append((offset, raw.numel(), t.dtype, tuple(t.shape)))
+        segments.append(raw)
+        if pad:
+            segments.append(torch.zeros(pad, dtype=torch.uint8, device=device))
+        offset += raw.numel() + pad
+    return torch.cat(segments), layout
+
+
+def _unpack(buf, layout) -> list:
+    return [buf[off:off + n].view(dtype).view(shape) for off, n, dtype, shape in layout]
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, t.shape[dim]
+        return mesh.all_gather(t, axis, tiled=True, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pos = ctx.mesh.axis_index(ctx.axis)
+        return grad.narrow(ctx.dim, pos * ctx.n, ctx.n).contiguous(), None, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return mesh._sum_raw(t, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh._sum_raw(grad, ctx.axes), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        return mesh._a2a_raw(t, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return mesh._a2a_raw(grad, axis, concat_dim, split_dim), None, None, None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, src):
+        ctx.mine = mesh.axis_index(axis) == src
+        return mesh._bcast_raw(t, axis, src)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.mine else None), None, None, None
 
 
 def _factor(n: int, weights: Sequence[int]) -> list[int]:

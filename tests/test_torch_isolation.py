@@ -33,7 +33,8 @@
 - The multi-device modules (``parallel/mesh.py``,
   ``parallel/distributed.py``, ``ops/sharded.py``, the sharded parts of
   ``ops/fused.py`` and ``batch/dispatcher.py``) are among them and
-  import torch.
+  import torch; so are the model half's (``parallel/ring.py``,
+  ``parallel/ulysses.py``, ``models/``).
 - Without a CUDA device the CLI's three commands and ``train-matcher``
   (without ``--device cpu``) and
   ``chip_smoke.py`` exit non-zero and say why; neither carries on on
@@ -306,6 +307,22 @@ def test_mesh_modules_are_checked_and_stand_alone(module):
     assert path in _port_sources()
     roots = _imported_roots(path)
     assert "torch" in roots and not roots & set(FORBIDDEN), roots
+    text = path.read_text()
+    assert "semantic_merge_tpu." not in text.replace("semantic_merge_tpu_torch.", "")
+
+
+#: The model half over several devices: the ring over ``sp``, Ulysses,
+#: the sharded encoder, the sharded train step and scorer, training on a
+#: mesh and the signature matcher's sharded embedding.
+MODEL_MESH_MODULES = ("parallel/ring.py", "parallel/ulysses.py", "models/encoder.py",
+                      "models/matcher.py", "models/training.py", "models/signature.py")
+
+
+@pytest.mark.parametrize("module", MODEL_MESH_MODULES)
+def test_model_mesh_modules_are_checked_and_stand_alone(module):
+    path = PORT / module
+    assert path in _port_sources()
+    assert not _imported_roots(path) & set(FORBIDDEN)
     text = path.read_text()
     assert "semantic_merge_tpu." not in text.replace("semantic_merge_tpu_torch.", "")
 

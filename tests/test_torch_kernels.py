@@ -9,9 +9,12 @@ and are marked ``cuda``; without a card they skip. On the card:
 
 They import no JAX (``--noconftest`` skips the suite's JAX set-up), so
 they run where only PyTorch is installed. On the CPU, the wrapper's
-plain path and the launch counter are tested.
+plain path and the launch counter are tested, and the ring of two steps
+(its ranks as threads of one process, the shifts done locally) against
+the one-device attention of the whole sequence.
 """
 import hashlib
+import threading
 
 import numpy as np
 import pytest
@@ -26,7 +29,7 @@ from semantic_merge_tpu_torch.parallel.flash import (flash_attention_backward_pl
                                                      flash_chunk_attention,
                                                      flash_chunk_attention_plain,
                                                      flash_chunk_backward)
-from semantic_merge_tpu_torch.parallel.ring import ring_attention
+from semantic_merge_tpu_torch.parallel.ring import ring_attention, ring_backward, ring_forward
 
 
 @pytest.fixture
@@ -149,6 +152,101 @@ def test_ring_attention_backward_launches_the_kernel(card):
     assert kernels.LAUNCHES["flash_chunk"] == before["flash_chunk"] + 1
     assert kernels.LAUNCHES["flash_chunk_bwd"] == before["flash_chunk_bwd"] + 1
     assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+class _LocalRing:
+    """``n`` ranks of a ring as threads of one process: a shift hands each
+    rank's tensors to the next, with no process group."""
+
+    def __init__(self, n):
+        self.n, self.slots, self.barrier = n, [None] * n, threading.Barrier(n)
+
+    def shifter(self, pos):
+        def shift(tensors):
+            self.slots[pos] = [t.clone() for t in tensors]
+            self.barrier.wait()
+            got = self.slots[(pos - 1) % self.n]
+            self.barrier.wait()
+            return got
+        return shift
+
+    def run(self, fn):
+        """``fn(pos, shift)`` on every rank at once; the results in rank order."""
+        out, errors = [None] * self.n, []
+
+        def body(pos):
+            try:
+                out[pos] = fn(pos, self.shifter(pos))
+            except BaseException as exc:  # noqa: BLE001 (re-raised below)
+                errors.append(exc)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(pos,)) for pos in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+def _ring_inputs(device, b=4, l=128, h=8, dh=32, seed=5):
+    """bf16 q, k, v, dO and a mask with a row whose second half (on two
+    ranks, a whole chunk) is padding and a row with every key masked."""
+    q, k, v, mask = _inputs(b, l, l, h, dh, device, seed)
+    mask[0, l // 2:] = False
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(b, l, h, dh, generator=g).to(torch.bfloat16).to(device)
+    return q, k, v, mask, do
+
+
+def _two_step_ring(q, k, v, mask, do, chunk, chunk_bwd):
+    """The ring over two ranks: every rank's (o, dq, dk, dv), f32,
+    concatenated back along the sequence."""
+    n, l = 2, q.shape[1] // 2
+    blocks = [[t[:, i * l:(i + 1) * l].contiguous() for t in (q, k, v, mask, do)]
+              for i in range(n)]
+    ring = _LocalRing(n)
+
+    def rank(pos, shift):
+        q_, k_, v_, m_, do_ = blocks[pos]
+        o, mx, lx = ring_forward(q_, k_, v_, m_, n, shift, chunk)
+        return (o, *ring_backward(q_, k_, v_, m_, mx, lx, o, do_, n, shift, chunk_bwd))
+
+    parts = ring.run(rank)
+    return [torch.cat([p[i].float() for p in parts], dim=1) for i in range(4)]
+
+
+@pytest.mark.cuda
+def test_two_step_ring_on_the_card_matches_its_plain_version(card):
+    inputs = _ring_inputs(card)
+    before = dict(kernels.LAUNCHES)
+    got = _two_step_ring(*inputs, flash_chunk_attention, flash_chunk_backward)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_chunk"] == before["flash_chunk"] + 4  # 2 ranks x 2 steps
+    assert kernels.LAUNCHES["flash_chunk_bwd"] == before["flash_chunk_bwd"] + 4
+    want = _two_step_ring(*inputs, flash_chunk_attention_plain, flash_attention_backward_plain)
+    mags = _two_step_ring(*inputs, flash_chunk_attention_plain, lambda *args: tuple(
+        t.abs() for t in flash_attention_backward_plain(*args)))[1:]
+    # o: f32 from the kernel's partials (atol/rtol 1e-3); dq, dk, dv: each
+    # element sums two launches' bf16 results, each held at atol/rtol 1e-2
+    # (the backward's test), so within 2 * 1e-2 + 1e-2 * sum |plain step|.
+    torch.testing.assert_close(got[0], want[0], atol=1e-3, rtol=1e-3, msg="o")
+    for name, g_, w_, mag in zip(("dq", "dk", "dv"), got[1:], want[1:], mags):
+        assert bool(((g_ - w_).abs() <= 2e-2 + 1e-2 * mag).all()), name
+
+
+def test_two_step_ring_matches_the_one_device_attention():
+    q, k, v, mask, do = _ring_inputs(torch.device("cpu"))
+    o, dq, dk, dv = _two_step_ring(q, k, v, mask, do, flash_chunk_attention_plain,
+                                   flash_attention_backward_plain)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = ring_attention(*leaves, mask)
+    want.backward(do.float())
+    torch.testing.assert_close(o, want.detach(), atol=1e-5, rtol=1e-5)
+    for name, got, leaf in zip(("dq", "dk", "dv"), (dq, dk, dv), leaves):
+        torch.testing.assert_close(got, leaf.grad, atol=1e-5, rtol=1e-5, msg=name)
 
 
 @pytest.mark.cuda
